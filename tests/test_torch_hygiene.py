@@ -1,0 +1,73 @@
+"""Rules the port keeps: it imports neither JAX nor the JAX package, and its
+entry points run on the CUDA device unless the caller names another, so
+without one the default raises instead of quietly running on the CPU."""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import treemorph_tpu_torch
+from treemorph_tpu_torch.evaluation.model_loaders import Predictor, build_model
+from treemorph_tpu_torch.pipeline.predict import predict_single
+from treemorph_tpu_torch.pipeline.run import run_pipeline
+from treemorph_tpu_torch.pipeline.upsample import upsample_device
+from treemorph_tpu_torch.pipeline import upsample
+
+PACKAGE = os.path.dirname(treemorph_tpu_torch.__file__)
+REPO = os.path.dirname(PACKAGE)
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "treemorph_tpu")
+
+
+def imported_modules(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def port_sources():
+    for root, _, files in os.walk(PACKAGE):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    sources = list(port_sources())
+    assert len(sources) > 20
+    for path in sources:
+        for mod in imported_modules(path):
+            root = mod.split(".")[0]
+            assert root not in FORBIDDEN, f"{path} imports {mod}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
+    cloud = np.random.default_rng(0).normal(size=(64, 3)).astype(np.float32)
+    model = build_model("treelearn", device="cpu", channels=8,
+                        num_blocks=1)
+    calls = [
+        lambda: build_model("treelearn", channels=8, num_blocks=1),
+        lambda: Predictor("treelearn", model),
+        lambda: predict_single(cloud),
+        lambda: upsample(cloud, min_points=100),
+        lambda: upsample_device(cloud, min_points=100),
+        lambda: run_pipeline({"general": {"input_dir": str(tmp_path),
+                                          "output_dir": str(tmp_path)},
+                              "stage1": {"model_type": "treelearn"}}),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # named, the CPU is used
+    assert Predictor("treelearn", model, "cpu").device.type == "cpu"

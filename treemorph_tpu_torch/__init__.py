@@ -1,0 +1,25 @@
+"""treemorph_tpu_torch — the PyTorch + CUDA port of ``treemorph_tpu`` for one
+NVIDIA H100.
+
+The package mirrors ``treemorph_tpu``'s layout module for module, so each
+function's counterpart is found at the same path. It imports ``torch`` and
+never ``jax``, and nothing of ``treemorph_tpu``: what it needs from there it
+keeps as its own copy. The JAX package stays the reference the port is held
+against (``tests/test_torch_*.py``).
+
+Layout:
+    csrc/        hand-written CUDA kernels (built with nvcc at first use)
+    ops/         voxelize, rulebook + gather conv, band conv, z-order codes
+    models/      TreeLearn as torch modules + the flax weight bridge
+    evaluation/  build_model / Predictor
+    pipeline/    stage1 predict / stage2 upsample / stage3 QSM fit / run
+    native/      the QSM stage's C++ core behind ctypes
+    utils/       host IO, fitting helpers, mesh export, the CSV table
+    fixtures/    synthetic QSM / tree-cloud generators
+
+Entry points (``build_model``, ``Predictor``, ``predict_single``,
+``upsample``, ``run_pipeline``) run on the CUDA device unless the caller
+passes ``device="cpu"``; without a CUDA device the default raises.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,413 @@
+"""TreeLearn: submanifold sparse U-Net with offset/semantic heads, as torch
+modules.
+
+Port of ``treemorph_tpu/models/treelearn.py`` (reference
+``Modules/TreeLearn/TreeLearn.py`` + ``blocks.py``): voxelize -> input
+submanifold conv -> recursive U-Net (channels i*C, stride-2 down / inverse
+up convs, pairs of residual blocks, skip concat) -> BN+ReLU -> per-point
+unprojection -> MLP heads. Every resolution level builds one rulebook (or
+band plan) shared by all its submanifold convs (the reference's
+``indice_key``).
+
+Module and parameter names follow the flax tree (``block0``,
+``MaskedBatchNorm_0``, ``SubMConv_1``, ``down_kernel``, ``u``, ...) so
+:func:`treemorph_tpu_torch.models.convert.flax_to_state_dict` maps one to
+the other by path. Submanifold kernels keep the JAX layout
+``(K, Cin, Cout)`` in kernel-offset order (dz fastest).
+
+Engines: ``"gather"`` (rulebook gather-matmul convs) and ``"band"`` (the
+band conv kernel, :mod:`treemorph_tpu_torch.ops.bandconv`). Rulebook
+lookups are exact, so there is no ``verify_coords`` switch.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ..ops.bandconv import choose_band_plan
+from ..ops.sparse import (
+    build_downsample,
+    build_rulebook,
+    down_conv_apply,
+    inverse_conv_apply,
+    subm_conv_apply,
+)
+from ..ops.voxelize import voxelize_treelearn_features
+
+ENGINES = ("gather", "band")
+_NOT_PORTED_ENGINES = ("pencil", "brick", "zpack")
+
+
+def _conv_dtype(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def _fan_in_normal_(w: torch.Tensor, generator) -> None:
+    """flax ``variance_scaling(1.0, "fan_in", "normal")``: a truncated
+    normal (+-2 std) with variance 1/fan_in, fan_in = product of all dims
+    but the last."""
+    fan_in = math.prod(w.shape[:-1])
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                          generator=generator)
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm over valid rows only (padding excluded from statistics).
+    Momentum 0.1 (new = 0.9 old + 0.1 batch), eps 1e-4 (the reference's
+    norm_fn); eval uses the running statistics."""
+
+    def __init__(self, channels: int, momentum: float = 0.1,
+                 eps: float = 1e-4):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x, mask):
+        if self.training:
+            w = mask.to(torch.float32)[:, None]
+            cnt = w.sum().clamp(min=1.0)
+            xw = torch.where(mask[:, None], x, 0.0)
+            mean = xw.sum(dim=0) / cnt
+            centered = torch.where(mask[:, None], x - mean, 0.0)
+            var = centered.square().sum(dim=0) / cnt
+            with torch.no_grad():
+                self.running_mean.mul_(1 - self.momentum).add_(
+                    self.momentum * mean
+                )
+                self.running_var.mul_(1 - self.momentum).add_(
+                    self.momentum * var
+                )
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean) * torch.rsqrt(var + self.eps)
+        return y * self.weight + self.bias
+
+
+class SubMConv(nn.Module):
+    """Submanifold conv layer over a precomputed rulebook or band plan
+    (no bias)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, conv_dtype: str = "float32"):
+        super().__init__()
+        self.conv_dtype = conv_dtype
+        self.kernel = nn.Parameter(
+            torch.empty(kernel_size**3, in_channels, out_channels)
+        )
+
+    def forward(self, feats, ctx, valid):
+        return subm_conv_apply(
+            feats, self.kernel, ctx, valid,
+            compute_dtype=_conv_dtype(self.conv_dtype),
+        )
+
+
+class ResidualBlock(nn.Module):
+    """Pre-activation residual pair of submanifold convs
+    (reference TreeLearn/blocks.py:44-81)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, conv_dtype: str = "float32"):
+        super().__init__()
+        if in_channels != out_channels:
+            self.shortcut = nn.Parameter(
+                torch.empty(in_channels, out_channels)
+            )
+        else:
+            self.shortcut = None
+        self.MaskedBatchNorm_0 = MaskedBatchNorm(in_channels)
+        self.SubMConv_0 = SubMConv(in_channels, out_channels, kernel_size,
+                                   conv_dtype)
+        self.MaskedBatchNorm_1 = MaskedBatchNorm(out_channels)
+        self.SubMConv_1 = SubMConv(out_channels, out_channels, kernel_size,
+                                   conv_dtype)
+
+    def forward(self, feats, ctx, valid):
+        identity = feats if self.shortcut is None else feats @ self.shortcut
+        x = torch.relu(self.MaskedBatchNorm_0(feats, valid))
+        x = self.SubMConv_0(x, ctx, valid)
+        x = torch.relu(self.MaskedBatchNorm_1(x, valid))
+        x = self.SubMConv_1(x, ctx, valid)
+        return x + identity
+
+
+class UBlock(nn.Module):
+    """Recursive U-Net over voxel levels (reference blocks.py:83-151).
+
+    ``level_shrink`` divides the capacity of each coarser level (real
+    clouds coarsen >= 2x per stride-2 level); voxels beyond it are dropped
+    and counted in the returned ``dropped``."""
+
+    def __init__(self, n_planes, block_reps: int = 2, kernel_size: int = 3,
+                 level_shrink: int = 2, min_capacity: int = 256,
+                 engine: str = "gather", conv_dtype: str = "float32"):
+        super().__init__()
+        self.n_planes = list(n_planes)
+        self.block_reps = block_reps
+        self.kernel_size = kernel_size
+        self.level_shrink = level_shrink
+        self.min_capacity = min_capacity
+        self.engine = engine
+        self.conv_dtype = conv_dtype
+        c0 = self.n_planes[0]
+        for i in range(block_reps):
+            self.add_module(
+                f"block{i}",
+                ResidualBlock(c0, c0, kernel_size, conv_dtype),
+            )
+        if len(self.n_planes) > 1:
+            c1 = self.n_planes[1]
+            self.MaskedBatchNorm_0 = MaskedBatchNorm(c0)
+            self.down_kernel = nn.Parameter(torch.empty(8, c0, c1))
+            self.u = UBlock(
+                self.n_planes[1:], block_reps, kernel_size, level_shrink,
+                min_capacity, engine, conv_dtype,
+            )
+            self.MaskedBatchNorm_1 = MaskedBatchNorm(c1)
+            self.up_kernel = nn.Parameter(torch.empty(8, c1, c0))
+            for i in range(block_reps):
+                self.add_module(
+                    f"tail{i}",
+                    ResidualBlock(
+                        2 * c0 if i == 0 else c0, c0, kernel_size,
+                        conv_dtype,
+                    ),
+                )
+
+    def _make_ctx(self, coords, valid):
+        """Per-level conv context shared by head and tail blocks: the
+        rulebook, or the band plan sized for the level's widest conv (the
+        tail's first, 2C -> C after the skip concat)."""
+        rb = build_rulebook(coords, valid, self.kernel_size)
+        if self.engine == "band":
+            c0 = self.n_planes[0]
+            return choose_band_plan(
+                rb, valid, 2 * c0, c0, _conv_dtype(self.conv_dtype)
+            )
+        return rb
+
+    def _run_blocks(self, x, ctx, valid, prefix: str):
+        for i in range(self.block_reps):
+            x = getattr(self, f"{prefix}{i}")(x, ctx, valid)
+        return x
+
+    def forward(self, feats, coords, valid):
+        """Returns (features, dropped) — ``dropped`` totals the voxels
+        lost to level caps across this and all coarser levels."""
+        ctx = self._make_ctx(coords, valid)
+        dropped = torch.zeros((), dtype=torch.int64, device=feats.device)
+        x = self._run_blocks(feats, ctx, valid, "block")
+        if len(self.n_planes) > 1:
+            identity = x
+            d = torch.relu(self.MaskedBatchNorm_0(x, valid))
+            m = coords.shape[0]
+            cap = min(max(m // self.level_shrink, self.min_capacity), m)
+            ds = build_downsample(coords, valid, cap)
+            dtype = _conv_dtype(self.conv_dtype)
+            d = down_conv_apply(d, self.down_kernel, ds, valid,
+                                compute_dtype=dtype)
+            dropped = dropped + (valid & (ds.parent >= cap)).sum()
+            d, d_dropped = self.u(d, ds.coarse_coords, ds.coarse_valid)
+            dropped = dropped + d_dropped
+            u = torch.relu(self.MaskedBatchNorm_1(d, ds.coarse_valid))
+            u = inverse_conv_apply(u, self.up_kernel, ds, valid,
+                                   compute_dtype=dtype)
+            x = torch.cat([identity, u], dim=-1)
+            x = self._run_blocks(x, ctx, valid, "tail")
+        return x, dropped
+
+
+class MLPHead(nn.Module):
+    """Linear/BN/ReLU head with a small-variance final layer
+    (reference TreeLearn/blocks.py:10-28)."""
+
+    def __init__(self, channels: int, out_channels: int,
+                 num_layers: int = 2):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers - 1):
+            self.add_module(f"Dense_{i}", nn.Linear(channels, channels))
+            self.add_module(f"MaskedBatchNorm_{i}", MaskedBatchNorm(channels))
+        self.add_module(
+            f"Dense_{num_layers - 1}", nn.Linear(channels, out_channels)
+        )
+
+    def forward(self, x, mask):
+        for i in range(self.num_layers - 1):
+            x = getattr(self, f"Dense_{i}")(x)
+            x = torch.relu(getattr(self, f"MaskedBatchNorm_{i}")(x, mask))
+        return getattr(self, f"Dense_{self.num_layers - 1}")(x)
+
+
+class TreeLearnBackbone(nn.Module):
+    """Voxelize -> sparse U-Net -> per-point features.
+
+    The level-0 voxel capacity is ``voxel_capacity`` or
+    ``max(P // voxel_capacity_divisor, 256)``; overflow voxels are dropped
+    and their points masked (``dropped_points``)."""
+
+    def __init__(self, channels=32, num_blocks=7, kernel_size=3,
+                 use_feats=True, use_coords=False, voxel_size=0.1,
+                 batch_size=1, voxel_capacity_divisor=1, engine="gather",
+                 conv_dtype="float32", voxel_capacity=None, dim_feat=1):
+        super().__init__()
+        self.channels = channels
+        self.kernel_size = kernel_size
+        self.use_feats = use_feats
+        self.use_coords = use_coords
+        self.voxel_size = voxel_size
+        self.batch_size = batch_size
+        self.voxel_capacity_divisor = voxel_capacity_divisor
+        self.engine = engine
+        self.conv_dtype = conv_dtype
+        self.voxel_capacity = voxel_capacity
+        self.input_conv = SubMConv(dim_feat + 3, channels, kernel_size,
+                                   conv_dtype)
+        n_planes = [channels * (i + 1) for i in range(num_blocks)]
+        self.unet = UBlock(n_planes, 2, kernel_size, engine=engine,
+                           conv_dtype=conv_dtype)
+        self.output_norm = MaskedBatchNorm(channels)
+
+    def forward(self, coords, feats, batch_ids, valid):
+        p = coords.shape[0]
+        capacity = self.voxel_capacity or max(
+            p // self.voxel_capacity_divisor, 256
+        )
+        vox = voxelize_treelearn_features(
+            coords, feats, batch_ids, valid, self.voxel_size,
+            self.batch_size, use_coords=self.use_coords,
+            use_feats=self.use_feats, capacity=min(capacity, p),
+        )
+        v_coords, v_valid = vox.voxel_coords, vox.voxel_valid
+        rulebook = build_rulebook(v_coords, v_valid, self.kernel_size)
+        if self.engine == "band":
+            rulebook = choose_band_plan(
+                rulebook, v_valid, vox.voxel_feats.shape[-1], self.channels,
+                _conv_dtype(self.conv_dtype),
+            )
+        x = self.input_conv(vox.voxel_feats, rulebook, v_valid)
+        x, dropped_voxels = self.unet(x, v_coords, v_valid)
+        x = torch.relu(self.output_norm(x, v_valid))
+
+        # voxel -> point unprojection (reference forward_head,
+        # TreeLearn.py:132-144); p2v == capacity marks overflow points
+        cap = vox.voxel_feats.shape[0]
+        p2v = vox.point_to_voxel
+        in_range = p2v < cap
+        dropped_points = (valid & ~in_range).sum()
+        point_feats = x[p2v.clamp(0, cap - 1)] * (valid & in_range)[:, None]
+        return point_feats, vox, dropped_points, dropped_voxels
+
+
+class TreeLearn(nn.Module):
+    """Sparse U-Net backbone + per-point heads.
+
+    Input is the flat voxel-model layout: (P,) concatenated clouds with
+    batch ids and validity. Returns per-point predictions (padding rows
+    zeroed). With a separate noise cloud, the semantic head reads a second
+    backbone pass over it with shared weights (reference
+    TreeLearn.py:98-105, 137-141)."""
+
+    def __init__(self, channels=32, num_blocks=7, kernel_size=3, dim_feat=1,
+                 use_feats=True, use_coords=False, voxel_size=0.1,
+                 batch_size=1, voxel_capacity_divisor=1, engine="gather",
+                 conv_dtype="float32", voxel_capacity=None):
+        super().__init__()
+        if engine in _NOT_PORTED_ENGINES:
+            raise NotImplementedError(
+                f"TreeLearn engine {engine!r} is not ported; use "
+                f"one of {ENGINES}"
+            )
+        if engine not in ENGINES:
+            raise ValueError(f"unknown TreeLearn engine {engine!r}")
+        self.config = dict(
+            channels=channels, num_blocks=num_blocks,
+            kernel_size=kernel_size, dim_feat=dim_feat, use_feats=use_feats,
+            use_coords=use_coords, voxel_size=voxel_size,
+            batch_size=batch_size,
+            voxel_capacity_divisor=voxel_capacity_divisor, engine=engine,
+            conv_dtype=conv_dtype, voxel_capacity=voxel_capacity,
+        )
+        self.backbone = TreeLearnBackbone(
+            channels, num_blocks, kernel_size, use_feats, use_coords,
+            voxel_size, batch_size, voxel_capacity_divisor, engine,
+            conv_dtype, voxel_capacity, dim_feat,
+        )
+        self.semantic_head = MLPHead(channels, 2)
+        self.offset_head = MLPHead(channels, 3)
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """flax's initializers: fan-in truncated normals for conv kernels
+        and shortcuts, Xavier-uniform hidden Dense layers, N(0, 0.01) final
+        Dense layers with zero bias; BN scale 1, bias 0, statistics (0, 1).
+        """
+        with torch.no_grad():
+            for name, mod in self.named_modules():
+                if isinstance(mod, MaskedBatchNorm):
+                    mod.weight.fill_(1.0)
+                    mod.bias.zero_()
+                    mod.running_mean.zero_()
+                    mod.running_var.fill_(1.0)
+                elif isinstance(mod, SubMConv):
+                    _fan_in_normal_(mod.kernel, generator)
+                elif isinstance(mod, ResidualBlock):
+                    if mod.shortcut is not None:
+                        _fan_in_normal_(mod.shortcut, generator)
+                elif isinstance(mod, UBlock) and len(mod.n_planes) > 1:
+                    _fan_in_normal_(mod.down_kernel, generator)
+                    _fan_in_normal_(mod.up_kernel, generator)
+                elif isinstance(mod, MLPHead):
+                    last = mod.num_layers - 1
+                    for i in range(mod.num_layers):
+                        lin = getattr(mod, f"Dense_{i}")
+                        if i < last:
+                            nn.init.xavier_uniform_(lin.weight,
+                                                    generator=generator)
+                        else:
+                            nn.init.normal_(lin.weight, std=0.01,
+                                            generator=generator)
+                        lin.bias.zero_()
+        return self
+
+    def clone(self, **overrides) -> "TreeLearn":
+        """A model with this one's configuration, ``overrides`` applied, and
+        a copy of its weights (weights do not depend on capacities)."""
+        cfg = dict(self.config, **overrides)
+        model = TreeLearn(**cfg)
+        model.load_state_dict(self.state_dict())
+        ref = next(self.parameters())
+        return model.to(ref.device).train(self.training)
+
+    def forward(self, coords, feats, batch_ids, valid, noise_coords=None,
+                noise_feats=None, noise_batch_ids=None, noise_valid=None):
+        point_feats, vox, dropped_points, dropped_voxels = self.backbone(
+            coords, feats, batch_ids, valid
+        )
+        if noise_coords is not None:
+            noise_point_feats, _, n_dp, n_dv = self.backbone(
+                noise_coords, noise_feats, noise_batch_ids, noise_valid
+            )
+            dropped_points = dropped_points + n_dp
+            dropped_voxels = dropped_voxels + n_dv
+            sem = self.semantic_head(noise_point_feats, noise_valid)
+        else:
+            sem = self.semantic_head(point_feats, valid)
+        off = self.offset_head(point_feats, valid)
+        return {
+            "backbone_feats": point_feats,
+            "semantic_prediction_logits": sem,
+            "offset_predictions": off,
+            "point_to_voxel": vox.point_to_voxel,
+            "num_voxels": vox.num_voxels,
+            # static-cap overflow diagnostics (both 0 in healthy configs)
+            "dropped_points": dropped_points,
+            "dropped_voxels": dropped_voxels,
+        }

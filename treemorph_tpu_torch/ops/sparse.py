@@ -1,0 +1,231 @@
+"""Submanifold sparse 3D convolution: rulebook, gather engine, strided
+down/inverse convs.
+
+Port of the main-path part of ``treemorph_tpu/ops/sparse.py``:
+
+1. **Rulebook**: for each voxel and each kernel offset, the index of the
+   neighbor voxel (or M, a zero pad row), shared by every submanifold conv
+   at one level. The JAX package looks neighbors up in a dual-hash table;
+   here the lookup is exact: the packed lexicographic keys of the level are
+   sorted once and every query is one ``searchsorted``. The result equals
+   the JAX rulebook built with ``verify_coords=True``, including the
+   antisymmetry ``rb[i, k] == j  <=>  rb[j, K-1-k] == i``.
+2. **Gather engine** (:func:`_subm_conv_impl`):
+   ``out = sum_k feats[rb[:, k]] @ W[k]`` with f32 accumulation; the band
+   engine (:mod:`.bandconv`) falls back to it when its plan overflows.
+3. **Strided convs**: the stride-2 coarse level comes from the same sorted
+   dedup as :mod:`.voxelize` and records each fine voxel's ``parent`` and
+   child octant, so the down conv is a scatter-add and the inverse conv a
+   gather.
+
+Index tensors are int64 (torch's index type); ``valid`` masks thread
+through every step.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .voxelize import COORD_BITS, first_rows_of_runs, pack_keys, sorted_runs
+
+
+def kernel_offsets(kernel_size: int = 3, device=None) -> torch.Tensor:
+    """(K, 3) integer offsets of a cubic kernel, centered for odd sizes,
+    dz fastest."""
+    r = range(kernel_size)
+    shift = (kernel_size - 1) // 2
+    offs = [
+        (dx - shift, dy - shift, dz - shift)
+        for dx in r
+        for dy in r
+        for dz in r
+    ]
+    return torch.tensor(offs, dtype=torch.int64, device=device)
+
+
+def build_rulebook(
+    coords: torch.Tensor,
+    valid: torch.Tensor,
+    kernel_size: int = 3,
+) -> torch.Tensor:
+    """(M, K) int64 neighbor indices for a submanifold conv; M marks
+    'missing'. ``coords`` is (M, 4) (b, x, y, z) with unique valid rows."""
+    m = coords.shape[0]
+    if kernel_size % 2 != 1:
+        raise ValueError("submanifold rulebooks need odd kernels")
+    dev = coords.device
+    keys = pack_keys(coords, valid)
+    s_key, perm = torch.sort(keys)
+    offs = kernel_offsets(kernel_size, dev)
+    k = offs.shape[0]
+    half = k // 2
+    c = coords.to(torch.int64)
+    limit = 1 << COORD_BITS
+    columns = []
+    for j in range(k):
+        if j == half:  # identity center column
+            columns.append(
+                torch.where(valid, torch.arange(m, device=dev), m)
+            )
+            continue
+        q = c.clone()
+        q[:, 1:] += offs[j]
+        in_range = ((q[:, 1:] >= 0) & (q[:, 1:] < limit)).all(dim=1)
+        qkey = (
+            (q[:, 0] << (3 * COORD_BITS))
+            | (q[:, 1] << (2 * COORD_BITS))
+            | (q[:, 2] << COORD_BITS)
+            | q[:, 3]
+        )
+        pos = torch.searchsorted(s_key, qkey).clamp(max=m - 1)
+        hit = (s_key[pos] == qkey) & in_range & valid
+        columns.append(torch.where(hit, perm[pos], m))
+    return torch.stack(columns, dim=1)
+
+
+def subm_conv_apply(
+    feats: torch.Tensor,  # (M, Cin)
+    weights: torch.Tensor,  # (K, Cin, Cout)
+    rulebook,  # (M, K) rulebook, or a BandPlan
+    valid: torch.Tensor,  # (M,)
+    compute_dtype=None,
+) -> torch.Tensor:
+    """Submanifold conv: out[i] = sum_k W[k] @ feats[nbr_k(i)].
+
+    ``rulebook`` may be a :class:`~.bandconv.BandPlan`, selecting the band
+    engine (same weights layout). ``compute_dtype=torch.bfloat16`` rounds
+    features (and, on the gather engine, weights) to bf16; accumulation
+    stays float32."""
+    from .bandconv import BandPlan, band_subm_conv_apply
+
+    dtype = compute_dtype or feats.dtype
+    if isinstance(rulebook, BandPlan):
+        return band_subm_conv_apply(
+            feats, weights, rulebook, valid, compute_dtype=dtype
+        )
+    return _subm_conv_impl(dtype, feats, weights, rulebook, valid)
+
+
+def _subm_conv_impl(dtype, feats, weights, rulebook, valid):
+    """Gather engine: K gathers + (M, Cin) x (Cin, Cout) products. bf16
+    operands are rounded first and multiplied in f32 (exact products,
+    f32 sums — the JAX package's ``preferred_element_type=f32``)."""
+    m, cin = feats.shape
+    k = weights.shape[0]
+    cout = weights.shape[-1]
+    feats_pad = torch.cat(
+        [
+            (feats * valid[:, None]).to(dtype),
+            torch.zeros((1, cin), dtype=dtype, device=feats.device),
+        ],
+        dim=0,
+    ).float()
+    w = weights.to(dtype).float()
+    out = torch.zeros((m, cout), dtype=torch.float32, device=feats.device)
+    for j in range(k):
+        out = out + feats_pad[rulebook[:, j]] @ w[j]
+    return out * valid[:, None]
+
+
+class DownsampleMap(NamedTuple):
+    """Fine -> coarse (stride 2) structure."""
+
+    coarse_coords: torch.Tensor  # (cap, 4) int32, padded with -1
+    coarse_valid: torch.Tensor  # (cap,) bool
+    num_coarse: torch.Tensor  # () int64
+    parent: torch.Tensor  # (M,) int64 fine voxel -> coarse index (cap: dropped)
+    child_offset: torch.Tensor  # (M,) int64 in [0, 8): fine voxel's octant
+
+
+def build_downsample(
+    coords: torch.Tensor, valid: torch.Tensor, cap: int | None = None
+) -> DownsampleMap:
+    """Stride-2 coarsening of a voxel set (reference SparseConv3d k=2 s=2,
+    TreeLearn/blocks.py:101-112). Coarse voxels come out lex-sorted;
+    beyond ``cap`` they are dropped (``parent == cap``)."""
+    m = coords.shape[0]
+    if cap is None:
+        cap = m
+    dev = coords.device
+    c = coords.to(torch.int64)
+    fine = c[:, 1:]
+    coarse = fine >> 1  # floor div 2 (coords are non-negative)
+    octant = ((fine[:, 0] & 1) << 2) | ((fine[:, 1] & 1) << 1) | (
+        fine[:, 2] & 1
+    )
+    key4 = torch.cat([c[:, :1], coarse], dim=1)
+    r = sorted_runs(key4, valid)
+
+    parent = torch.empty(m, dtype=torch.int64, device=dev)
+    parent[r.s_orig] = r.s_id
+    parent = parent.clamp(max=cap)
+    rows = first_rows_of_runs(r, cap)
+    coarse_valid = torch.arange(cap, device=dev) < r.num
+    rc = c[rows]
+    coarse_coords = torch.where(
+        coarse_valid[:, None],
+        torch.cat([rc[:, :1], rc[:, 1:] >> 1], dim=1),
+        -1,
+    ).to(torch.int32)
+    return DownsampleMap(
+        coarse_coords=coarse_coords,
+        coarse_valid=coarse_valid,
+        num_coarse=r.num.clamp(max=cap),
+        parent=parent,
+        child_offset=octant,
+    )
+
+
+def down_conv_apply(
+    feats: torch.Tensor,  # (M, Cin) fine features
+    weights: torch.Tensor,  # (8, Cin, Cout) one filter per octant
+    ds: DownsampleMap,
+    valid: torch.Tensor,  # (M,) fine validity
+    compute_dtype=None,
+) -> torch.Tensor:
+    """Strided (k=2, s=2) conv:
+    coarse[j] = sum_{i: parent(i)=j} W[oct(i)] @ fine[i],
+    as 8 masked matmuls and one scatter-add (atomic on CUDA)."""
+    m = feats.shape[0]
+    cap = ds.coarse_coords.shape[0]
+    cout = weights.shape[-1]
+    dtype = compute_dtype or feats.dtype
+    masked = (feats * valid[:, None]).to(dtype)
+    w = weights.to(dtype).float()
+    contrib = torch.zeros((m, cout), dtype=torch.float32, device=feats.device)
+    for k in range(8):
+        sel = (ds.child_offset == k).to(dtype)[:, None]
+        contrib = contrib + (masked * sel).float() @ w[k]
+    out = torch.zeros(
+        (cap + 1, cout), dtype=torch.float32, device=feats.device
+    )
+    out.index_add_(0, ds.parent, contrib)
+    return out[:cap] * ds.coarse_valid[:, None]
+
+
+def inverse_conv_apply(
+    coarse_feats: torch.Tensor,  # (cap, Cin)
+    weights: torch.Tensor,  # (8, Cin, Cout)
+    ds: DownsampleMap,
+    fine_valid: torch.Tensor,  # (M,)
+    compute_dtype=None,
+) -> torch.Tensor:
+    """Inverse of the stride-2 conv (reference SparseInverseConv3d): each
+    fine voxel reads its parent's features through its octant filter."""
+    m = ds.parent.shape[0]
+    cap = ds.coarse_coords.shape[0]
+    cout = weights.shape[-1]
+    dtype = compute_dtype or coarse_feats.dtype
+    parent_ok = ds.parent < cap
+    gathered = coarse_feats.to(dtype)[ds.parent.clamp(0, cap - 1)]
+    gathered = gathered * parent_ok[:, None].to(dtype)
+    w = weights.to(dtype).float()
+    out = torch.zeros(
+        (m, cout), dtype=torch.float32, device=coarse_feats.device
+    )
+    for k in range(8):
+        sel = (ds.child_offset == k).to(dtype)[:, None]
+        out = out + (gathered * sel).float() @ w[k]
+    return out * fine_valid[:, None]
