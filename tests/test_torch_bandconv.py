@@ -81,11 +81,11 @@ def test_plain_band_kernel_matches_pallas_kernel(cin, dtype):
     assert np.abs(out_j[:m]).mean() > 0.1  # real work, not zeros
 
 
-@pytest.mark.parametrize("window", [192])
-def test_band_subm_conv_matches_jax(window):
-    """Kernel part plus residual repair, bf16; the window, smaller than
-    the default, pushes entries of some 50 rows through the repair (1e-5:
-    sum order only)."""
+def test_band_subm_conv_matches_jax():
+    """Kernel part plus residual repair, bf16; a 192-row window, smaller
+    than the default, pushes entries of some 50 rows through the repair
+    (1e-5: sum order only)."""
+    window = 192
     rb, valid = level(2)
     m = len(rb)
     rng = np.random.default_rng(9)
