@@ -19,6 +19,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    the ~500k-point synthetic plot, through ``run_pipeline`` (counting the
    kernel's launches) and once more stage by stage with per-stage seconds.
 
+Training (three synthetic plots of 30 labeled trees x 16,384 points, the
+reference's training batch, written to a temporary directory):
+
+5. Backward kernel against plain: ``band_conv_bwd_padded`` against its plain
+   version on the card, bf16 and f32, at the level shapes of the first
+   30-tree batch (every (level, Cin, Cout) of the 20 convs that take it),
+   with CUDA-event times and the bound; the forward kernel is timed at the
+   same shapes.
+6. Training on the card: each band conv of a full-width f32 forward
+   differentiated alone through autograd against the gather engine's
+   backward; one train step on a 2-tree cut, band engine against gather
+   engine (f32) and card against CPU (bf16); then the training CLI at full
+   width (one CV fold, 3 epochs of 2 steps, band engine, bf16), counting
+   the kernels' launches; then a timed step split into forward, backward
+   and optimizer.
+
 The last two lines are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``. Float32 matmuls and convolutions run
 without TF32 (set below) so f32 comparisons are full precision.
@@ -61,6 +77,26 @@ STAGE1_OFFSET_RTOL = 1e-2
 STAGE1_ARGMAX_AGREEMENT = 0.999
 #: stage 2's target size (configs/pipeline_config.yaml)
 MIN_POINTS = 1_000_000
+
+#: the training workload: plots of 30 trees x 16,384 points, one 30-tree
+#: batch per step (scripts/bench_training.py:27-31, the reference's
+#: published TreeLearn training shape); test plot 1 leaves 60 training
+#: trees, so 2 steps per epoch
+TRAIN_TREES, TRAIN_POINTS, TRAIN_PLOTS, TRAIN_EPOCHS = 30, 16384, 3, 3
+#: band convs per step that take the backward kernel: every one but the
+#: stem (``needs_feats_grad=False``, gather formulation)
+BWD_PER_STEP = 20
+#: whole train steps are compared against the step's largest gradient:
+#: the deep levels' gradients at initialization are ~1e-4 of it and sums
+#: that cancel, so another f32 sum order moves them by up to ~3e-2 of their
+#: own scale (on the CPU too, plain versions against the gather engine);
+#: each conv's backward is checked alone in phase 6a, well conditioned.
+#: Band vs gather engine, one f32 step on the card: sum order only
+ENGINE_RTOL = 1e-4
+#: card vs CPU, one bf16 train step: the same bf16 roundings, of which a
+#: few flip under another f32 sum order (and the atomic voxel sums)
+STEP_LOSS_RTOL = 1e-3
+STEP_GRAD_RTOL = 1e-2
 
 
 def log(msg: str) -> None:
@@ -149,8 +185,10 @@ def phase_card_and_build():
         f"{time.perf_counter() - t0:.2f} s")
 
 
-def level_plans(points, device):
-    """Band plans of the three levels the e2e cloud's stage 1 builds."""
+def level_plans(coords, batch_ids, valid, batch_size, capacity):
+    """Band plans of the three levels TreeLearn builds for these points
+    (level capacities as ``UBlock`` sets them), and the level-0 voxel
+    count."""
     import torch
 
     from treemorph_tpu_torch.ops.bandconv import build_band_plan
@@ -159,16 +197,10 @@ def level_plans(points, device):
         build_rulebook,
     )
     from treemorph_tpu_torch.ops.voxelize import voxelize_treelearn_features
-    from treemorph_tpu_torch.pipeline.predict import pad_to_bucket
 
-    p = pad_to_bucket(len(points))
-    coords = torch.zeros((p, 3), dtype=torch.float32, device=device)
-    coords[: len(points)] = torch.from_numpy(points).to(device)
-    valid = torch.arange(p, device=device) < len(points)
     vox = voxelize_treelearn_features(
-        coords, torch.zeros((p, 4), device=device),
-        torch.zeros(p, dtype=torch.int32, device=device), valid, 0.02, 1,
-        capacity=p // 2,
+        coords, torch.zeros((coords.shape[0], 4), device=coords.device),
+        batch_ids, valid, 0.02, batch_size, capacity=capacity,
     )
     c, v = vox.voxel_coords, vox.voxel_valid
     plans = []
@@ -178,22 +210,31 @@ def level_plans(points, device):
             m = c.shape[0]
             ds = build_downsample(c, v, min(max(m // 2, 256), m))
             c, v = ds.coarse_coords, ds.coarse_valid
-    return plans
+    return plans, int(vox.num_voxels)
+
+
+def e2e_level_plans(points, device):
+    """Band plans of the three levels the e2e cloud's stage 1 builds."""
+    import torch
+
+    from treemorph_tpu_torch.pipeline.predict import pad_to_bucket
+
+    p = pad_to_bucket(len(points))
+    coords = torch.zeros((p, 3), dtype=torch.float32, device=device)
+    coords[: len(points)] = torch.from_numpy(points).to(device)
+    valid = torch.arange(p, device=device) < len(points)
+    batch_ids = torch.zeros(p, dtype=torch.int32, device=device)
+    return level_plans(coords, batch_ids, valid, 1, p // 2)[0]
 
 
 def in_window_entries(plan) -> int:
-    """Rulebook entries the kernel applies: found and inside the window of
+    """Rulebook entries the kernels apply: found and inside the window of
     their (tile, group)."""
-    import torch
+    from treemorph_tpu_torch.ops.bandconv import in_window
 
-    from treemorph_tpu_torch.ops.bandconv import ALIGN
-
-    idx = plan.rb_tiles.long()  # (n_tiles, 27, TILE)
-    group = torch.arange(27, device=idx.device) // 3
-    base = (plan.starts.long() * ALIGN)[group].T[:, :, None]
-    m = plan.rulebook.shape[0]
-    live = (idx < m) & (idx >= base) & (idx < base + plan.win)
-    return int(live.sum())
+    _, ok = in_window(plan.rb_tiles, plan.starts, plan.rulebook.shape[0],
+                      plan.win)
+    return int(ok.sum())
 
 
 def phase_kernel_vs_plain(points, device):
@@ -207,7 +248,7 @@ def phase_kernel_vs_plain(points, device):
         band_conv_padded_plain,
     )
 
-    plans = level_plans(points, device)
+    plans = e2e_level_plans(points, device)
     gen = torch.Generator(device=device).manual_seed(0)
     rows, worst = [], 0.0
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
@@ -409,6 +450,438 @@ def phase_end_to_end(points, device):
     return launches
 
 
+def write_training_plots(root: str) -> int:
+    """Three plots of 30 synthetic labeled trees (the (N, 11) layout) and
+    their ``plot_{n}.json`` manifests under ``root``, each tree built as
+    scripts/bench_training.py:35-63 builds one, from numpy seed 0. Returns
+    the honest level-0 voxel capacity of a 30-tree batch
+    (bench_training.py:116-124): unique voxels x 1.02, rounded up to 8192,
+    here for the 30 trees with the most voxels, so that no batch drops."""
+    import numpy as np
+
+    from treemorph_tpu_torch.fixtures import (
+        synthetic_qsm,
+        synthetic_tree_cloud,
+    )
+
+    rng = np.random.default_rng(0)
+    n = TRAIN_POINTS
+    uniq = []
+    for plot in range(1, TRAIN_PLOTS + 1):
+        paths = []
+        for tree in range(TRAIN_TREES):
+            qsm = synthetic_qsm(rng=rng)
+            pts, _ = synthetic_tree_cloud(qsm=qsm, points_per_m2=4000,
+                                          rng=rng)
+            if len(pts) >= n:
+                pts = pts[:n]
+            else:
+                reps = -(-n // len(pts))
+                pts = np.tile(pts, (reps, 1))[:n] + rng.normal(
+                    0, 0.005, (n, 3)
+                ).astype(np.float32)
+            cloud = np.zeros((n, 11), np.float32)
+            cloud[:, :3] = pts
+            cloud[:, 3:6] = rng.normal(0, 0.02, (n, 3))
+            cloud[:, 7:11] = rng.normal(size=(n, 4))
+            path = os.path.join(root, f"{plot}_{tree}_labeled.npy")
+            np.save(path, cloud)
+            paths.append(path)
+            uniq.append(len(np.unique(
+                np.floor(pts / 0.02).astype(np.int64), axis=0
+            )))
+        with open(os.path.join(root, f"plot_{plot}.json"), "w") as f:
+            json.dump(paths, f)
+    worst = sum(sorted(uniq)[-TRAIN_TREES:])
+    return -(-int(worst * 1.02) // 8192) * 8192
+
+
+def first_training_batch(root: str, device):
+    """The first 30-tree batch of the CV fold that holds out plot 1, as
+    tensors on ``device``."""
+    from treemorph_tpu_torch.data import batch_iterator, get_plot_split
+    from treemorph_tpu_torch.train.harness import to_device
+
+    trainset, _ = get_plot_split(root, 1)
+    batch = next(batch_iterator(trainset, TRAIN_TREES, TRAIN_POINTS,
+                                shuffle=False))
+    return to_device(batch, device)
+
+
+def training_model(capacity, batch_size, engine="band",
+                   conv_dtype="bfloat16"):
+    """The training CLI's TreeLearn (channels 32, num_blocks 3, dim_feat 4,
+    voxel 0.02) with seeded weights, on the CPU."""
+    from treemorph_tpu_torch.models.treelearn import TreeLearn
+    from treemorph_tpu_torch.train.families import init_treelearn
+
+    model = TreeLearn(channels=32, num_blocks=3, dim_feat=4, voxel_size=0.02,
+                      batch_size=batch_size, engine=engine,
+                      conv_dtype=conv_dtype, voxel_capacity=capacity)
+    return init_treelearn(model, 0)
+
+
+def phase_bwd_kernel_vs_plain(batch, capacity, device):
+    """Returns the per-step backward kernel record (bf16) and the band
+    forward and backward kernel ms per training step at these shapes."""
+    import torch
+
+    from treemorph_tpu_torch.ops.bandconv import (
+        TILE,
+        band_conv_bwd_padded,
+        band_conv_bwd_padded_plain,
+        band_conv_padded,
+    )
+    from treemorph_tpu_torch.train.families import _flatten_padded
+
+    flat = _flatten_padded(batch)
+    plans, n_voxels = level_plans(flat["coords"], flat["batch_ids"],
+                                  flat["mask_valid"], TRAIN_TREES, capacity)
+    log(f"training batch: {int(flat['mask_valid'].sum())} points, "
+        f"{n_voxels} level-0 voxels in capacity {capacity}; level rows "
+        + ", ".join(
+            f"L{i} {p.rulebook.shape[0]} ({int(p.valid.sum())} voxels, "
+            f"{int(p.res_valid.sum())} residual rows, ok {bool(p.ok)})"
+            for i, p in enumerate(plans)
+        ))
+    if n_voxels > capacity:
+        raise AssertionError(f"capacity {capacity} drops voxels ({n_voxels})")
+    gen = torch.Generator(device=device).manual_seed(1)
+
+    def rows_of(plan, width, dtype):
+        m = plan.rulebook.shape[0]
+        x = torch.zeros((plan.rb_tiles.shape[0] * TILE, width), device=device)
+        x[:m] = torch.randn((m, width), device=device, generator=gen)
+        x[:m] *= plan.valid[:, None]
+        return x.to(dtype)
+
+    rows, worst, worst_rel = [], 0.0, 0.0
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0,
+              "flops": 0.0, "fwd_ms": 0.0, "fwd_bound_ms": 0.0}
+    for level, cin, cout, count in LEVEL_CONVS:
+        plan = plans[level]
+        m = plan.rulebook.shape[0]
+        mp = plan.rb_tiles.shape[0] * TILE
+        nnz = in_window_entries(plan)
+        w = torch.randn((27, cin, cout), device=device, generator=gen)
+        w /= (27 * cin) ** 0.5
+        w_bwd = w.flip(0).transpose(1, 2).contiguous()
+        for dtype in (torch.bfloat16, torch.float32):
+            feats = rows_of(plan, cin, dtype)
+            fwd_ms = cuda_ms(lambda: band_conv_padded(
+                plan.rb_tiles, plan.starts, feats, w, m, plan.win), 20)
+            fwd_bound_ms = 1e3 * max(
+                (mp * 27 * 4 + mp * cin * feats.element_size()
+                 + 27 * cin * cout * 4 + mp * cout * 4) / HBM_BYTES_PER_S,
+                2.0 * nnz * cin * cout / F32_FLOPS,
+            )
+            if dtype == torch.bfloat16:
+                totals["fwd_ms"] += count * fwd_ms
+                totals["fwd_bound_ms"] += count * fwd_bound_ms
+            if cin == 7:  # the stem takes the gather formulation backward
+                continue
+            grad = rows_of(plan, cout, dtype)
+            args = (plan.rb_tiles, plan.starts, grad, feats, w_bwd, m,
+                    plan.win)
+            d_f, d_w = band_conv_bwd_padded(*args)
+            torch.cuda.synchronize()
+            r_f, r_w = band_conv_bwd_padded_plain(*args)
+            errs = {}
+            for name, out, ref in (("d_feats", d_f, r_f), ("d_w", d_w, r_w)):
+                err = float((out - ref).abs().max())
+                scale = float(ref.abs().max())
+                errs[name] = err
+                worst_rel = max(worst_rel, err / scale)
+                if not (err <= KERNEL_RTOL * scale
+                        and torch.isfinite(out).all()):
+                    raise AssertionError(
+                        f"band_conv_bwd {name} L{level} {cin}->{cout} "
+                        f"{dtype}: max |err| {err:.3e} > {KERNEL_RTOL} x "
+                        f"{scale:.3e}"
+                    )
+            worst = max(worst, *errs.values())
+            ms = cuda_ms(lambda: band_conv_bwd_padded(*args), 20)
+            plain_ms = cuda_ms(lambda: band_conv_bwd_padded_plain(*args), 3)
+            # each input read once (rulebook, anchors, gradient, features,
+            # filters), each output written once (d_feats, d_w)
+            nbytes = (mp * 27 * 4 + 9 * plan.rb_tiles.shape[0] * 4
+                      + mp * (cin + cout) * grad.element_size()
+                      + 27 * cin * cout * 4 + mp * cin * 4
+                      + 27 * cin * cout * 4)
+            # d_feats and d_w: one multiply-add per entry and channel pair
+            flops = 2 * 2.0 * nnz * cin * cout
+            bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS)
+            row = dict(level=level, cin=cin, cout=cout, dtype=str(dtype),
+                       m=m, nnz=nnz, launches_per_step=count,
+                       err_d_feats=errs["d_feats"], err_d_w=errs["d_w"],
+                       ms=ms, fwd_ms=fwd_ms, fwd_bound_ms=fwd_bound_ms,
+                       plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+                       > flops / F32_FLOPS else "operations")
+            rows.append(row)
+            log("kernel " + json.dumps(row))
+            if dtype == torch.bfloat16:
+                for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                                 ("bound_ms", bound_ms), ("bytes", nbytes),
+                                 ("flops", flops)):
+                    totals[key] += count * val
+    shape = "; ".join(
+        f"L{level} ({plans[level].rb_tiles.shape[0] * TILE}, {cout}) grad, "
+        f"({plans[level].rb_tiles.shape[0] * TILE}, {cin}) feats x{count}"
+        for level, cin, cout, count in LEVEL_CONVS if cin != 7
+    )
+    record = {
+        "name": "band_conv_bwd",
+        "route": "cuda",
+        "source": "treemorph_tpu_torch/csrc/band_conv_bwd.cu",
+        "replaces": "treemorph_tpu/ops/bandconv.py:244",
+        "shape": shape,
+        "max_abs_err": worst,
+        "max_err_over_scale": worst_rel,
+        "ms": totals["ms"],
+        "plain_ms": totals["plain_ms"],
+        "bound_ms": totals["bound_ms"],
+        "bound_by": "bytes" if totals["bytes"] / HBM_BYTES_PER_S
+        > totals["flops"] / F32_FLOPS else "operations",
+        "library_ms": None,
+    }
+    per_step = {"band_forward_ms_per_step": totals["fwd_ms"],
+                "band_forward_bound_ms_per_step": totals["fwd_bound_ms"],
+                "band_backward_ms_per_step": totals["ms"]}
+    log(f"phase 5 ok: band_conv_bwd within {KERNEL_RTOL} x scale of plain "
+        f"at {len(rows)} shape/type cases; one step's {BWD_PER_STEP} "
+        f"launches (bf16): kernel {totals['ms']:.3f} ms, plain "
+        f"{totals['plain_ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms; "
+        f"the step's 21 forward launches {totals['fwd_ms']:.3f} ms, bound "
+        f"{totals['fwd_bound_ms']:.3f} ms")
+    return record, per_step
+
+
+def one_train_step(batch, engine, conv_dtype, device):
+    """Loss and parameter gradients of one ``make_train_step`` of the
+    training model on ``batch``, on ``device``."""
+    from treemorph_tpu_torch.train import families, harness
+
+    model = training_model(None, batch.batch_size, engine,
+                           conv_dtype).to(device)
+    forward_fn, loss_fn = families.treelearn_family()
+    state = harness.TrainState(model, harness.make_optimizer(model))
+    step = harness.make_train_step(forward_fn, loss_fn)
+    _, metrics = step(state, batch.map(lambda a: a.to(device)), 1e-2)
+    grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+    return float(metrics["loss"]), grads
+
+
+def compare_steps(label, a, b, loss_rtol, grad_rtol):
+    """Raise unless the losses of two steps agree to ``loss_rtol`` and
+    every parameter gradient to ``grad_rtol`` of the step's largest
+    gradient; logs the worst error relative to its own parameter's scale
+    too."""
+    (loss_a, grads_a), (loss_b, grads_b) = a, b
+    top = max(float(g.abs().max()) for g in grads_b.values())
+    worst, worst_own, own_name = 0.0, 0.0, ""
+    for name, ref in grads_b.items():
+        err = float((grads_a[name] - ref).abs().max())
+        worst = max(worst, err / top)
+        own = err / max(float(ref.abs().max()), 1e-30)
+        if own > worst_own:
+            worst_own, own_name = own, name
+    loss_rel = abs(loss_a - loss_b) / abs(loss_b)
+    log(f"{label}: loss {loss_a:.7f} vs {loss_b:.7f} (rel {loss_rel:.2e}, "
+        f"limit {loss_rtol}); gradients within {worst:.2e} of the largest "
+        f"{top:.3e} (limit {grad_rtol}) over {len(grads_b)} parameters; "
+        f"worst against its own scale {worst_own:.2e} ({own_name})")
+    if not (loss_rel <= loss_rtol and worst <= grad_rtol):
+        raise AssertionError(f"{label} disagree")
+
+
+def phase_conv_backward_in_autograd(batch, capacity, device):
+    """Each band conv of a full-width f32 forward, differentiated alone
+    through ``subm_conv_apply`` (the autograd Function and the backward
+    kernel) with a random output gradient, against the gather engine's
+    backward on the same inputs: ``d_feats`` and ``d_w`` each within
+    ``KERNEL_RTOL`` of their scale."""
+    import torch
+
+    from treemorph_tpu_torch.models.treelearn import SubMConv
+    from treemorph_tpu_torch.ops.bandconv import BandPlan
+    from treemorph_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from treemorph_tpu_torch.ops.sparse import _gather_grads, subm_conv_apply
+    from treemorph_tpu_torch.train.families import treelearn_family
+
+    model = training_model(capacity, TRAIN_TREES, "band",
+                           "float32").to(device)
+    captured = []
+    handles = [
+        m.register_forward_hook(
+            lambda mod, args, out: captured.append((mod, args)))
+        for m in model.modules()
+        if isinstance(m, SubMConv) and m.needs_feats_grad
+    ]
+    forward_fn, _ = treelearn_family()
+    with torch.no_grad():
+        forward_fn(model, batch, True)
+    for handle in handles:
+        handle.remove()
+    gen = torch.Generator(device=device).manual_seed(2)
+    torch.cuda.synchronize()
+    reset_launches()
+    worst, planned = 0.0, 0
+    for mod, (x, ctx, valid) in captured:
+        planned += isinstance(ctx, BandPlan) and bool(ctx.ok)
+        x = x.detach().requires_grad_()
+        w = mod.kernel.detach().clone().requires_grad_()
+        out = subm_conv_apply(x, w, ctx, valid, compute_dtype=torch.float32)
+        g = torch.randn(out.shape, device=device, generator=gen)
+        out.backward(g)
+        rulebook = ctx.rulebook if isinstance(ctx, BandPlan) else ctx
+        ref_x, ref_w = _gather_grads(torch.float32, x.detach(), w.detach(),
+                                     rulebook, valid, g)
+        for label, got, ref in (("d_feats", x.grad, ref_x),
+                                ("d_w", w.grad, ref_w)):
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            worst = max(worst, err / scale)
+            if not (err <= KERNEL_RTOL * scale and torch.isfinite(got).all()):
+                raise AssertionError(
+                    f"{label} of a {tuple(w.shape)} conv: max |err| "
+                    f"{err:.3e} > {KERNEL_RTOL} x {scale:.3e}")
+    launches = LAUNCHES["band_conv_bwd"]
+    log(f"phase 6a: {len(captured)} convs of a full-width f32 forward, "
+        f"each differentiated alone: band backward within {worst:.2e} of "
+        f"scale of the gather backward (limit {KERNEL_RTOL}); "
+        f"band_conv_bwd launches {launches} for {planned} band plans")
+    if not (len(captured) == BWD_PER_STEP and launches == planned > 0):
+        raise AssertionError("the band backward did not run for every conv")
+
+
+def phase_train_step_checks(batch, capacity, device):
+    import torch
+
+    phase_conv_backward_in_autograd(batch, capacity, device)
+    cut = batch.map(lambda a: a[:2])
+    compare_steps("train step, band vs gather engine on the card, f32",
+                  one_train_step(cut, "band", "float32", device),
+                  one_train_step(cut, "gather", "float32", device),
+                  ENGINE_RTOL, ENGINE_RTOL)
+    compare_steps("train step, card vs CPU, bf16 band engine",
+                  one_train_step(cut, "band", "bfloat16", device),
+                  one_train_step(cut, "band", "bfloat16", "cpu"),
+                  STEP_LOSS_RTOL, STEP_GRAD_RTOL)
+    torch.cuda.synchronize()
+    log("phase 6a ok")
+
+
+def phase_training_cli(root, capacity, device):
+    """The training CLI at full width; returns the backward kernel's
+    launches and the run's record."""
+    import math
+
+    import torch
+
+    from treemorph_tpu_torch.evaluation.model_loaders import load_model
+    from treemorph_tpu_torch.ops import bandconv
+    from treemorph_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from treemorph_tpu_torch.train import cli
+
+    save_dir = os.path.join(root, "saves")
+    argv = ["treelearn", "--data_root", root, "--test_plots", "1",
+            "--epochs", str(TRAIN_EPOCHS), "--batch_size", str(TRAIN_TREES),
+            "--bucket", str(TRAIN_POINTS), "--engine", "band",
+            "--conv_dtype", "bfloat16", "--voxel_capacity", str(capacity),
+            "--save_dir", save_dir, "--device", str(device)]
+    log("training CLI: python -m treemorph_tpu_torch.train.cli "
+        + " ".join(argv))
+    bandconv.GATHER_ROUTES.clear()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    history = cli.main(argv)[1]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    routes = dict(bandconv.GATHER_ROUTES)
+    steps = TRAIN_EPOCHS * (TRAIN_PLOTS - 1)
+    for r in history:
+        log("epoch " + json.dumps(r))
+    log(f"training CLI: {secs:.2f} s for {TRAIN_EPOCHS} epochs, launches "
+        f"{launches}, GATHER_ROUTES {routes}")
+    ckpt = os.path.join(save_dir, "treelearn_CV")
+    losses = [r[k] for r in history for k in ("train_loss", "val_loss")]
+    checks = {
+        f"{TRAIN_EPOCHS} epochs": len(history) == TRAIN_EPOCHS,
+        "every loss finite": all(math.isfinite(x) for x in losses),
+        "last train loss below the first":
+            history[-1]["train_loss"] < history[0]["train_loss"],
+        "checkpoint written and loadable": "O_P1" in load_model(
+            "treelearn", ckpt, device=device),
+        f"{BWD_PER_STEP} band_conv_bwd launches per step":
+            launches.get("band_conv_bwd", 0) == BWD_PER_STEP * steps
+            if not routes else
+            0 < launches.get("band_conv_bwd", 0) <= BWD_PER_STEP * steps,
+    }
+    for name, ok in checks.items():
+        log(f"  {'ok ' if ok else 'FAIL'} {name}")
+    if not all(checks.values()):
+        raise AssertionError("training CLI checks failed")
+    log("phase 6b ok")
+    return launches.get("band_conv_bwd", 0), {
+        "train_cli_seconds": secs, "train_steps": steps,
+        "train_losses": [r["train_loss"] for r in history],
+        "val_losses": [r["val_loss"] for r in history],
+        "gather_routes": routes, "launches": launches,
+    }
+
+
+def phase_step_split(batch, capacity, device, reps=3):
+    """Seconds of a full-width training step, split into forward (with the
+    loss), backward and optimizer, host clock around synchronized work;
+    median of ``reps`` steps after one warm-up step."""
+    import torch
+
+    from treemorph_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from treemorph_tpu_torch.train import families, harness
+
+    model = training_model(capacity, TRAIN_TREES).to(device)
+    forward_fn, loss_fn = families.treelearn_family()
+    opt = harness.make_optimizer(model)
+    for group in opt.param_groups:
+        group["lr"] = 1e-2
+    torch.cuda.reset_peak_memory_stats(device)
+    splits = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = forward_fn(model, batch, True)
+        loss, _ = loss_fn(out, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        (loss * harness.LOSS_BACKWARD_SCALE).backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        splits.append((t1 - t0, t2 - t1, t3 - t2))
+        if not torch.isfinite(loss):
+            raise AssertionError("non-finite loss in the timed steps")
+    fwd, bwd, optim = (statistics.median(x) for x in zip(*splits[1:]))
+    record = {
+        "train_step_seconds": fwd + bwd + optim,
+        "train_forward_seconds": fwd,
+        "train_backward_seconds": bwd,
+        "train_optimizer_seconds": optim,
+        "train_points_per_step": int(batch.mask_valid.sum()),
+        "train_peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+        "launches_per_step": dict(LAUNCHES),
+    }
+    log(json.dumps(record))
+    log("phase 6c ok")
+    return record
+
+
 def pipeline_config(input_dir: str, output_dir: str) -> dict:
     """``configs/pipeline_config.yaml`` as a dict (no YAML parser needed),
     with the smoke run's directories and the stage-1 cloud saved."""
@@ -469,14 +942,33 @@ def main() -> int:
     phase_card_and_build()
     points = e2e_cloud()
     log(f"e2e cloud: {len(points)} raw points")
-    record, _ = phase_kernel_vs_plain(points, device)
+    fwd_record, _ = phase_kernel_vs_plain(points, device)
     phase_stage1_card_vs_cpu(points, device)
-    launches = phase_end_to_end(points, device)
+    fwd_launches = phase_end_to_end(points, device)
+    with tempfile.TemporaryDirectory() as root:
+        t1 = time.perf_counter()
+        capacity = write_training_plots(root)
+        log(f"training data: {TRAIN_PLOTS} plots x {TRAIN_TREES} trees x "
+            f"{TRAIN_POINTS} points in {time.perf_counter() - t1:.1f} s; "
+            f"level-0 voxel capacity {capacity}")
+        batch = first_training_batch(root, device)
+        bwd_record, per_step = phase_bwd_kernel_vs_plain(batch, capacity,
+                                                         device)
+        phase_train_step_checks(batch, capacity, device)
+        bwd_launches, cli_record = phase_training_cli(root, capacity, device)
+        split = phase_step_split(batch, capacity, device)
+    log(json.dumps({**per_step, **split, **cli_record}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     head = ("name", "route", "source", "replaces")
-    record = {**{k: record[k] for k in head}, "launches": launches,
-              **{k: v for k, v in record.items() if k not in head}}
-    print(json.dumps({"kernels": [record]}))
+    kernels = []
+    for record, launches, path in ((fwd_record, fwd_launches, "serving"),
+                                   (bwd_record, bwd_launches, "training")):
+        kernels.append({
+            **{k: record[k] for k in head}, "launches": launches,
+            "launches_counted_on": path,
+            **{k: v for k, v in record.items() if k not in head},
+        })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

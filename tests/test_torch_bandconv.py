@@ -14,19 +14,21 @@ import torch
 import jax.numpy as jnp
 
 from treemorph_tpu.ops import bandconv as jband
-from treemorph_tpu.ops import sparse as jsp
 from treemorph_tpu_torch.ops import bandconv as tband
 from treemorph_tpu_torch.ops import sparse as tsp
+from treemorph_tpu_torch.ops import voxelize as tvox
 
-from test_torch_ops import t, voxel_level
+from test_torch_ops import one_torch_thread, padded_inputs, t  # noqa: F401
 
 
 def level(seed=0, n=1500):
-    coords, valid = voxel_level(seed, n)
-    rb = jsp.build_rulebook(
-        jnp.asarray(coords), jnp.asarray(valid), 3, verify_coords=True
-    )
-    return np.asarray(rb), valid
+    """``test_torch_ops.voxel_level``'s voxel level and its rulebook, as
+    numpy, built by the port: its voxelize and rulebook equal the JAX
+    package's exactly (test_torch_ops.py), and cost no JAX compile."""
+    c, f, b, v = padded_inputs(seed, n, pad=64)
+    vox = tvox.voxelize(t(c), t(f), t(b), t(v), 0.02, 1)
+    rb = tsp.build_rulebook(vox.voxel_coords, vox.voxel_valid, 3)
+    return rb.numpy(), vox.voxel_valid.numpy()
 
 
 def assert_plans_equal(pt, pj):

@@ -68,6 +68,19 @@ def t(x):
     return torch.from_numpy(np.array(x))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's tests run torch on one CPU thread. The test lane runs
+    six test processes on the host's cores, where a torch thread pool per
+    process oversubscribes them: a 1.4 s test took 89 s there, and the
+    spinning threads slowed the other processes too. Port test modules
+    import this fixture to use it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("capacity", [None, 900])
 def test_voxelize_matches_jax(capacity):
     c, f, b, v = padded_inputs(0, 2500, pad=100)

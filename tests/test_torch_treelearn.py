@@ -1,11 +1,12 @@
 """The port's TreeLearn against the JAX package's, with converted weights.
 
 A narrow model (channels 8; two levels, or one where the JAX side runs the
-Pallas band kernel in interpret mode) is initialized by flax, its BN
-parameters and statistics are perturbed from numpy so no BN is the
-identity, and the variables go through the weight bridge into the port.
-Both forwards then see the same inputs (JAX with exact lookups,
-``verify_coords=True``).
+Pallas band kernel in interpret mode) gets its variables in flax's own
+layout (traced once with ``jax.eval_shape``) with values drawn from numpy
+as flax's initializers draw them; its BN parameters and statistics are
+perturbed so no BN is the identity, and the variables go through the weight
+bridge into the port. Both forwards then see the same inputs (JAX with
+exact lookups, ``verify_coords=True``).
 """
 
 import functools
@@ -20,7 +21,7 @@ import jax.numpy as jnp
 from treemorph_tpu.evaluation.model_loaders import build_model as jbuild
 from treemorph_tpu_torch.models import TreeLearn, flax_to_state_dict
 
-from test_torch_ops import padded_inputs, t
+from test_torch_ops import one_torch_thread, padded_inputs, t  # noqa: F401
 
 SMALL = dict(channels=8, num_blocks=2, dim_feat=4, voxel_size=0.02,
              kernel_size=3)
@@ -33,16 +34,49 @@ def make_jax_model(engine, conv_dtype, num_blocks):
 
 
 @functools.lru_cache(maxsize=None)
-def flax_init(seed, num_blocks):
-    """flax variables of the small model. They do not depend on the engine,
-    so they are initialized through the (cheaper) gather engine."""
+def flax_layout(num_blocks):
+    """Shapes of the small model's flax variables (traced, not compiled;
+    they do not depend on the engine)."""
     model = make_jax_model("gather", "float32", num_blocks)
     n = 256
-    init = jax.jit(lambda key, *a: model.init(key, *a, train=False))
-    return jax.device_get(init(
-        jax.random.key(seed), jnp.zeros((n, 3)), jnp.zeros((n, 4)),
-        jnp.zeros(n, jnp.int32), jnp.ones(n, bool),
-    ))
+    return jax.eval_shape(
+        lambda key: model.init(
+            key, jnp.zeros((n, 3)), jnp.zeros((n, 4)),
+            jnp.zeros(n, jnp.int32), jnp.ones(n, bool), train=False,
+        ),
+        jax.random.key(0),
+    )
+
+
+def flax_init(seed, num_blocks):
+    """Variables in flax's layout, drawn from numpy like flax's
+    initializers: fan-in normals for conv kernels and shortcuts,
+    Glorot-uniform hidden Dense kernels, N(0, 0.01) final Dense kernels,
+    zero biases, BN scale 1 and statistics (0, 1)."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, spec):
+        shape, name = spec.shape, path[-1]
+        if name == "kernel" and path[-2].startswith("Dense_"):
+            if path[-2] == "Dense_0":
+                lim = np.sqrt(6.0 / (shape[0] + shape[1]))
+                return rng.uniform(-lim, lim, shape).astype(np.float32)
+            return rng.normal(0, 0.01, shape).astype(np.float32)
+        if name in ("kernel", "shortcut", "down_kernel", "up_kernel"):
+            fan_in = np.prod(shape[:-1])
+            return (rng.normal(size=shape) / np.sqrt(fan_in)).astype(
+                np.float32)
+        fill = 1.0 if name in ("scale", "var") else 0.0
+        return np.full(shape, fill, np.float32)
+
+    def walk(tree, path=()):
+        return {
+            k: walk(v, path + (k,)) if hasattr(v, "items")
+            else leaf(path + (k,), v)
+            for k, v in tree.items()
+        }
+
+    return walk(flax_layout(num_blocks))
 
 
 def jax_model_and_variables(engine, conv_dtype, seed=0, num_blocks=2):

@@ -9,17 +9,24 @@ against (``tests/test_torch_*.py``).
 
 Layout:
     csrc/        hand-written CUDA kernels (built with nvcc at first use)
-    ops/         voxelize, rulebook + gather conv, band conv, z-order codes
-    models/      TreeLearn as torch modules + the flax weight bridge
-    evaluation/  build_model / Predictor
+    ops/         voxelize, rulebook + gather conv, band conv (forward and
+                 backward), z-order codes
+    models/      TreeLearn as torch modules, its loss, the flax weight bridge
+    data/        labeled-tree datasets, padded batches, augmentations
+    train/       harness (optimizer, train/eval steps, epoch loop),
+                 families, schedule, checkpoints, the training CLI
+    evaluation/  build_model / Predictor / load_model
     pipeline/    stage1 predict / stage2 upsample / stage3 QSM fit / run
     native/      the QSM stage's C++ core behind ctypes
-    utils/       host IO, fitting helpers, mesh export, the CSV table
+    utils/       host IO, fitting helpers, mesh export, the CSV table,
+                 early stopping
     fixtures/    synthetic QSM / tree-cloud generators
 
-Entry points (``build_model``, ``Predictor``, ``predict_single``,
-``upsample``, ``run_pipeline``) run on the CUDA device unless the caller
-passes ``device="cpu"``; without a CUDA device the default raises.
+Entry points (``build_model``, ``Predictor``, ``load_model``,
+``predict_single``, ``upsample``, ``run_pipeline``, the training CLI
+``python -m treemorph_tpu_torch.train.cli``) run on the CUDA device unless
+the caller passes ``device="cpu"``; without a CUDA device the default
+raises.
 """
 
 __version__ = "0.1.0"

@@ -1,20 +1,25 @@
-"""Model construction for the pipeline.
+"""Model construction and checkpoint loading for the pipeline.
 
 Port of ``treemorph_tpu/evaluation/model_loaders.py`` for TreeLearn: the
 pipeline's fixed hyperparameters (reference ``ModelLoaders.py:31-113``:
-TreeLearn num_blocks=3 dim_feat=4 voxel 0.02), :func:`build_model` and the
-:class:`Predictor` the pipeline calls. Loading checkpoints is not ported
-yet: models are built here and given their weights by the caller (seeded
-initialization, or :func:`treemorph_tpu_torch.models.convert.flax_to_state_dict`).
+TreeLearn num_blocks=3 dim_feat=4 voxel 0.02), :func:`build_model`, the
+:class:`Predictor` the pipeline calls, and :func:`load_model` for the
+port's own checkpoints (:mod:`treemorph_tpu_torch.train.checkpoints`).
+Loading the JAX package's orbax checkpoints is not ported yet; weights of a
+flax model go through
+:func:`treemorph_tpu_torch.models.convert.flax_to_state_dict`.
 """
 
 from __future__ import annotations
 
+import os
+import re
 from dataclasses import dataclass
 
 import torch
 
 from ..models.treelearn import TreeLearn
+from ..train.checkpoints import MODEL_FILE, load_metadata
 from ..utils.device import resolve_device
 
 # Fixed per-family hyperparameters (reference ModelLoaders.py:31-113)
@@ -72,3 +77,46 @@ def build_model(
     generator = torch.Generator().manual_seed(seed)
     model.reset_parameters(generator)
     return model.to(device).eval()
+
+
+def _plot_from_name(path: str) -> str | None:
+    # the reference's "{Model}_P{n}[suffix]" naming and the training CLI's
+    # bare "P{n}" checkpoint directories
+    m = re.search(r"(?:^|_)P(\d+)(?!\d)", os.path.basename(path))
+    return m.group(1) if m else None
+
+
+def load_model(
+    model_type: str,
+    offset_model_dir: str | None = None,
+    noise_model_dir: str | None = None,
+    device=None,
+) -> dict[str, Predictor]:
+    """Per-plot offset ("O_P{n}") and noise ("N_P{n}") predictors from the
+    checkpoint directories under each model directory (one per CV plot,
+    with ``P{n}`` in the name, as the training CLI writes them). Metadata
+    manifests override the family defaults. Every directory found is
+    loaded, as in the JAX package. Models run on ``device`` (the CUDA
+    device unless named; raises without one)."""
+    device = resolve_device(device)
+    model_type = model_type.lower()
+    out: dict[str, Predictor] = {}
+    for prefix, model_dir in (("O", offset_model_dir), ("N", noise_model_dir)):
+        if model_dir is None or not os.path.isdir(model_dir):
+            continue
+        for entry in sorted(os.listdir(model_dir)):
+            full = os.path.join(model_dir, entry)
+            plot = _plot_from_name(entry)
+            if not os.path.isdir(full) or plot is None:
+                continue
+            meta = load_metadata(full) or {}
+            overrides = {
+                k: v for k, v in meta.items()
+                if k in FAMILY_DEFAULTS[model_type] and v is not None
+            }
+            model = build_model(model_type, device=device, **overrides)
+            model.load_state_dict(torch.load(
+                os.path.join(full, MODEL_FILE), map_location=device
+            ))
+            out[f"{prefix}_P{plot}"] = Predictor(model_type, model, device)
+    return out

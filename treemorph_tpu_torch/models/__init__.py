@@ -1,4 +1,6 @@
-from .treelearn import TreeLearn
+from .treelearn import TreeLearn, treelearn_loss
+from .loss import point_wise_loss
 from .convert import flax_to_state_dict
 
-__all__ = ["TreeLearn", "flax_to_state_dict"]
+__all__ = ["TreeLearn", "treelearn_loss", "point_wise_loss",
+           "flax_to_state_dict"]

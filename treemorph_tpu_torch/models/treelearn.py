@@ -36,6 +36,7 @@ from ..ops.sparse import (
     subm_conv_apply,
 )
 from ..ops.voxelize import voxelize_treelearn_features
+from .loss import point_wise_loss
 
 ENGINES = ("gather", "band")
 _NOT_PORTED_ENGINES = ("pencil", "brick", "zpack")
@@ -93,12 +94,16 @@ class MaskedBatchNorm(nn.Module):
 
 class SubMConv(nn.Module):
     """Submanifold conv layer over a precomputed rulebook or band plan
-    (no bias)."""
+    (no bias). ``needs_feats_grad=False`` marks a conv whose input is raw
+    data (the stem): the band engine's backward then takes the gather
+    formulation, which skips the feature gradient."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 3, conv_dtype: str = "float32"):
+                 kernel_size: int = 3, conv_dtype: str = "float32",
+                 needs_feats_grad: bool = True):
         super().__init__()
         self.conv_dtype = conv_dtype
+        self.needs_feats_grad = needs_feats_grad
         self.kernel = nn.Parameter(
             torch.empty(kernel_size**3, in_channels, out_channels)
         )
@@ -107,6 +112,7 @@ class SubMConv(nn.Module):
         return subm_conv_apply(
             feats, self.kernel, ctx, valid,
             compute_dtype=_conv_dtype(self.conv_dtype),
+            needs_feats_grad=self.needs_feats_grad,
         )
 
 
@@ -270,7 +276,7 @@ class TreeLearnBackbone(nn.Module):
         self.conv_dtype = conv_dtype
         self.voxel_capacity = voxel_capacity
         self.input_conv = SubMConv(dim_feat + 3, channels, kernel_size,
-                                   conv_dtype)
+                                   conv_dtype, needs_feats_grad=False)
         n_planes = [channels * (i + 1) for i in range(num_blocks)]
         self.unet = UBlock(n_planes, 2, kernel_size, engine=engine,
                            conv_dtype=conv_dtype)
@@ -411,3 +417,30 @@ class TreeLearn(nn.Module):
             "dropped_points": dropped_points,
             "dropped_voxels": dropped_voxels,
         }
+
+
+def treelearn_loss(
+    output: dict,
+    flat_batch: dict,
+    loss_multiplier_semantic: float = 1.0,
+    loss_multiplier_offset: float = 1.0,
+    n_points: int | None = None,
+    generator: torch.Generator | None = None,
+):
+    """Masked loss over the flat layout (reference TreeLearn.py:147-155):
+    ``(loss, {"semantic_loss", "offset_loss"})``."""
+    sem_loss, off_loss = point_wise_loss(
+        output["semantic_prediction_logits"],
+        output["offset_predictions"],
+        flat_batch["semantic_labels"],
+        flat_batch["offset_labels"],
+        semantic_mask=flat_batch["mask_valid"],
+        offset_mask=flat_batch["mask_valid"] & flat_batch["mask_off"],
+        n_points=n_points,
+        generator=generator,
+    )
+    loss_dict = {
+        "semantic_loss": sem_loss * loss_multiplier_semantic,
+        "offset_loss": off_loss * loss_multiplier_offset,
+    }
+    return sum(loss_dict.values()), loss_dict

@@ -17,6 +17,13 @@ band-width distribution) are repaired by a mini gather pass
 overflow their cap (``max(m // 32, 256)``), the plan is not ``ok`` and
 :func:`band_subm_conv_apply` takes the exact gather engine instead, so the
 engine is exact either way.
+
+Gradients: :class:`_BandConv` is the ``torch.autograd.Function`` of the
+JAX package's ``_band_conv_vjp``. Its backward runs
+:func:`band_conv_bwd_padded` over the same plan (``csrc/band_conv_bwd.cu``
+for the weight gradient, the forward kernel for the feature gradient) and
+repairs the residual entries in f32; the gather formulation serves convs
+declared ``needs_feats_grad=False``.
 """
 
 from __future__ import annotations
@@ -120,6 +127,20 @@ def build_band_plan(
     )
 
 
+def in_window(rb_tiles: torch.Tensor, starts: torch.Tensor, m: int,
+              win: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(idx, ok)``: the tiled rulebook as int64 and the mask of its found
+    entries that lie inside the window of their (tile, group), both
+    (n_tiles, K, TILE) — the entries the kernels apply."""
+    k = rb_tiles.shape[1]
+    ksize = round(k ** (1 / 3))
+    idx = rb_tiles.to(torch.int64)
+    group = torch.arange(k, device=idx.device) // ksize
+    base = (starts.to(torch.int64) * ALIGN)[group].T  # (n_tiles, K)
+    local = idx - base[:, :, None]
+    return idx, (idx < m) & (local >= 0) & (local < win)
+
+
 def band_conv_padded_plain(
     rb_tiles: torch.Tensor,  # (n_tiles, K, TILE) int32
     starts: torch.Tensor,  # (G, n_tiles) int32, ALIGN units
@@ -131,12 +152,7 @@ def band_conv_padded_plain(
     """Plain PyTorch version of :func:`band_conv_padded`: the same function
     as K masked gathers and matmuls in f32. (Mp, Cout) float32."""
     n_tiles, k, tile = rb_tiles.shape
-    ksize = round(k ** (1 / 3))
-    idx = rb_tiles.to(torch.int64)
-    group = torch.arange(k, device=idx.device) // ksize
-    base = (starts.to(torch.int64) * ALIGN)[group].T  # (n_tiles, K)
-    local = idx - base[:, :, None]
-    ok = (idx < m) & (local >= 0) & (local < win)
+    idx, ok = in_window(rb_tiles, starts, m, win)
     f32 = feats.float()
     out = torch.zeros(
         (n_tiles * tile, weights.shape[-1]), dtype=torch.float32,
@@ -223,23 +239,147 @@ def _library():
     return lib
 
 
+def band_conv_bwd_padded_plain(
+    rb_tiles: torch.Tensor,  # (n_tiles, K, TILE) int32
+    starts: torch.Tensor,  # (G, n_tiles) int32, ALIGN units
+    grad: torch.Tensor,  # (Mp, Cout) bf16 or f32 output gradient
+    feats: torch.Tensor,  # (Mp, Cin) same dtype, the forward's features
+    w_bwd: torch.Tensor,  # (K, Cout, Cin) f32: W[::-1] channel-transposed
+    m: int,
+    win: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`band_conv_bwd_padded`:
+    ``d_feats`` is the band conv of ``grad`` with ``w_bwd``, and
+    ``d_w[K-1-k] = sum feats[row] (outer) grad[rb[row, k]]`` over the
+    in-window entries, as K masked gathers and matmuls in f32."""
+    k = rb_tiles.shape[1]
+    d_feats = band_conv_padded_plain(rb_tiles, starts, grad, w_bwd, m, win)
+    idx, ok = in_window(rb_tiles, starts, m, win)
+    g32, f32 = grad.float(), feats.float()
+    d_w = torch.empty(
+        (k, feats.shape[1], grad.shape[1]), dtype=torch.float32,
+        device=grad.device,
+    )
+    for j in range(k):
+        rows = idx[:, j, :].reshape(-1)
+        keep = ok[:, j, :].reshape(-1)
+        d_w[k - 1 - j] = f32.T @ (g32[torch.where(keep, rows, 0)]
+                                  * keep[:, None])
+    return d_feats, d_w
+
+
+def band_conv_bwd_padded(
+    rb_tiles: torch.Tensor,
+    starts: torch.Tensor,
+    grad: torch.Tensor,
+    feats: torch.Tensor,
+    w_bwd: torch.Tensor,
+    m: int,
+    win: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both cotangents of the band conv's kernel part (see
+    :func:`band_conv_bwd_padded_plain`): ``(d_feats (Mp, Cin) f32,
+    d_w (K, Cin, Cout) f32)``, ``d_w`` in the weights' own offset order.
+
+    On a CUDA tensor this runs the forward kernel on ``(grad, w_bwd)`` for
+    ``d_feats`` and launches ``csrc/band_conv_bwd.cu`` for ``d_w``, whose
+    per-block partial sums are added here; it raises on what the kernels
+    do not take. A CPU tensor takes the plain version."""
+    if grad.device.type == "cpu":
+        return band_conv_bwd_padded_plain(
+            rb_tiles, starts, grad, feats, w_bwd, m, win
+        )
+    if grad.device.type != "cuda":
+        raise ValueError(
+            f"band_conv_bwd_padded: unsupported device {grad.device}"
+        )
+    n_tiles, k, _ = rb_tiles.shape
+    mp, cout = grad.shape
+    cin = feats.shape[1]
+    if w_bwd.shape != (k, cout, cin) or feats.shape[0] != mp:
+        raise ValueError(
+            f"band_conv_bwd_padded: shapes grad {tuple(grad.shape)}, feats "
+            f"{tuple(feats.shape)}, w_bwd {tuple(w_bwd.shape)}"
+        )
+    if feats.dtype != grad.dtype or feats.device != grad.device:
+        raise TypeError("band_conv_bwd_padded: grad and feats differ in "
+                        "dtype or device")
+    if not feats.is_contiguous():
+        raise ValueError("band_conv_bwd_padded: feats must be contiguous")
+    if band_bwd_smem_bytes(win) > SMEM_LIMIT:
+        raise ValueError(f"band_conv_bwd_padded: window {win} exceeds "
+                         "shared memory")
+    # d_feats: the forward kernel checks the remaining arguments
+    d_feats = band_conv_padded(rb_tiles, starts, grad, w_bwd, m, win)
+
+    lib = _bwd_library()
+    n_blocks, per_block = _bwd_grid(n_tiles, cin, cout)
+    partial = torch.empty(
+        (n_blocks, k, cin, cout), dtype=torch.float32, device=grad.device
+    )
+    with torch.cuda.device(grad.device):
+        rc = lib.band_conv_bwd_launch(
+            rb_tiles.data_ptr(), starts.data_ptr(), grad.data_ptr(),
+            feats.data_ptr(), int(grad.dtype == torch.bfloat16),
+            partial.data_ptr(), n_blocks, n_tiles, per_block, k, cin, cout,
+            m, win, stream_handle(grad.device),
+        )
+    check_launch("band_conv_bwd", rc)
+    LAUNCHES["band_conv_bwd"] += 1
+    return d_feats, partial.sum(dim=0)
+
+
+#: blocks the backward kernel aims for: two waves of three blocks (75 KB of
+#: shared memory each at the default window) on each of an H100's 132 SMs
+_BWD_TARGET_BLOCKS = 2 * 3 * 132
+
+
+def _bwd_grid(n_tiles: int, cin: int, cout: int) -> tuple[int, int]:
+    """(blocks along the tiles, tiles per block) of the backward kernel,
+    whose grid is that times 9 groups times the 32 x 32 channel slices."""
+    slices = -(-cin // _CHUNK) * -(-cout // _CHUNK)
+    n_blocks = max(1, min(n_tiles, _BWD_TARGET_BLOCKS // (9 * slices)))
+    per_block = -(-n_tiles // n_blocks)
+    return -(-n_tiles // per_block), per_block
+
+
+def _bwd_library():
+    lib = load_library("band_conv_bwd")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.band_conv_bwd_launch.argtypes = [
+            p, p, p, p, i, p, i, i, i, i, i, i, i, i, p,
+        ]
+        lib.band_conv_bwd_launch.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
 def band_smem_bytes(win: int, cout: int) -> int:
     """Shared memory one kernel block uses (csrc/band_conv.cu)."""
     groups = min(-(-cout // _COLS), _MAX_COL_GROUPS)
     return (win * _PITCH + 3 * _CHUNK * groups * _COLS) * 4
 
 
+def band_bwd_smem_bytes(win: int) -> int:
+    """Shared memory one block of csrc/band_conv_bwd.cu uses: a win x 32
+    gradient window, 128 x 32 feature rows and 3 x 128 row indices."""
+    return (win * _CHUNK + TILE * _CHUNK + 3 * TILE) * 4
+
+
 def band_viable(k: int, cin: int, cout: int, dtype, win: int = WIN) -> bool:
-    """Whether the kernel takes this conv shape: 3x3x3 kernels whose
-    window fits a block's shared memory. The kernel stages 32 input
-    channels at a time and splits wide outputs over blocks, so every
-    channel count fits (the TPU gate was a VMEM budget that turned deep
-    wide levels away); only ``k`` and the window size decide."""
+    """Whether the kernels take this conv shape: 3x3x3 kernels whose
+    windows fit a block's shared memory, forward and backward. The kernels
+    stage 32 channels at a time and split wide outputs over blocks, so
+    every channel count fits (the TPU gate was a VMEM budget that turned
+    deep wide levels away); only ``k`` and the window size decide."""
     win = -(-win // ALIGN) * ALIGN
+    smem = max(band_smem_bytes(win, cout), band_smem_bytes(win, cin),
+               band_bwd_smem_bytes(win))
     return (
         k == 27
         and dtype in (torch.bfloat16, torch.float32)
-        and band_smem_bytes(win, cout) <= SMEM_LIMIT
+        and smem <= SMEM_LIMIT
     )
 
 
@@ -273,18 +413,88 @@ def _residual_repair(masked, weights, plan, m):
     return contrib * plan.res_valid[:, None]
 
 
+def _band_grads(feats, weights, plan: BandPlan, valid, grad, dtype):
+    """The band path of the JAX package's ``_band_conv_bwd``: both
+    cotangents from :func:`band_conv_bwd_padded` over the plan's windows
+    (gradient and features rounded to ``dtype``, f32 weights and sums),
+    plus the residual entries, which the plan assigns to the rows that own
+    them, in f32 from one shared (R, K) gather of gradient rows."""
+    m, cin = feats.shape
+    k, _, cout = weights.shape
+    mp = plan.rb_tiles.shape[0] * TILE
+    feats_m = feats * valid[:, None]
+    g_m = grad.float() * valid[:, None]
+    # offs[j] == -offs[K-1-j]: the transposed conv is a conv with the
+    # offset-flipped, channel-transposed kernel over the same rulebook
+    w_bwd = weights.float().flip(0).transpose(1, 2).contiguous()
+    gpad = torch.zeros((mp, cout), dtype=dtype, device=feats.device)
+    gpad[:m] = g_m
+    fpad = torch.zeros((mp, cin), dtype=dtype, device=feats.device)
+    fpad[:m] = feats_m
+    d_f, d_w = band_conv_bwd_padded(
+        plan.rb_tiles, plan.starts, gpad, fpad, w_bwd, m, plan.win
+    )
+    g_pad = torch.cat(
+        [g_m, torch.zeros((1, cout), dtype=g_m.dtype, device=g_m.device)]
+    )
+    gath = g_pad[plan.res_rb.clamp(max=m)] * plan.res_valid[:, None, None]
+    gath = gath.reshape(-1, k * cout)  # (R, K*Cout)
+    d_f = d_f[:m].index_add(
+        0, plan.res_rows, gath @ w_bwd.reshape(k * cout, cin)
+    )
+    f_res = feats_m[plan.res_rows].float() * plan.res_valid[:, None]
+    # d_w[K-1-j] += feats[r] (outer) g[res_rb[r, j]] over residual entries
+    dw_res = (gath.T @ f_res).reshape(k, cout, cin)
+    return d_f * valid[:, None], d_w + dw_res.transpose(1, 2).flip(0)
+
+
+class _BandConv(torch.autograd.Function):
+    """The band conv with the JAX package's ``_band_conv_vjp`` gradient.
+    Convs declared ``needs_feats_grad=False`` (the stem, on raw voxel
+    features) take the gather formulation backward, as there."""
+
+    @staticmethod
+    def forward(ctx, feats, weights, valid, plan, dtype, needs_feats_grad):
+        ctx.save_for_backward(feats, weights, valid)
+        ctx.plan, ctx.dtype = plan, dtype
+        ctx.needs_feats_grad = needs_feats_grad
+        return _band_impl(feats, weights, plan, valid, dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from .sparse import _gather_grads
+
+        feats, weights, valid = ctx.saved_tensors
+        if ctx.needs_feats_grad:
+            d_feats, d_w = _band_grads(
+                feats, weights, ctx.plan, valid, grad, ctx.dtype
+            )
+        else:
+            d_feats, d_w = _gather_grads(
+                ctx.dtype, feats, weights, ctx.plan.rulebook, valid, grad,
+                ctx.needs_input_grad[0],
+            )
+        if not ctx.needs_input_grad[0]:
+            d_feats = None
+        elif d_feats is not None:
+            d_feats = d_feats.to(feats.dtype)
+        return d_feats, d_w.to(weights.dtype), None, None, None, None
+
+
 def band_subm_conv_apply(
     feats: torch.Tensor,  # (M, Cin)
     weights: torch.Tensor,  # (K, Cin, Cout), kernel-offset layout
     plan: BandPlan,
     valid: torch.Tensor,
     compute_dtype=None,
+    needs_feats_grad: bool = True,
 ) -> torch.Tensor:
     """Submanifold conv on the band engine; same weights layout as
     :func:`.sparse.subm_conv_apply`. Takes the exact gather engine when the
-    plan's residual cap overflowed (``plan.ok`` false) or the kernel does
-    not take the shape."""
-    from .sparse import _subm_conv_impl
+    plan's residual cap overflowed (``plan.ok`` false) or the kernels do
+    not take the shape. ``needs_feats_grad=False`` marks a conv whose
+    input is raw data: its backward takes the gather formulation."""
+    from .sparse import _subm_conv
 
     dtype = compute_dtype or feats.dtype
     k, cin, cout = weights.shape
@@ -292,10 +502,10 @@ def band_subm_conv_apply(
     viable = band_viable(k, cin, cout, dtype, plan.win)
     if not viable or not bool(plan.ok):
         GATHER_ROUTES["shape" if not viable else "overflow"] += 1
-        return _subm_conv_impl(
-            gather_dtype, feats, weights, plan.rulebook, valid
-        )
-    return _band_impl(feats, weights, plan, valid, gather_dtype)
+        return _subm_conv(gather_dtype, feats, weights, plan.rulebook, valid)
+    return _BandConv.apply(
+        feats, weights, valid, plan, gather_dtype, needs_feats_grad
+    )
 
 
 def choose_band_plan(

@@ -12,7 +12,10 @@ Port of the main-path part of ``treemorph_tpu/ops/sparse.py``:
    antisymmetry ``rb[i, k] == j  <=>  rb[j, K-1-k] == i``.
 2. **Gather engine** (:func:`_subm_conv_impl`):
    ``out = sum_k feats[rb[:, k]] @ W[k]`` with f32 accumulation; the band
-   engine (:mod:`.bandconv`) falls back to it when its plan overflows.
+   engine (:mod:`.bandconv`) falls back to it when its plan overflows. Its
+   gradient (:class:`_SubmConv`) is the JAX package's custom VJP: K gathers
+   through the mirrored rulebook columns and no scatter, so it sums in one
+   order on the card too.
 3. **Strided convs**: the stride-2 coarse level comes from the same sorted
    dedup as :mod:`.voxelize` and records each fine voxel's ``parent`` and
    child octant, so the down conv is a scatter-add and the inverse conv a
@@ -91,21 +94,25 @@ def subm_conv_apply(
     rulebook,  # (M, K) rulebook, or a BandPlan
     valid: torch.Tensor,  # (M,)
     compute_dtype=None,
+    needs_feats_grad: bool = True,
 ) -> torch.Tensor:
     """Submanifold conv: out[i] = sum_k W[k] @ feats[nbr_k(i)].
 
     ``rulebook`` may be a :class:`~.bandconv.BandPlan`, selecting the band
     engine (same weights layout). ``compute_dtype=torch.bfloat16`` rounds
     features (and, on the gather engine, weights) to bf16; accumulation
-    stays float32."""
+    stays float32. ``needs_feats_grad=False`` marks a conv whose input is
+    raw data (the stem): the band engine's backward then takes the gather
+    formulation."""
     from .bandconv import BandPlan, band_subm_conv_apply
 
     dtype = compute_dtype or feats.dtype
     if isinstance(rulebook, BandPlan):
         return band_subm_conv_apply(
-            feats, weights, rulebook, valid, compute_dtype=dtype
+            feats, weights, rulebook, valid, compute_dtype=dtype,
+            needs_feats_grad=needs_feats_grad,
         )
-    return _subm_conv_impl(dtype, feats, weights, rulebook, valid)
+    return _subm_conv(dtype, feats, weights, rulebook, valid)
 
 
 def _subm_conv_impl(dtype, feats, weights, rulebook, valid):
@@ -127,6 +134,68 @@ def _subm_conv_impl(dtype, feats, weights, rulebook, valid):
     for j in range(k):
         out = out + feats_pad[rulebook[:, j]] @ w[j]
     return out * valid[:, None]
+
+
+def _gather_grads(dtype, feats, weights, rulebook, valid, grad,
+                  feats_grad: bool = True):
+    """``(d_feats, d_weights)`` of the gather engine, f32 (the JAX
+    package's ``_subm_conv_bwd``). ``out[t]`` took ``feats[i]`` through
+    offset ``j`` exactly when ``rulebook[i, K-1-j] == t`` (antisymmetry), so
+    ``d_feats`` gathers the output gradient through the mirrored column:
+    the exact transpose of the forward gather, with no scatter.
+    ``d_weights`` recomputes the forward gathers and contracts over rows.
+    Operands are rounded to ``dtype``; ``d_feats`` is None unless
+    ``feats_grad``."""
+    m, cin = feats.shape
+    k, _, cout = weights.shape
+    w = weights.to(dtype).float()
+    g_masked = (grad * valid[:, None]).to(dtype).float()  # (M, Cout)
+    g_pad = torch.cat(
+        [g_masked, torch.zeros((1, cout), device=grad.device)]
+    )
+    feats_pad = torch.cat(
+        [
+            (feats * valid[:, None]).to(dtype),
+            torch.zeros((1, cin), dtype=dtype, device=feats.device),
+        ]
+    ).float()
+    d_feats = (
+        torch.zeros((m, cin), dtype=torch.float32, device=feats.device)
+        if feats_grad else None
+    )
+    d_w = []
+    for j in range(k):
+        if feats_grad:
+            d_feats = d_feats + g_pad[rulebook[:, k - 1 - j]] @ w[j].T
+        d_w.append(feats_pad[rulebook[:, j]].T @ g_masked)
+    if feats_grad:
+        d_feats = d_feats * valid[:, None]
+    return d_feats, torch.stack(d_w)
+
+
+class _SubmConv(torch.autograd.Function):
+    """The gather engine with the JAX package's custom VJP."""
+
+    @staticmethod
+    def forward(ctx, feats, weights, rulebook, valid, dtype):
+        ctx.save_for_backward(feats, weights, rulebook, valid)
+        ctx.dtype = dtype
+        return _subm_conv_impl(dtype, feats, weights, rulebook, valid)
+
+    @staticmethod
+    def backward(ctx, grad):
+        feats, weights, rulebook, valid = ctx.saved_tensors
+        d_feats, d_w = _gather_grads(
+            ctx.dtype, feats, weights, rulebook, valid, grad,
+            ctx.needs_input_grad[0],
+        )
+        if d_feats is not None:
+            d_feats = d_feats.to(feats.dtype)
+        return d_feats, d_w.to(weights.dtype), None, None, None
+
+
+def _subm_conv(dtype, feats, weights, rulebook, valid):
+    return _SubmConv.apply(feats, weights, rulebook, valid, dtype)
 
 
 class DownsampleMap(NamedTuple):

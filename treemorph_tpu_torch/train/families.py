@@ -1,0 +1,128 @@
+"""Model-family adapters: uniform (forward_fn, loss_fn) pairs for the
+harness.
+
+Port of the TreeLearn part of ``treemorph_tpu/train/families.py``. The
+harness hands over a :class:`~treemorph_tpu_torch.data.PaddedBatch` of
+tensors; TreeLearn consumes the flat voxel-model layout, so the adapters
+reshape (views, no copies). PointNet2 and PTv3 are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..models.loss import point_wise_loss
+from ..models.treelearn import TreeLearn, treelearn_loss
+
+
+def _flatten_padded(batch) -> dict:
+    """PaddedBatch -> flat voxel-model tensors."""
+    b, n = batch.coords.shape[:2]
+    batch_ids = torch.arange(
+        b, dtype=torch.int32, device=batch.coords.device
+    ).repeat_interleave(n)
+    return {
+        "coords": batch.coords.reshape(b * n, 3),
+        "feats": batch.feats.reshape(b * n, -1),
+        "batch_ids": batch_ids,
+        "mask_valid": batch.mask_valid.reshape(b * n),
+        "offset_labels": batch.offset_labels.reshape(b * n, 3),
+        "semantic_labels": batch.semantic_labels.reshape(b * n),
+        "mask_off": batch.mask_off.reshape(b * n),
+    }
+
+
+def _flatten_noise(batch) -> dict:
+    """PaddedBatch noise quartet -> flat voxel-model tensors."""
+    if batch.noise_coords is None:
+        raise ValueError(
+            "noise-cloud training requested but this batch carries no "
+            "noise clouds — every cloud in the dataset needs a matching "
+            ".npy under --noise_root (matched by basename or "
+            "'{plot}_{tree}' stem)"
+        )
+    b, m = batch.noise_coords.shape[:2]
+    batch_ids = torch.arange(
+        b, dtype=torch.int32, device=batch.noise_coords.device
+    ).repeat_interleave(m)
+    return {
+        "coords": batch.noise_coords.reshape(b * m, 3),
+        "feats": batch.noise_feats.reshape(b * m, -1),
+        "batch_ids": batch_ids,
+        "mask_valid": batch.noise_valid.reshape(b * m),
+        "semantic_labels": batch.noise_semantic.reshape(b * m),
+    }
+
+
+def treelearn_family(
+    loss_multiplier_semantic: float = 1.0,
+    loss_multiplier_offset: float = 1.0,
+) -> tuple[Callable, Callable]:
+    """(forward_fn, loss_fn) for the harness, TreeLearn flavor."""
+
+    def forward_fn(model: TreeLearn, batch, train: bool):
+        flat = _flatten_padded(batch)
+        return model.train(train)(
+            flat["coords"], flat["feats"], flat["batch_ids"],
+            flat["mask_valid"],
+        )
+
+    def loss_fn(output, batch):
+        return treelearn_loss(
+            output,
+            _flatten_padded(batch),
+            loss_multiplier_semantic=loss_multiplier_semantic,
+            loss_multiplier_offset=loss_multiplier_offset,
+        )
+
+    return forward_fn, loss_fn
+
+
+def treelearn_noise_family(
+    loss_multiplier_semantic: float = 1.0,
+    loss_multiplier_offset: float = 1.0,
+) -> tuple[Callable, Callable]:
+    """TreeLearn with the separate noise-cloud semantic pass (reference
+    ``TreeLearn.py:98-105``, ``137-141``): the backbone runs a second,
+    weight-shared pass over the synthetic noise cloud, the semantic head
+    reads that pass, and the semantic CE is taken against the noise
+    cloud's labels. The offset loss stays on the main cloud."""
+
+    def forward_fn(model: TreeLearn, batch, train: bool):
+        flat = _flatten_padded(batch)
+        nflat = _flatten_noise(batch)
+        return model.train(train)(
+            flat["coords"], flat["feats"], flat["batch_ids"],
+            flat["mask_valid"],
+            noise_coords=nflat["coords"],
+            noise_feats=nflat["feats"],
+            noise_batch_ids=nflat["batch_ids"],
+            noise_valid=nflat["mask_valid"],
+        )
+
+    def loss_fn(output, batch):
+        flat = _flatten_padded(batch)
+        nflat = _flatten_noise(batch)
+        sem_loss, off_loss = point_wise_loss(
+            output["semantic_prediction_logits"],
+            output["offset_predictions"],
+            nflat["semantic_labels"],
+            flat["offset_labels"],
+            semantic_mask=nflat["mask_valid"],
+            offset_mask=flat["mask_valid"] & flat["mask_off"],
+        )
+        loss_dict = {
+            "semantic_loss": sem_loss * loss_multiplier_semantic,
+            "offset_loss": off_loss * loss_multiplier_offset,
+        }
+        return sum(loss_dict.values()), loss_dict
+
+    return forward_fn, loss_fn
+
+
+def init_treelearn(model: TreeLearn, seed: int = 0) -> TreeLearn:
+    """``model`` with flax's initializers drawn from ``seed`` (the weights
+    do not depend on the batch, so no example batch is needed)."""
+    return model.reset_parameters(torch.Generator().manual_seed(seed))

@@ -16,6 +16,10 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda", torch.cuda.current_device())
     device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"no CUDA device for {device}: pass "
+                               "device='cpu' to run on the CPU")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
     return device
