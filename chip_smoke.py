@@ -27,13 +27,15 @@ reference's training batch, written to a temporary directory):
    30-tree batch (every (level, Cin, Cout) of the 20 convs that take it),
    with CUDA-event times and the bound; the forward kernel is timed at the
    same shapes.
-6. Training on the card: each band conv of a full-width f32 forward
+6. Training on the card: each band conv of a full-width f32 train step
    differentiated alone through autograd against the gather engine's
-   backward; one train step on a 2-tree cut, band engine against gather
-   engine (f32) and card against CPU (bf16); then the training CLI at full
-   width (one CV fold, 3 epochs of 2 steps, band engine, bf16), counting
-   the kernels' launches; then a timed step split into forward, backward
-   and optimizer.
+   backward, with the step's own cotangents and with random ones; one
+   train step on a 2-tree cut, band engine against gather engine (f32,
+   both also against the same step in float64 on the CPU) and card
+   against CPU (bf16); then the training CLI at full width (one CV fold,
+   3 epochs of 2 steps, band engine, bf16), counting the kernels'
+   launches; then a timed step split into forward, backward and
+   optimizer.
 
 The last two lines are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``. Float32 matmuls and convolutions run
@@ -53,11 +55,14 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-#: H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and float32
-#: FMA rate outside the tensor cores — the kernel's operations are f32
-#: products of (bf16 or f32) features with f32 weights
+#: H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s, the
+#: float32 rate outside the tensor cores, for products with f32 weights
+#: (the forward, and the feature gradient), and the bf16 tensor-core rate,
+#: for the weight gradient's bf16 x bf16 products (features times output
+#: gradient, summed in f32) in bf16 mode
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 #: (level, Cin, Cout, launches per forward) of every band conv of the
 #: pipeline's TreeLearn (channels 32, num_blocks 3): level 0 has the input
@@ -84,14 +89,19 @@ MIN_POINTS = 1_000_000
 #: trees, so 2 steps per epoch
 TRAIN_TREES, TRAIN_POINTS, TRAIN_PLOTS, TRAIN_EPOCHS = 30, 16384, 3, 3
 #: band convs per step that take the backward kernel: every one but the
-#: stem (``needs_feats_grad=False``, gather formulation)
+#: stem, whose input (raw voxel features) needs no gradient, so its weight
+#: gradient takes the gather formulation
 BWD_PER_STEP = 20
-#: whole train steps are compared against the step's largest gradient:
-#: the deep levels' gradients at initialization are ~1e-4 of it and sums
-#: that cancel, so another f32 sum order moves them by up to ~3e-2 of their
-#: own scale (on the CPU too, plain versions against the gather engine);
-#: each conv's backward is checked alone in phase 6a, well conditioned.
-#: Band vs gather engine, one f32 step on the card: sum order only
+#: band vs gather engine, one f32 train step on the card: the losses to
+#: ENGINE_LOSS_RTOL and every gradient within ENGINE_RTOL of the step's
+#: largest. A leaf is not held to its own scale there: at initialization
+#: some leaves are sums that cancel (a BatchNorm's backward leaves gradients
+#: of zero mean), and a ReLU whose input rounds to the other side of zero in
+#: one step and not the other moves them by a large share of their scale,
+#: whatever the sum order. Both steps' errors against the same step in
+#: float64 (gather engine, CPU) are logged per leaf; each conv's backward is
+#: held to its own scale on this step's own cotangents in phase 6a
+ENGINE_LOSS_RTOL = 1e-5
 ENGINE_RTOL = 1e-4
 #: card vs CPU, one bf16 train step: the same bf16 roundings, of which a
 #: few flip under another f32 sum order (and the atomic voxel sums)
@@ -450,13 +460,10 @@ def phase_end_to_end(points, device):
     return launches
 
 
-def write_training_plots(root: str) -> int:
+def write_training_plots(root: str) -> None:
     """Three plots of 30 synthetic labeled trees (the (N, 11) layout) and
     their ``plot_{n}.json`` manifests under ``root``, each tree built as
-    scripts/bench_training.py:35-63 builds one, from numpy seed 0. Returns
-    the honest level-0 voxel capacity of a 30-tree batch
-    (bench_training.py:116-124): unique voxels x 1.02, rounded up to 8192,
-    here for the 30 trees with the most voxels, so that no batch drops."""
+    scripts/bench_training.py:35-63 builds one, from numpy seed 0."""
     import numpy as np
 
     from treemorph_tpu_torch.fixtures import (
@@ -466,7 +473,6 @@ def write_training_plots(root: str) -> int:
 
     rng = np.random.default_rng(0)
     n = TRAIN_POINTS
-    uniq = []
     for plot in range(1, TRAIN_PLOTS + 1):
         paths = []
         for tree in range(TRAIN_TREES):
@@ -487,25 +493,23 @@ def write_training_plots(root: str) -> int:
             path = os.path.join(root, f"{plot}_{tree}_labeled.npy")
             np.save(path, cloud)
             paths.append(path)
-            uniq.append(len(np.unique(
-                np.floor(pts / 0.02).astype(np.int64), axis=0
-            )))
         with open(os.path.join(root, f"plot_{plot}.json"), "w") as f:
             json.dump(paths, f)
-    worst = sum(sorted(uniq)[-TRAIN_TREES:])
-    return -(-int(worst * 1.02) // 8192) * 8192
 
 
 def first_training_batch(root: str, device):
     """The first 30-tree batch of the CV fold that holds out plot 1, as
-    tensors on ``device``."""
+    tensors on ``device``, and the level-0 voxel capacity the training CLI
+    works out for that fold."""
     from treemorph_tpu_torch.data import batch_iterator, get_plot_split
+    from treemorph_tpu_torch.train.cli import level0_capacity
     from treemorph_tpu_torch.train.harness import to_device
 
-    trainset, _ = get_plot_split(root, 1)
+    trainset, valset = get_plot_split(root, 1)
+    capacity = level0_capacity((trainset, valset), TRAIN_TREES, 0.02)
     batch = next(batch_iterator(trainset, TRAIN_TREES, TRAIN_POINTS,
                                 shuffle=False))
-    return to_device(batch, device)
+    return to_device(batch, device), capacity
 
 
 def training_model(capacity, batch_size, engine="band",
@@ -556,8 +560,8 @@ def phase_bwd_kernel_vs_plain(batch, capacity, device):
         return x.to(dtype)
 
     rows, worst, worst_rel = [], 0.0, 0.0
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0,
-              "flops": 0.0, "fwd_ms": 0.0, "fwd_bound_ms": 0.0}
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_s": 0.0,
+              "ops_s": 0.0, "fwd_ms": 0.0, "fwd_bound_ms": 0.0}
     for level, cin, cout, count in LEVEL_CONVS:
         plan = plans[level]
         m = plan.rulebook.shape[0]
@@ -609,21 +613,27 @@ def phase_bwd_kernel_vs_plain(batch, capacity, device):
                       + 27 * cin * cout * 4 + mp * cin * 4
                       + 27 * cin * cout * 4)
             # d_feats and d_w: one multiply-add per entry and channel pair
-            flops = 2 * 2.0 * nnz * cin * cout
-            bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS)
+            # each. d_feats multiplies by f32 weights (f32 rate); d_w
+            # multiplies features by the output gradient, both bf16 in
+            # bf16 mode (tensor-core rate)
+            flops = 2.0 * nnz * cin * cout
+            dw_rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+            ops_s = flops / F32_FLOPS + flops / dw_rate
+            bytes_s = nbytes / HBM_BYTES_PER_S
+            bound_ms = 1e3 * max(bytes_s, ops_s)
             row = dict(level=level, cin=cin, cout=cout, dtype=str(dtype),
                        m=m, nnz=nnz, launches_per_step=count,
                        err_d_feats=errs["d_feats"], err_d_w=errs["d_w"],
                        ms=ms, fwd_ms=fwd_ms, fwd_bound_ms=fwd_bound_ms,
                        plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by="bytes" if nbytes / HBM_BYTES_PER_S
-                       > flops / F32_FLOPS else "operations")
+                       bound_by="bytes" if bytes_s > ops_s
+                       else "operations")
             rows.append(row)
             log("kernel " + json.dumps(row))
             if dtype == torch.bfloat16:
                 for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                                 ("bound_ms", bound_ms), ("bytes", nbytes),
-                                 ("flops", flops)):
+                                 ("bound_ms", bound_ms), ("bytes_s", bytes_s),
+                                 ("ops_s", ops_s)):
                     totals[key] += count * val
     shape = "; ".join(
         f"L{level} ({plans[level].rb_tiles.shape[0] * TILE}, {cout}) grad, "
@@ -641,8 +651,8 @@ def phase_bwd_kernel_vs_plain(batch, capacity, device):
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
         "bound_ms": totals["bound_ms"],
-        "bound_by": "bytes" if totals["bytes"] / HBM_BYTES_PER_S
-        > totals["flops"] / F32_FLOPS else "operations",
+        "bound_by": "bytes" if totals["bytes_s"] > totals["ops_s"]
+        else "operations",
         "library_ms": None,
     }
     per_step = {"band_forward_ms_per_step": totals["fwd_ms"],
@@ -658,17 +668,22 @@ def phase_bwd_kernel_vs_plain(batch, capacity, device):
 
 
 def one_train_step(batch, engine, conv_dtype, device):
-    """Loss and parameter gradients of one ``make_train_step`` of the
-    training model on ``batch``, on ``device``."""
+    """Loss and parameter gradients (clipped as the step clips them) of one
+    ``make_train_step`` of the training model on ``batch``, on ``device``;
+    ``conv_dtype="float64"`` runs the whole model in float64."""
+    import torch
+
     from treemorph_tpu_torch.train import families, harness
 
     model = training_model(None, batch.batch_size, engine,
                            conv_dtype).to(device)
+    if conv_dtype == "float64":
+        model = model.to(torch.float64)
     forward_fn, loss_fn = families.treelearn_family()
     state = harness.TrainState(model, harness.make_optimizer(model))
     step = harness.make_train_step(forward_fn, loss_fn)
     _, metrics = step(state, batch.map(lambda a: a.to(device)), 1e-2)
-    grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+    grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
     return float(metrics["loss"]), grads
 
 
@@ -696,11 +711,12 @@ def compare_steps(label, a, b, loss_rtol, grad_rtol):
 
 
 def phase_conv_backward_in_autograd(batch, capacity, device):
-    """Each band conv of a full-width f32 forward, differentiated alone
+    """Each band conv of a full-width f32 train step, differentiated alone
     through ``subm_conv_apply`` (the autograd Function and the backward
-    kernel) with a random output gradient, against the gather engine's
-    backward on the same inputs: ``d_feats`` and ``d_w`` each within
-    ``KERNEL_RTOL`` of their scale."""
+    kernel) against the gather formulation's backward on the same inputs,
+    twice: with the cotangent the step's own backward gave it (whose terms
+    largely cancel: BatchNorms surround the conv) and with a random one.
+    ``d_feats`` and ``d_w`` each within ``KERNEL_RTOL`` of their scale."""
     import torch
 
     from treemorph_tpu_torch.models.treelearn import SubMConv
@@ -708,51 +724,100 @@ def phase_conv_backward_in_autograd(batch, capacity, device):
     from treemorph_tpu_torch.ops.cuda import LAUNCHES, reset_launches
     from treemorph_tpu_torch.ops.sparse import _gather_grads, subm_conv_apply
     from treemorph_tpu_torch.train.families import treelearn_family
+    from treemorph_tpu_torch.train.harness import LOSS_BACKWARD_SCALE
 
     model = training_model(capacity, TRAIN_TREES, "band",
                            "float32").to(device)
-    captured = []
+    captured = []  # [module, (feats, plan, valid), the step's cotangent]
+
+    def keep(mod, args, out):
+        entry = [mod, args, None]
+        captured.append(entry)
+        out.register_hook(lambda g: entry.__setitem__(2, g))
+
     handles = [
-        m.register_forward_hook(
-            lambda mod, args, out: captured.append((mod, args)))
-        for m in model.modules()
-        if isinstance(m, SubMConv) and m.needs_feats_grad
+        m.register_forward_hook(keep) for m in model.modules()
+        if isinstance(m, SubMConv) and m is not model.backbone.input_conv
     ]
-    forward_fn, _ = treelearn_family()
-    with torch.no_grad():
-        forward_fn(model, batch, True)
+    forward_fn, loss_fn = treelearn_family()
+    loss, _ = loss_fn(forward_fn(model, batch, True), batch)
+    (loss * LOSS_BACKWARD_SCALE).backward()
     for handle in handles:
         handle.remove()
     gen = torch.Generator(device=device).manual_seed(2)
     torch.cuda.synchronize()
     reset_launches()
-    worst, planned = 0.0, 0
-    for mod, (x, ctx, valid) in captured:
+    worst, planned = {"step": 0.0, "random": 0.0}, 0
+    for mod, (x, ctx, valid), g_step in captured:
         planned += isinstance(ctx, BandPlan) and bool(ctx.ok)
-        x = x.detach().requires_grad_()
-        w = mod.kernel.detach().clone().requires_grad_()
-        out = subm_conv_apply(x, w, ctx, valid, compute_dtype=torch.float32)
-        g = torch.randn(out.shape, device=device, generator=gen)
-        out.backward(g)
-        rulebook = ctx.rulebook if isinstance(ctx, BandPlan) else ctx
-        ref_x, ref_w = _gather_grads(torch.float32, x.detach(), w.detach(),
-                                     rulebook, valid, g)
-        for label, got, ref in (("d_feats", x.grad, ref_x),
-                                ("d_w", w.grad, ref_w)):
-            err = float((got - ref).abs().max())
-            scale = float(ref.abs().max())
-            worst = max(worst, err / scale)
-            if not (err <= KERNEL_RTOL * scale and torch.isfinite(got).all()):
-                raise AssertionError(
-                    f"{label} of a {tuple(w.shape)} conv: max |err| "
-                    f"{err:.3e} > {KERNEL_RTOL} x {scale:.3e}")
+        g_random = torch.randn(g_step.shape, device=device, generator=gen)
+        for kind, g in (("step", g_step), ("random", g_random)):
+            x = x.detach().requires_grad_()
+            w = mod.kernel.detach().clone().requires_grad_()
+            subm_conv_apply(x, w, ctx, valid,
+                            compute_dtype=torch.float32).backward(g)
+            rulebook = ctx.rulebook if isinstance(ctx, BandPlan) else ctx
+            ref_x, ref_w = _gather_grads(torch.float32, x.detach(),
+                                         w.detach(), rulebook, valid, g)
+            for label, got, ref in (("d_feats", x.grad, ref_x),
+                                    ("d_w", w.grad, ref_w)):
+                err = float((got - ref).abs().max())
+                scale = float(ref.abs().max())
+                worst[kind] = max(worst[kind], err / scale)
+                if not (err <= KERNEL_RTOL * scale
+                        and torch.isfinite(got).all()):
+                    raise AssertionError(
+                        f"{label} of a {tuple(w.shape)} conv, {kind} "
+                        f"cotangent: max |err| {err:.3e} > {KERNEL_RTOL} x "
+                        f"{scale:.3e}")
     launches = LAUNCHES["band_conv_bwd"]
-    log(f"phase 6a: {len(captured)} convs of a full-width f32 forward, "
-        f"each differentiated alone: band backward within {worst:.2e} of "
-        f"scale of the gather backward (limit {KERNEL_RTOL}); "
-        f"band_conv_bwd launches {launches} for {planned} band plans")
-    if not (len(captured) == BWD_PER_STEP and launches == planned > 0):
+    log(f"phase 6a: {len(captured)} convs of a full-width f32 train step, "
+        f"each differentiated alone: band backward within "
+        f"{worst['step']:.2e} of scale of the gather backward with the "
+        f"step's own cotangents and {worst['random']:.2e} with random ones "
+        f"(limit {KERNEL_RTOL}); band_conv_bwd launches {launches} for "
+        f"{planned} band plans, twice each")
+    if not (len(captured) == BWD_PER_STEP and launches == 2 * planned > 0):
         raise AssertionError("the band backward did not run for every conv")
+
+
+def leaf_error(a, b) -> dict:
+    """Max |a - b| per gradient leaf of two steps."""
+    return {n: float((a[1][n].double() - b[1][n].double()).abs().max())
+            for n in b[1]}
+
+
+def compare_engine_steps(band, gather, ref):
+    """Raise unless the band and gather f32 steps on the card agree: the
+    losses to ENGINE_LOSS_RTOL and every gradient within ENGINE_RTOL of the
+    step's largest. Logs both steps' errors against the float64 step
+    ``ref``, relative to each leaf's own scale, on the leaves where the
+    band step's is largest."""
+    band_err, gather_err = leaf_error(band, ref), leaf_error(gather, ref)
+    diff = leaf_error(band, gather)
+    top = max(float(g.abs().max()) for g in ref[1].values())
+    scale = {n: max(float(g.abs().max()), 1e-30) for n, g in ref[1].items()}
+    worst = max(diff.values()) / top
+    loss_rel = abs(band[0] - gather[0]) / abs(gather[0])
+    log(f"train step, band vs gather engine on the card, f32: loss "
+        f"{band[0]:.7f} vs {gather[0]:.7f} (rel {loss_rel:.2e}, limit "
+        f"{ENGINE_LOSS_RTOL}), float64 {ref[0]:.7f}; gradients within "
+        f"{worst:.2e} of the largest {top:.3e} (limit {ENGINE_RTOL}) over "
+        f"{len(diff)} parameters")
+    # leaves whose float64 gradient is below 1e-8 of the largest are zero
+    # but for rounding (a BatchNorm follows them): no scale of their own
+    rows = sorted((n for n in band_err if scale[n] > 1e-8 * top),
+                  key=lambda n: band_err[n] / scale[n], reverse=True)
+    log(f"  errors against float64 over the leaf's own scale, band / gather, "
+        f"over {len(rows)} leaves that are not zero but for rounding (worst "
+        f"gather {max(gather_err[n] / scale[n] for n in rows):.2e}; worst "
+        f"band leaves):")
+    for name in rows[:6]:
+        log(f"  {band_err[name] / scale[name]:.2e} / "
+            f"{gather_err[name] / scale[name]:.2e} {name} "
+            f"(scale {scale[name]:.3e})")
+    if not (loss_rel <= ENGINE_LOSS_RTOL and worst <= ENGINE_RTOL):
+        raise AssertionError("band and gather train steps disagree")
 
 
 def phase_train_step_checks(batch, capacity, device):
@@ -760,10 +825,9 @@ def phase_train_step_checks(batch, capacity, device):
 
     phase_conv_backward_in_autograd(batch, capacity, device)
     cut = batch.map(lambda a: a[:2])
-    compare_steps("train step, band vs gather engine on the card, f32",
-                  one_train_step(cut, "band", "float32", device),
-                  one_train_step(cut, "gather", "float32", device),
-                  ENGINE_RTOL, ENGINE_RTOL)
+    compare_engine_steps(one_train_step(cut, "band", "float32", device),
+                         one_train_step(cut, "gather", "float32", device),
+                         one_train_step(cut, "gather", "float64", "cpu"))
     compare_steps("train step, card vs CPU, bf16 band engine",
                   one_train_step(cut, "band", "bfloat16", device),
                   one_train_step(cut, "band", "bfloat16", "cpu"),
@@ -772,7 +836,7 @@ def phase_train_step_checks(batch, capacity, device):
     log("phase 6a ok")
 
 
-def phase_training_cli(root, capacity, device):
+def phase_training_cli(root, device):
     """The training CLI at full width; returns the backward kernel's
     launches and the run's record."""
     import math
@@ -788,8 +852,8 @@ def phase_training_cli(root, capacity, device):
     argv = ["treelearn", "--data_root", root, "--test_plots", "1",
             "--epochs", str(TRAIN_EPOCHS), "--batch_size", str(TRAIN_TREES),
             "--bucket", str(TRAIN_POINTS), "--engine", "band",
-            "--conv_dtype", "bfloat16", "--voxel_capacity", str(capacity),
-            "--save_dir", save_dir, "--device", str(device)]
+            "--conv_dtype", "bfloat16", "--save_dir", save_dir,
+            "--device", str(device)]
     log("training CLI: python -m treemorph_tpu_torch.train.cli "
         + " ".join(argv))
     bandconv.GATHER_ROUTES.clear()
@@ -845,8 +909,6 @@ def phase_step_split(batch, capacity, device, reps=3):
     model = training_model(capacity, TRAIN_TREES).to(device)
     forward_fn, loss_fn = families.treelearn_family()
     opt = harness.make_optimizer(model)
-    for group in opt.param_groups:
-        group["lr"] = 1e-2
     torch.cuda.reset_peak_memory_stats(device)
     splits = []
     for _ in range(reps + 1):
@@ -857,11 +919,11 @@ def phase_step_split(batch, capacity, device, reps=3):
         loss, _ = loss_fn(out, batch)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        opt.zero_grad(set_to_none=True)
+        model.zero_grad(set_to_none=True)
         (loss * harness.LOSS_BACKWARD_SCALE).backward()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        opt.step()
+        harness.optimizer_step(opt, 1e-2)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         splits.append((t1 - t0, t2 - t1, t3 - t2))
@@ -947,15 +1009,15 @@ def main() -> int:
     fwd_launches = phase_end_to_end(points, device)
     with tempfile.TemporaryDirectory() as root:
         t1 = time.perf_counter()
-        capacity = write_training_plots(root)
+        write_training_plots(root)
+        batch, capacity = first_training_batch(root, device)
         log(f"training data: {TRAIN_PLOTS} plots x {TRAIN_TREES} trees x "
             f"{TRAIN_POINTS} points in {time.perf_counter() - t1:.1f} s; "
             f"level-0 voxel capacity {capacity}")
-        batch = first_training_batch(root, device)
         bwd_record, per_step = phase_bwd_kernel_vs_plain(batch, capacity,
                                                          device)
         phase_train_step_checks(batch, capacity, device)
-        bwd_launches, cli_record = phase_training_cli(root, capacity, device)
+        bwd_launches, cli_record = phase_training_cli(root, device)
         split = phase_step_split(batch, capacity, device)
     log(json.dumps({**per_step, **split, **cli_record}))
     log(f"total {time.perf_counter() - t0:.1f} s")

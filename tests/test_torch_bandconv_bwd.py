@@ -1,8 +1,9 @@
 """The port's band conv gradient against the JAX package's: the backward's
 plain version with its residual repair against ``jax.grad`` of the exact
 gather conv (f32), the bf16 backward against JAX's own band VJP (Pallas
-kernels in interpret mode), the gather engine's custom VJP, and the
-``needs_feats_grad=False`` and overflow routes.
+kernels in interpret mode), the gather engine's custom VJP, and the routes
+of features that need no gradient (the JAX package's
+``needs_feats_grad=False``) and of an overflowed plan.
 
 The CUDA kernel itself runs only on the card; ``chip_smoke.py`` holds it
 against the plain version tested here.
@@ -50,14 +51,16 @@ def operands(m, cin, cout, seed):
     return feats, w, g
 
 
-def port_grads(feats, w, g, ctx, valid, dtype=torch.float32, **kw):
+def port_grads(feats, w, g, ctx, valid, dtype=torch.float32,
+               feats_grad=True):
     """(out, d_feats, d_w) of the port's conv through torch autograd, with
-    ``g`` as the output gradient."""
-    f, wt = t(feats).requires_grad_(), t(w).requires_grad_()
-    out = tsp.subm_conv_apply(f, wt, ctx, t(valid), compute_dtype=dtype,
-                              **kw)
+    ``g`` as the output gradient; ``d_feats`` is None unless
+    ``feats_grad``."""
+    f, wt = t(feats).requires_grad_(feats_grad), t(w).requires_grad_()
+    out = tsp.subm_conv_apply(f, wt, ctx, t(valid), compute_dtype=dtype)
     out.backward(t(g))
-    return out.detach().numpy(), f.grad.numpy(), wt.grad.numpy()
+    d_feats = f.grad.numpy() if feats_grad else None
+    return out.detach().numpy(), d_feats, wt.grad.numpy()
 
 
 @pytest.fixture(scope="module")
@@ -132,8 +135,9 @@ def test_band_autograd_equals_gather_engine(repaired_level, window):
 def test_needs_feats_grad_false_takes_gather_formulation(
     repaired_level, monkeypatch, dtype
 ):
-    """The stem's route: the band forward, then the gather engine's
-    backward (bitwise its gradients) without the band backward."""
+    """The stem's route, features that need no gradient (the JAX
+    package's ``needs_feats_grad=False``): the band forward, then the
+    gather engine's weight gradient (bitwise) without the band backward."""
     rb, valid, plan = repaired_level
     feats, w, g = operands(len(rb), 7, 16, 3)
     gather = port_grads(feats, w, g, t(rb), valid, dtype)
@@ -144,8 +148,8 @@ def test_needs_feats_grad_false_takes_gather_formulation(
 
     monkeypatch.setattr(tband, "band_conv_bwd_padded", no_band_backward)
     out, df, dw = port_grads(feats, w, g, plan, valid, dtype,
-                             needs_feats_grad=False)
-    np.testing.assert_array_equal(df, gather[1])
+                             feats_grad=False)
+    assert df is None
     np.testing.assert_array_equal(dw, gather[2])
     np.testing.assert_array_equal(out, band_out)  # the band forward
 

@@ -1,8 +1,8 @@
 """The port's TreeLearn training against the JAX package's: one full train
-step (loss, every updated parameter, the BN running statistics), the
-optimizer chain, the loss, the schedule, early stopping, the data layer,
-the augmentations, checkpoints through ``load_model``, and the CLI on the
-CPU.
+step (loss, every gradient, every updated parameter, the BN running
+statistics), the optimizer chain, the loss, the schedule, early stopping,
+the data layer, the augmentations, checkpoints through ``load_model``, and
+the CLI on the CPU.
 
 Inputs come from numpy seeds and weights from the flax layout through
 ``flax_to_state_dict``. The JAX model runs the gather engine with exact
@@ -108,36 +108,89 @@ def assert_batches_equal(a, b):
             np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
 
 
-def test_train_step_matches_jax():
-    """One step of the port's band engine against the JAX gather engine's
-    jitted step (f32, channels 8, two levels, 2 x 512 points): the loss
-    and every BN running statistic to 1e-5 of its scale, and every updated
-    parameter as far as gradients that agree to 1e-5 of their scale
-    determine it. Adam's first step moves an entry by lr * g / (|g| + eps)
-    (g clipped), insensitive to g unless |g| is near eps = 1e-8, where a
-    gradient error dg moves it by up to lr * eps * dg / (|g| + eps)^2
-    more; that slack matters for at most 1 % of the entries. The
-    entries whose gradient is zero but for rounding (ZERO_GRAD) are held
+def jax_train_step(jmodel, variables, batch, lr):
+    """The JAX harness's step (``make_train_step``'s body, gather engine)
+    in one jit that also returns the gradients: ``jax.grad`` of the family's
+    x50-scaled loss, the new BN statistics, the loss terms, and the
+    parameters after the optax chain at ``lr``."""
+    forward_fn, loss_fn = jfamilies.treelearn_family(jmodel)
+    tx = jharness.make_optimizer()
+
+    @jax.jit
+    def step(params, batch_stats, batch):
+        def scaled_loss(params):
+            out, new_bs = forward_fn(params, batch_stats, batch, True,
+                                     jax.random.key(0))
+            loss, loss_dict = loss_fn(out, batch)
+            return (loss * jharness.LOSS_BACKWARD_SCALE,
+                    (new_bs, {"loss": loss, **loss_dict}))
+
+        grads, (new_bs, metrics) = jax.grad(scaled_loss, has_aux=True)(
+            params)
+        updates, _ = tx.update(grads, tx.init(params), params)
+        new_params = optax.apply_updates(
+            params, jax.tree.map(lambda u: u * lr, updates))
+        return grads, metrics, {"params": new_params, "batch_stats": new_bs}
+
+    out = step(*(jax.tree.map(jnp.asarray, x) for x in (
+        variables["params"], variables["batch_stats"], batch)))
+    return jax.device_get(out)
+
+
+def assert_grads_match(grads, want_grads):
+    """Every gradient leaf to 1e-5 of its own scale; the ZERO_GRAD entries
     below 1e-6 of the largest gradient."""
+    assert set(grads) == set(want_grads)
+    top = max(np.abs(g).max() for g in want_grads.values())
+    for name, want in want_grads.items():
+        got, want = grads[name], want.numpy()
+        if name in ZERO_GRAD:
+            zero = ZERO_GRAD[name]
+            assert np.abs(got[zero]).max() <= 1e-6 * top, name
+            assert np.abs(want[zero]).max() <= 1e-6 * top, name
+            got, want = got.copy(), want.copy()
+            got[zero] = want[zero] = 0.0
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max(),
+                                   err_msg=name)
+
+
+def test_train_step_matches_jax(monkeypatch):
+    """One ``make_train_step`` of the port's band engine against the JAX
+    gather engine's step (f32, channels 8, two levels, 2 x 512 points):
+    the loss terms to 1e-5; every parameter gradient, taken before the
+    clip, against ``jax.grad`` to 1e-5 of its own leaf's scale; the BN
+    running statistics to 1e-5 of their scale; and every updated
+    parameter against the optax chain on JAX's gradients, as far as the
+    gradients determine it. The port's gather engine in float64 (the
+    reference chip_smoke.py holds the card's f32 steps to) gives the same
+    loss and gradients. Adam's first step moves an entry by
+    lr * g / (|g| + eps) (g clipped), insensitive to g unless |g| is near
+    eps = 1e-8, where a gradient error dg moves it by up to
+    lr * eps * dg / (|g| + eps)^2 more; that slack matters for at most 1 %
+    of the entries. The entries whose gradient is zero but for rounding
+    (ZERO_GRAD) are held below 1e-6 of the largest gradient."""
     jmodel, variables = jax_model_and_variables("gather", "float32")
     jmodel = jmodel.clone(batch_size=2)
     batch = padded_batch([3, 4], 512)
     lr, eps = 1e-2, 1e-8
-
-    tx = jharness.make_optimizer()
-    state = jharness.create_train_state(
-        jax.tree.map(jnp.asarray, variables), tx
-    )
-    step = jharness.make_train_step(*jfamilies.treelearn_family(jmodel), tx)
-    state, metrics_j = step(state, jax.tree.map(jnp.asarray, batch),
-                            jnp.float32(lr), jax.random.key(0))
-    after_j = flax_to_state_dict(jax.device_get(
-        {"params": state.params, "batch_stats": state.batch_stats}
-    ))
+    grads_j, metrics_j, after_j = jax_train_step(jmodel, variables, batch,
+                                                 lr)
+    grads_j = flax_to_state_dict({"params": grads_j})
+    after_j = flax_to_state_dict(after_j)
 
     model = TreeLearn(engine="band", conv_dtype="float32", batch_size=2,
                       **SMALL)
     model.load_state_dict(flax_to_state_dict(variables), strict=True)
+    grads = {}
+    clip_and_step = harness.optimizer_step
+
+    def recording_step(optimizer, lr):
+        grads.update({n: p.grad.numpy().copy()
+                      for n, p in model.named_parameters()})
+        clip_and_step(optimizer, lr)
+
+    monkeypatch.setattr(harness, "optimizer_step", recording_step)
     tstate = harness.TrainState(model, harness.make_optimizer(model))
     tstep = harness.make_train_step(*families.treelearn_family())
     _, metrics_t = tstep(tstate, harness.to_device(batch, "cpu"), lr)
@@ -145,17 +198,28 @@ def test_train_step_matches_jax():
     for key in ("loss", "semantic_loss", "offset_loss"):
         np.testing.assert_allclose(float(metrics_t[key]),
                                    float(metrics_j[key]), rtol=1e-5)
-    after_t = model.state_dict()
-    grads = {n: p.grad.numpy() for n, p in model.named_parameters()}
-    top = max(np.abs(g).max() for g in grads.values())
+    assert_grads_match(grads, grads_j)
+
+    ref = TreeLearn(engine="gather", conv_dtype="float64", batch_size=2,
+                    **SMALL)
+    ref.load_state_dict(flax_to_state_dict(variables), strict=True)
+    ref = ref.to(torch.float64)
+    forward_fn, loss_fn = families.treelearn_family()
+    tbatch = harness.to_device(batch, "cpu")
+    loss, _ = loss_fn(forward_fn(ref, tbatch, True), tbatch)
+    (loss * harness.LOSS_BACKWARD_SCALE).backward()
+    assert loss.dtype == torch.float64
+    np.testing.assert_allclose(float(loss.detach()),
+                               float(metrics_j["loss"]), rtol=1e-5)
+    assert_grads_match({n: p.grad.numpy() for n, p in ref.named_parameters()},
+                       grads_j)
     norm = np.sqrt(sum(np.sum(g.astype(np.float64) ** 2)
                        for g in grads.values()))
     clip = min(1.0, harness.GRAD_CLIP_NORM / norm)
-    for name, zero in ZERO_GRAD.items():
-        assert np.abs(grads[name][zero]).max() <= 1e-6 * top, name
+    after_t = model.state_dict()
     slack_entries = total = 0
     for name, want in after_j.items():
-        got, want = after_t[name].numpy(), np.asarray(want)
+        got, want = after_t[name].numpy(), want.numpy()
         atol = 1e-5 * np.abs(want).max()
         if name in grads:
             g = np.abs(grads[name]) * clip
@@ -218,9 +282,7 @@ def test_optimizer_matches_optax_chain(fixed):
             for name, value in leaves.items():
                 getattr(getattr(net, mod), name).grad = torch.from_numpy(
                     value)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
+        harness.optimizer_step(opt, lr)
     for mod, leaves in jparams.items():
         for name, want in leaves.items():
             got = getattr(getattr(net, mod), name).detach().numpy()
@@ -355,7 +417,7 @@ def test_checkpoint_round_trip_through_load_model(tmp_path):
     for k, v in state.model.state_dict().items():
         np.testing.assert_array_equal(fresh.model.state_dict()[k], v)
     for p, q in zip(state.model.parameters(), fresh.model.parameters()):
-        for key in ("mu", "nu"):
+        for key in ("exp_avg", "exp_avg_sq"):
             np.testing.assert_array_equal(
                 fresh.optimizer.state[q][key], state.optimizer.state[p][key])
 

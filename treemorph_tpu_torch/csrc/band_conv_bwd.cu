@@ -26,12 +26,16 @@
 // group's gradient window (win x 32 floats), the tile's own 128 feature rows
 // (128 x 32 floats) and the rows' in-window indices in shared memory; each of
 // the 256 threads keeps 3 x 4 f32 accumulators (one input channel, four
-// output channels, three dz offsets) in registers. A warp shares one row and
-// four output columns, so its window reads are broadcasts. Tiles whose rows
-// reach nothing in the group stage nothing. Each block writes its own
-// partial sums and the wrapper adds the partials up (no float atomics, so
-// runs repeat bit for bit). wgmma, TMA and fusing the d_feats pass are left
-// for a later change.
+// output channels, three dz offsets) in registers. Each tile's rows are
+// summed on their own and then added to the block's running sums with Kahan
+// compensation: a block's sums run over thousands of entries whose terms
+// largely cancel (a BatchNorm's backward leaves gradients of zero mean), and
+// one sequential f32 chain over them would lose far more of the result than
+// a blocked matmul's sums do. A warp shares one row and four output columns,
+// so its window reads are broadcasts. Tiles whose rows reach nothing in the
+// group stage nothing. Each block writes its own partial sums and the
+// wrapper adds the partials up (no float atomics, so runs repeat bit for
+// bit). wgmma, TMA and fusing the d_feats pass are left for a later change.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,8 +53,18 @@ constexpr int COLS = 4;     // output channels per thread
 constexpr int THREADS = CI * CO / COLS;  // 256
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
+
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// sum += x with Kahan compensation: comp carries the low-order part the
+// last addition lost (nvcc reassociates no float ops without fast-math)
+__device__ __forceinline__ void kahan_add(float& sum, float& comp, float x) {
+  const float y = x - comp;
+  const float t = sum + y;
+  comp = (t - sum) - y;
+  sum = t;
 }
 
 template <typename T>
@@ -76,11 +90,11 @@ band_conv_bwd_kernel(const int32_t* __restrict__ rb_tiles,  // (n_tiles, 27, 128
   const int ci = threadIdx.x % CI;
   const int cq = (threadIdx.x / CI) * COLS;  // uniform within a warp
 
-  float acc[KSIZE][COLS];
+  float acc[KSIZE][COLS], comp[KSIZE][COLS];  // running sums, compensation
 #pragma unroll
   for (int dz = 0; dz < KSIZE; ++dz) {
 #pragma unroll
-    for (int j = 0; j < COLS; ++j) acc[dz][j] = 0.f;
+    for (int j = 0; j < COLS; ++j) acc[dz][j] = comp[dz][j] = 0.f;
   }
 
   const int t_begin = blockIdx.x * tiles_per_block;
@@ -116,6 +130,12 @@ band_conv_bwd_kernel(const int32_t* __restrict__ rb_tiles,  // (n_tiles, 27, 128
                    : 0.f;
     }
     __syncthreads();
+    float part[KSIZE][COLS];  // this tile's sums
+#pragma unroll
+    for (int dz = 0; dz < KSIZE; ++dz) {
+#pragma unroll
+      for (int j = 0; j < COLS; ++j) part[dz][j] = 0.f;
+    }
     for (int r = 0; r < TILE; ++r) {
       const float f = f_s[r * CI + ci];
 #pragma unroll
@@ -123,10 +143,17 @@ band_conv_bwd_kernel(const int32_t* __restrict__ rb_tiles,  // (n_tiles, 27, 128
         const int l = loc_s[dz * TILE + r];  // uniform within the block
         if (l < 0) continue;
         const float4 gv = *reinterpret_cast<const float4*>(g_s + l * CO + cq);
-        acc[dz][0] = fmaf(f, gv.x, acc[dz][0]);
-        acc[dz][1] = fmaf(f, gv.y, acc[dz][1]);
-        acc[dz][2] = fmaf(f, gv.z, acc[dz][2]);
-        acc[dz][3] = fmaf(f, gv.w, acc[dz][3]);
+        part[dz][0] = fmaf(f, gv.x, part[dz][0]);
+        part[dz][1] = fmaf(f, gv.y, part[dz][1]);
+        part[dz][2] = fmaf(f, gv.z, part[dz][2]);
+        part[dz][3] = fmaf(f, gv.w, part[dz][3]);
+      }
+    }
+#pragma unroll
+    for (int dz = 0; dz < KSIZE; ++dz) {
+#pragma unroll
+      for (int j = 0; j < COLS; ++j) {
+        kahan_add(acc[dz][j], comp[dz][j], part[dz][j]);
       }
     }
     __syncthreads();  // staged operands and loc_s done before the next tile
@@ -140,7 +167,7 @@ band_conv_bwd_kernel(const int32_t* __restrict__ rb_tiles,  // (n_tiles, 27, 128
                                cout + co0 + cq;
 #pragma unroll
     for (int j = 0; j < COLS; ++j) {
-      if (cq + j < cow) row[j] = acc[dz][j];
+      if (cq + j < cow) row[j] = acc[dz][j] - comp[dz][j];
     }
   }
 }

@@ -28,13 +28,15 @@ def point_wise_loss(
     n_points: int | None = None,
     generator: torch.Generator | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (semantic_loss, offset_loss) float32 scalars.
+    """Returns (semantic_loss, offset_loss) float32 scalars (float64 for
+    float64 predictions).
 
     ``n_points``: a random subsample of the loss points (reference
     ``Loss.py:9-13``) as random mask thinning, drawn from ``generator``
     (required then)."""
-    semantic_logits = semantic_logits.float()
-    offset_predictions = offset_predictions.float()
+    acc = torch.promote_types(semantic_logits.dtype, torch.float32)
+    semantic_logits = semantic_logits.to(acc)
+    offset_predictions = offset_predictions.to(acc)
     sem_w = semantic_mask.float().reshape(-1)
     off_w = offset_mask.float().reshape(-1)
 

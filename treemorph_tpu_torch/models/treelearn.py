@@ -43,7 +43,8 @@ _NOT_PORTED_ENGINES = ("pencil", "brick", "zpack")
 
 
 def _conv_dtype(name: str) -> torch.dtype:
-    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float64": torch.float64}[name]
 
 
 def _fan_in_normal_(w: torch.Tensor, generator) -> None:
@@ -73,7 +74,7 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x, mask):
         if self.training:
-            w = mask.to(torch.float32)[:, None]
+            w = mask.to(x.dtype)[:, None]
             cnt = w.sum().clamp(min=1.0)
             xw = torch.where(mask[:, None], x, 0.0)
             mean = xw.sum(dim=0) / cnt
@@ -94,16 +95,12 @@ class MaskedBatchNorm(nn.Module):
 
 class SubMConv(nn.Module):
     """Submanifold conv layer over a precomputed rulebook or band plan
-    (no bias). ``needs_feats_grad=False`` marks a conv whose input is raw
-    data (the stem): the band engine's backward then takes the gather
-    formulation, which skips the feature gradient."""
+    (no bias)."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 3, conv_dtype: str = "float32",
-                 needs_feats_grad: bool = True):
+                 kernel_size: int = 3, conv_dtype: str = "float32"):
         super().__init__()
         self.conv_dtype = conv_dtype
-        self.needs_feats_grad = needs_feats_grad
         self.kernel = nn.Parameter(
             torch.empty(kernel_size**3, in_channels, out_channels)
         )
@@ -112,7 +109,6 @@ class SubMConv(nn.Module):
         return subm_conv_apply(
             feats, self.kernel, ctx, valid,
             compute_dtype=_conv_dtype(self.conv_dtype),
-            needs_feats_grad=self.needs_feats_grad,
         )
 
 
@@ -276,7 +272,7 @@ class TreeLearnBackbone(nn.Module):
         self.conv_dtype = conv_dtype
         self.voxel_capacity = voxel_capacity
         self.input_conv = SubMConv(dim_feat + 3, channels, kernel_size,
-                                   conv_dtype, needs_feats_grad=False)
+                                   conv_dtype)
         n_planes = [channels * (i + 1) for i in range(num_blocks)]
         self.unet = UBlock(n_planes, 2, kernel_size, engine=engine,
                            conv_dtype=conv_dtype)

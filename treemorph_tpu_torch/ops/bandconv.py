@@ -22,8 +22,10 @@ Gradients: :class:`_BandConv` is the ``torch.autograd.Function`` of the
 JAX package's ``_band_conv_vjp``. Its backward runs
 :func:`band_conv_bwd_padded` over the same plan (``csrc/band_conv_bwd.cu``
 for the weight gradient, the forward kernel for the feature gradient) and
-repairs the residual entries in f32; the gather formulation serves convs
-declared ``needs_feats_grad=False``.
+repairs the residual entries in f32. A conv whose features need no
+gradient (the stem, on raw voxel features) takes the gather formulation for
+its weight gradient, as the JAX package's ``needs_feats_grad=False`` convs
+do.
 """
 
 from __future__ import annotations
@@ -450,14 +452,14 @@ def _band_grads(feats, weights, plan: BandPlan, valid, grad, dtype):
 
 class _BandConv(torch.autograd.Function):
     """The band conv with the JAX package's ``_band_conv_vjp`` gradient.
-    Convs declared ``needs_feats_grad=False`` (the stem, on raw voxel
-    features) take the gather formulation backward, as there."""
+    When the features need no gradient (the stem, on raw voxel features),
+    the weight gradient takes the gather formulation, as the JAX package's
+    ``needs_feats_grad=False`` convs do."""
 
     @staticmethod
-    def forward(ctx, feats, weights, valid, plan, dtype, needs_feats_grad):
+    def forward(ctx, feats, weights, valid, plan, dtype):
         ctx.save_for_backward(feats, weights, valid)
         ctx.plan, ctx.dtype = plan, dtype
-        ctx.needs_feats_grad = needs_feats_grad
         return _band_impl(feats, weights, plan, valid, dtype)
 
     @staticmethod
@@ -465,20 +467,17 @@ class _BandConv(torch.autograd.Function):
         from .sparse import _gather_grads
 
         feats, weights, valid = ctx.saved_tensors
-        if ctx.needs_feats_grad:
+        if ctx.needs_input_grad[0]:
             d_feats, d_w = _band_grads(
                 feats, weights, ctx.plan, valid, grad, ctx.dtype
             )
+            d_feats = d_feats.to(feats.dtype)
         else:
             d_feats, d_w = _gather_grads(
                 ctx.dtype, feats, weights, ctx.plan.rulebook, valid, grad,
-                ctx.needs_input_grad[0],
+                False,
             )
-        if not ctx.needs_input_grad[0]:
-            d_feats = None
-        elif d_feats is not None:
-            d_feats = d_feats.to(feats.dtype)
-        return d_feats, d_w.to(weights.dtype), None, None, None, None
+        return d_feats, d_w.to(weights.dtype), None, None, None
 
 
 def band_subm_conv_apply(
@@ -487,13 +486,11 @@ def band_subm_conv_apply(
     plan: BandPlan,
     valid: torch.Tensor,
     compute_dtype=None,
-    needs_feats_grad: bool = True,
 ) -> torch.Tensor:
     """Submanifold conv on the band engine; same weights layout as
     :func:`.sparse.subm_conv_apply`. Takes the exact gather engine when the
     plan's residual cap overflowed (``plan.ok`` false) or the kernels do
-    not take the shape. ``needs_feats_grad=False`` marks a conv whose
-    input is raw data: its backward takes the gather formulation."""
+    not take the shape."""
     from .sparse import _subm_conv
 
     dtype = compute_dtype or feats.dtype
@@ -503,9 +500,7 @@ def band_subm_conv_apply(
     if not viable or not bool(plan.ok):
         GATHER_ROUTES["shape" if not viable else "overflow"] += 1
         return _subm_conv(gather_dtype, feats, weights, plan.rulebook, valid)
-    return _BandConv.apply(
-        feats, weights, valid, plan, gather_dtype, needs_feats_grad
-    )
+    return _BandConv.apply(feats, weights, valid, plan, gather_dtype)
 
 
 def choose_band_plan(

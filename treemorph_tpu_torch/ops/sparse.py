@@ -94,23 +94,19 @@ def subm_conv_apply(
     rulebook,  # (M, K) rulebook, or a BandPlan
     valid: torch.Tensor,  # (M,)
     compute_dtype=None,
-    needs_feats_grad: bool = True,
 ) -> torch.Tensor:
     """Submanifold conv: out[i] = sum_k W[k] @ feats[nbr_k(i)].
 
     ``rulebook`` may be a :class:`~.bandconv.BandPlan`, selecting the band
     engine (same weights layout). ``compute_dtype=torch.bfloat16`` rounds
     features (and, on the gather engine, weights) to bf16; accumulation
-    stays float32. ``needs_feats_grad=False`` marks a conv whose input is
-    raw data (the stem): the band engine's backward then takes the gather
-    formulation."""
+    stays float32 (float64 for ``torch.float64``, gather engine only)."""
     from .bandconv import BandPlan, band_subm_conv_apply
 
     dtype = compute_dtype or feats.dtype
     if isinstance(rulebook, BandPlan):
         return band_subm_conv_apply(
-            feats, weights, rulebook, valid, compute_dtype=dtype,
-            needs_feats_grad=needs_feats_grad,
+            feats, weights, rulebook, valid, compute_dtype=dtype
         )
     return _subm_conv(dtype, feats, weights, rulebook, valid)
 
@@ -122,15 +118,16 @@ def _subm_conv_impl(dtype, feats, weights, rulebook, valid):
     m, cin = feats.shape
     k = weights.shape[0]
     cout = weights.shape[-1]
+    acc = torch.promote_types(dtype, torch.float32)
     feats_pad = torch.cat(
         [
             (feats * valid[:, None]).to(dtype),
             torch.zeros((1, cin), dtype=dtype, device=feats.device),
         ],
         dim=0,
-    ).float()
-    w = weights.to(dtype).float()
-    out = torch.zeros((m, cout), dtype=torch.float32, device=feats.device)
+    ).to(acc)
+    w = weights.to(dtype).to(acc)
+    out = torch.zeros((m, cout), dtype=acc, device=feats.device)
     for j in range(k):
         out = out + feats_pad[rulebook[:, j]] @ w[j]
     return out * valid[:, None]
@@ -148,19 +145,20 @@ def _gather_grads(dtype, feats, weights, rulebook, valid, grad,
     ``feats_grad``."""
     m, cin = feats.shape
     k, _, cout = weights.shape
-    w = weights.to(dtype).float()
-    g_masked = (grad * valid[:, None]).to(dtype).float()  # (M, Cout)
+    acc = torch.promote_types(dtype, torch.float32)
+    w = weights.to(dtype).to(acc)
+    g_masked = (grad * valid[:, None]).to(dtype).to(acc)  # (M, Cout)
     g_pad = torch.cat(
-        [g_masked, torch.zeros((1, cout), device=grad.device)]
+        [g_masked, torch.zeros((1, cout), dtype=acc, device=grad.device)]
     )
     feats_pad = torch.cat(
         [
             (feats * valid[:, None]).to(dtype),
             torch.zeros((1, cin), dtype=dtype, device=feats.device),
         ]
-    ).float()
+    ).to(acc)
     d_feats = (
-        torch.zeros((m, cin), dtype=torch.float32, device=feats.device)
+        torch.zeros((m, cin), dtype=acc, device=feats.device)
         if feats_grad else None
     )
     d_w = []
@@ -261,15 +259,14 @@ def down_conv_apply(
     cap = ds.coarse_coords.shape[0]
     cout = weights.shape[-1]
     dtype = compute_dtype or feats.dtype
+    acc = torch.promote_types(dtype, torch.float32)
     masked = (feats * valid[:, None]).to(dtype)
-    w = weights.to(dtype).float()
-    contrib = torch.zeros((m, cout), dtype=torch.float32, device=feats.device)
+    w = weights.to(dtype).to(acc)
+    contrib = torch.zeros((m, cout), dtype=acc, device=feats.device)
     for k in range(8):
         sel = (ds.child_offset == k).to(dtype)[:, None]
-        contrib = contrib + (masked * sel).float() @ w[k]
-    out = torch.zeros(
-        (cap + 1, cout), dtype=torch.float32, device=feats.device
-    )
+        contrib = contrib + (masked * sel).to(acc) @ w[k]
+    out = torch.zeros((cap + 1, cout), dtype=acc, device=feats.device)
     out.index_add_(0, ds.parent, contrib)
     return out[:cap] * ds.coarse_valid[:, None]
 
@@ -290,11 +287,10 @@ def inverse_conv_apply(
     parent_ok = ds.parent < cap
     gathered = coarse_feats.to(dtype)[ds.parent.clamp(0, cap - 1)]
     gathered = gathered * parent_ok[:, None].to(dtype)
-    w = weights.to(dtype).float()
-    out = torch.zeros(
-        (m, cout), dtype=torch.float32, device=coarse_feats.device
-    )
+    acc = torch.promote_types(dtype, torch.float32)
+    w = weights.to(dtype).to(acc)
+    out = torch.zeros((m, cout), dtype=acc, device=coarse_feats.device)
     for k in range(8):
         sel = (ds.child_offset == k).to(dtype)[:, None]
-        out = out + (gathered * sel).float() @ w[k]
+        out = out + (gathered * sel).to(acc) @ w[k]
     return out * fine_valid[:, None]

@@ -10,8 +10,9 @@ the ``plot_{n}.json`` manifests in ``--data_root``), AdamW (weight decay
 1e-3) with CosineAnnealingWarmRestarts(T_0=50, eta_min=1e-4), the x50 loss
 scale and global-norm clip 1.0, early stopping with best-checkpoint saves
 to ``{save_dir}/{name}_CV/P{plot}/``, loss multipliers and noise-cloud
-training. It runs on the CUDA device unless ``--device`` names another, and
-raises without one. No YAML parser is needed.
+training. The level-0 voxel capacity is worked out from the fold's clouds
+(:func:`level0_capacity`). It runs on the CUDA device unless ``--device``
+names another, and raises without one. No YAML parser is needed.
 
 Not ported yet, and raising ``NotImplementedError``: the ``pointnet2`` and
 ``pointtransformerv3`` families and raster training (``--raster_dir``,
@@ -86,14 +87,36 @@ def parse_args(argv=None):
     p.add_argument("--conv_dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="conv compute dtype (f32 accumulation)")
-    p.add_argument("--voxel_capacity", type=int, default=None,
-                   help="level-0 voxel rows per batch (default: one per "
-                        "point); voxels beyond it are dropped")
     p.add_argument("--device", default="cuda",
                    help="torch device (default: the CUDA device; raises "
                         "without one)")
     p.add_argument("--verbose", action="store_true")
     return p.parse_args(argv)
+
+
+def _unique_voxels(points, voxel_size: float) -> int:
+    """Occupied voxels of one cloud, as the voxelizer grids it (from the
+    cloud's own minimum corner)."""
+    grid = np.floor((points - points.min(axis=0)) / voxel_size)
+    return len(np.unique(grid.astype(np.int64), axis=0))
+
+
+def level0_capacity(datasets, batch_size: int, voxel_size: float,
+                    margin: float = 1.02) -> int:
+    """The honest level-0 voxel capacity of a batch
+    (scripts/bench_training.py:116-124): unique voxels x ``margin``, rounded
+    up to 8192, for the ``batch_size`` clouds of ``datasets`` with the most
+    voxels, so that no batch drops one. A tree's noise cloud counts where it
+    has more voxels than the tree (the noise pass has the same capacity)."""
+    counts = []
+    for ds in datasets:
+        for i in range(len(ds)):
+            s = ds[i]
+            clouds = [s.points] + (
+                [s.noise_points] if s.noise_points is not None else [])
+            counts.append(max(_unique_voxels(c, voxel_size) for c in clouds))
+    worst = sum(sorted(counts)[-batch_size:])
+    return -(-int(worst * margin) // 8192) * 8192
 
 
 def main(argv=None) -> dict:
@@ -135,6 +158,14 @@ def main(argv=None) -> dict:
                 noise_distance=args.noise_distance,
                 noise_root=args.noise_root,
             )
+            voxel_size = args.voxel_size or 0.02
+            # random_scale grows a cloud by up to 5 %, its voxels by up to
+            # 1.05^3
+            capacity = level0_capacity(
+                (trainset, valset), args.batch_size, voxel_size,
+                1.02 * (1.05**3 if args.augment else 1.0),
+            )
+            logging.info("level-0 voxel capacity %d", capacity)
             if args.augment:
                 from ..data.augmentations import default_augmentations
 
@@ -160,11 +191,11 @@ def main(argv=None) -> dict:
                 channels=args.channels,
                 num_blocks=args.num_blocks,
                 dim_feat=args.dim_feat,
-                voxel_size=args.voxel_size or 0.02,
+                voxel_size=voxel_size,
                 batch_size=example.batch_size,
                 engine=args.engine,
                 conv_dtype=args.conv_dtype,
-                voxel_capacity=args.voxel_capacity,
+                voxel_capacity=capacity,
             )
             model = families.init_treelearn(model, args.seed).to(device)
             family_fn = (
@@ -188,7 +219,7 @@ def main(argv=None) -> dict:
                 "plot": plot,
                 # the RESOLVED voxel size: load_model rebuilds the
                 # architecture from this
-                "voxel_size": args.voxel_size or 0.02,
+                "voxel_size": voxel_size,
                 "num_blocks": args.num_blocks,
                 "channels": args.channels,
                 "dim_feat": args.dim_feat,

@@ -1,5 +1,6 @@
-"""Training harness on one device: the JAX package's optax chain as a torch
-optimizer, masked losses, per-epoch train/validate loops.
+"""Training harness on one device: the JAX package's optax chain as a
+global-norm clip and torch's AdamW, masked losses, per-epoch
+train/validate loops.
 
 Port of ``treemorph_tpu/train/harness.py`` (reference
 ``Modules/train_utils.py``): the x50 loss scaling at backward
@@ -33,61 +34,24 @@ _MESH_TODO = ("data-parallel training is not ported yet "
               "(ROADMAP.md queue 1 item 16)")
 
 
-class ClippedAdamW(torch.optim.Optimizer):
-    """``optax.chain(clip_by_global_norm(1.0), scale_by_adam(),
-    add_decayed_weights(wd), scale(-1))`` followed by ``x lr``, as the JAX
-    harness applies it:
-
-        g <- g * max_norm / |g|   where |g| >= max_norm (optax's formula;
-                                  clip_grad_norm_ would add 1e-6 to |g|)
-        mu <- (1 - b1) g + b1 mu;  nu <- (1 - b2) g^2 + b2 nu
-        u  <- mu / (1 - b1^t) / (sqrt(nu / (1 - b2^t)) + eps) + wd * p
-        p  <- p - lr * u
-
-    The norm runs over every parameter of the non-``fixed`` groups. A group
-    with ``fixed=True`` (the JAX package's ``fixed_modules``) takes no
-    update: its gradients count as zero and it has no weight decay, so its
-    parameters stay as they are. The learning rate is the groups' ``lr``,
-    which the train step sets from the schedule."""
-
-    def __init__(self, params, weight_decay: float = 1e-3):
-        super().__init__(params, dict(lr=0.0, weight_decay=weight_decay,
-                                      fixed=False))
-
-    @torch.no_grad()
-    def step(self, closure=None):
-        if closure is not None:
-            raise ValueError("ClippedAdamW.step takes no closure")
-        live = [
-            (group, p)
-            for group in self.param_groups if not group["fixed"]
-            for p in group["params"]
-        ]
-        grads = [
-            torch.zeros_like(p) if p.grad is None else p.grad
-            for _, p in live
-        ]
-        if not grads:
-            return
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        b1, b2 = ADAM_B1, ADAM_B2
-        for (group, p), g in zip(live, grads):
-            g = torch.where(norm < GRAD_CLIP_NORM, g,
-                            g / norm * GRAD_CLIP_NORM)
-            state = self.state[p]
-            if not state:
-                state["step"] = 0
-                state["mu"] = torch.zeros_like(p)
-                state["nu"] = torch.zeros_like(p)
-            state["step"] += 1
-            t = state["step"]
-            mu = state["mu"].mul_(b1).add_((1 - b1) * g)
-            nu = state["nu"].mul_(b2).add_((1 - b2) * (g * g))
-            mu_hat = mu / (1 - b1**t)
-            nu_hat = nu / (1 - b2**t)
-            update = mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)
-            update = update + group["weight_decay"] * p
-            p.add_(-update * group["lr"])
+@torch.no_grad()
+def optimizer_step(optimizer: torch.optim.AdamW, lr: float) -> None:
+    """One update of the JAX harness's ``optax.chain(clip_by_global_norm(1.0),
+    scale_by_adam(), add_decayed_weights(wd), scale(-1))`` followed by
+    ``x lr``: the gradients of ``optimizer``'s parameters are scaled by
+    ``min(1, max_norm / |g|)`` (optax's formula; ``clip_grad_norm_`` would
+    add 1e-6 to ``|g|``), then AdamW takes its step at ``lr``. A parameter
+    without a gradient counts as a zero gradient."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params]
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    torch._foreach_mul_(grads, torch.clamp(GRAD_CLIP_NORM / norm, max=1.0))
+    for group in optimizer.param_groups:
+        group["lr"] = float(lr)
+    optimizer.step()
 
 
 @dataclass
@@ -96,7 +60,7 @@ class TrainState:
     statistics, in place), its optimizer and the step count."""
 
     model: nn.Module
-    optimizer: ClippedAdamW
+    optimizer: torch.optim.AdamW
     step: int = 0
 
 
@@ -108,21 +72,22 @@ def make_optimizer(
     model: nn.Module,
     weight_decay: float = 1e-3,
     fixed_modules: tuple = (),
-) -> ClippedAdamW:
-    """AdamW (see :class:`ClippedAdamW`) over ``model``'s parameters.
+) -> torch.optim.AdamW:
+    """AdamW with optax's defaults and decoupled weight decay over
+    ``model``'s parameters; :func:`optimizer_step` clips and applies it.
 
     ``fixed_modules`` freezes the named top-level submodules for transfer
     learning (the reference's ``fixed_modules``,
-    ``Modules/TreeLearn/TreeLearn.py:65-87``): they take no update and no
-    weight decay, and stay out of the global-norm clip."""
+    ``Modules/TreeLearn/TreeLearn.py:65-87``): their parameters stay out of
+    the optimizer, so they take no update and no weight decay and stay out
+    of the global-norm clip."""
     fixed = tuple(fixed_modules)
-    named = list(model.named_parameters())
-    groups = [
-        {"params": [p for n, p in named if not _is_fixed(n, fixed)]},
-        {"params": [p for n, p in named if _is_fixed(n, fixed)],
-         "fixed": True},
-    ]
-    return ClippedAdamW([g for g in groups if g["params"]], weight_decay)
+    params = [p for n, p in model.named_parameters()
+              if not _is_fixed(n, fixed)]
+    return torch.optim.AdamW(
+        params, lr=0.0, betas=(ADAM_B1, ADAM_B2), eps=ADAM_EPS,
+        weight_decay=weight_decay, fused=True,
+    )
 
 
 def make_train_step(
@@ -153,14 +118,12 @@ def make_train_step(
         }
         out = forward_fn(model, batch, True)
         loss, loss_dict = loss_fn(out, batch)
-        state.optimizer.zero_grad(set_to_none=True)
+        model.zero_grad(set_to_none=True)
         (loss * LOSS_BACKWARD_SCALE).backward()
         with torch.no_grad():
             for name, value in pinned.items():
                 model.get_buffer(name).copy_(value)
-        for group in state.optimizer.param_groups:
-            group["lr"] = float(lr)
-        state.optimizer.step()
+        optimizer_step(state.optimizer, lr)
         state.step += 1
         metrics = {"loss": loss, **loss_dict}
         return state, {k: v.detach() for k, v in metrics.items()}
