@@ -37,6 +37,22 @@ reference's training batch, written to a temporary directory):
    launches; then a timed step split into forward, backward and
    optimizer.
 
+PTv3 serving (the pipeline's ``pointtransformerv3`` family at full width,
+seeded weights, f32, on the e2e cloud given seeded per-point features):
+
+7a. Window attention against plain: ``window_attention`` on the card at each
+    distinct (W, H, 1024, 16) shape of the plot's forward, on the inputs the
+    main path gives it (f32, and the same cast to bf16) and on random ones
+    with three segments and padding rows, against its plain version on a
+    spread of the windows; CUDA-event times against the bound, the plain
+    version and ``scaled_dot_product_attention`` with the same mask.
+7b. Stage 1 on the card against the CPU: the forward ``predict_single``
+    runs, on the cloud's first 65,536 points.
+7c. End to end: ``run_pipeline`` with ``model_type: pointtransformerv3``
+    (44 kernel launches: 22 blocks x 2 models), then stage by stage, then
+    one forward under ``torch.profiler`` (device busy share, top operators
+    and kernels).
+
 The last two lines are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``. Float32 matmuls and convolutions run
 without TF32 (set below) so f32 comparisons are full precision.
@@ -82,6 +98,16 @@ STAGE1_OFFSET_RTOL = 1e-2
 STAGE1_ARGMAX_AGREEMENT = 0.999
 #: stage 2's target size (configs/pipeline_config.yaml)
 MIN_POINTS = 1_000_000
+
+#: PTv3: attention blocks per forward (encoder 2+2+2+6+2, decoder 2+2+2+2)
+#: and the cut of the e2e cloud stage 1 is compared on, card against CPU
+PTV3_BLOCKS = 22
+PTV3_CUT = 65_536
+#: card vs CPU PTv3 forward, f32 throughout: the same roundings in another
+#: sum order (cuBLAS, atomic pooled sums) through 22 blocks
+PTV3_OFFSET_RTOL = 1e-3
+#: windows of a level the plain attention is checked on
+ATTN_CHECK_WINDOWS = 48
 
 #: the training workload: plots of 30 trees x 16,384 points, one 30-tree
 #: batch per step (scripts/bench_training.py:27-31, the reference's
@@ -380,7 +406,12 @@ class _RetryCounter(logging.Handler):
             self.retries += 1
 
 
-def phase_end_to_end(points, device):
+def plot_end_to_end(cloud, model_type, models, device, kernel, per_forward):
+    """``run_pipeline`` on ``cloud`` with ``model_type``'s offset and noise
+    predictors ``models``, then the same stages one by one, timed. Checks
+    the run and that ``kernel`` launched ``per_forward`` times in each
+    forward (less the convs whose band plan overflowed to the gather
+    route); returns its launches and the stage record."""
     import numpy as np
     import torch
 
@@ -391,32 +422,32 @@ def phase_end_to_end(points, device):
     from treemorph_tpu_torch.pipeline.run import run_pipeline
     from treemorph_tpu_torch.pipeline.upsample import upsample
 
-    offset_model, noise_model = pipeline_models(device)
+    offset_model, noise_model = models
+    predict_log = logging.getLogger("treemorph_tpu_torch.pipeline.predict")
+    retries = _RetryCounter()
     with tempfile.TemporaryDirectory() as tmp:
         inp = os.path.join(tmp, "input")
         os.makedirs(inp)
-        np.save(os.path.join(inp, "plot.npy"), points)
-        cfg = pipeline_config(inp, os.path.join(tmp, "output"))
+        np.save(os.path.join(inp, "plot.npy"), cloud)
+        cfg = pipeline_config(inp, os.path.join(tmp, "output"), model_type)
 
-        retries = _RetryCounter()
-        logging.getLogger("treemorph_tpu_torch.pipeline.predict").addHandler(
-            retries
-        )
+        predict_log.addHandler(retries)
         bandconv.GATHER_ROUTES.clear()
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
         results = run_pipeline(cfg, offset_model, noise_model, device=device)
         e2e_s = time.perf_counter() - t0
-        launches = LAUNCHES["band_conv"]
-        expected = 21 * (2 + retries.retries) - sum(
-            bandconv.GATHER_ROUTES.values()
-        )
-        log(f"run_pipeline: {e2e_s:.2f} s, results {results}")
-        log(f"band_conv launches {launches}, expected {expected} (42 per "
-            f"predict_single; retries {retries.retries}, overflowed-plan "
-            f"gather routes {sum(bandconv.GATHER_ROUTES.values())})")
-        out_dir = os.path.join(tmp, "output", "treelearn")
+        predict_log.removeHandler(retries)
+        launches = LAUNCHES[kernel]
+        routes = sum(bandconv.GATHER_ROUTES.values())
+        expected = per_forward * (2 + retries.retries) - routes
+        log(f"run_pipeline ({model_type}): {e2e_s:.2f} s, results {results}")
+        log(f"{kernel} launches {launches}, expected {expected} "
+            f"({2 * per_forward} per predict_single; retries "
+            f"{retries.retries}, overflowed-plan gather routes {routes}); "
+            f"all launches {dict(LAUNCHES)}")
+        out_dir = os.path.join(tmp, "output", model_type)
         stage1 = np.load(os.path.join(out_dir, "plot_pred_denoised.npy"))
         csv = os.path.join(out_dir, "plot_qsm_depth_cylinders.csv")
         checks = {
@@ -433,10 +464,11 @@ def phase_end_to_end(points, device):
         for name, ok in checks.items():
             log(f"  {'ok ' if ok else 'FAIL'} {name}")
         if not all(checks.values()):
-            raise AssertionError("end-to-end checks failed")
+            raise AssertionError(f"{model_type} end-to-end checks failed")
 
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        refined = predict_single(points, offset_model, noise_model,
+        refined = predict_single(cloud, offset_model, noise_model,
                                  device=device)
         t1 = time.perf_counter()
         upsampled = upsample(refined, min_points=MIN_POINTS, device=device)
@@ -445,8 +477,9 @@ def phase_end_to_end(points, device):
         df, _, _, _ = fit_qsm(upsampled, params=QSMParams(seed=0),
                               output_base=os.path.join(tmp, "staged"))
         t3 = time.perf_counter()
-        log(json.dumps({
-            "e2e_raw_points": len(points),
+        record = {
+            "model_type": model_type,
+            "e2e_raw_points": len(cloud),
             "e2e_stage1_kept_points": len(refined),
             "e2e_upsampled_points": len(upsampled),
             "e2e_cylinders": len(df),
@@ -455,7 +488,15 @@ def phase_end_to_end(points, device):
             "e2e_qsm_seconds": t3 - t2,
             "e2e_plot_seconds": t3 - t0,
             "run_pipeline_seconds": e2e_s,
-        }))
+        }
+        log(json.dumps(record))
+    return launches, record
+
+
+def phase_end_to_end(points, device):
+    launches, _ = plot_end_to_end(points, "treelearn",
+                                  pipeline_models(device), device,
+                                  "band_conv", 21)
     log("phase 4 ok")
     return launches
 
@@ -944,7 +985,304 @@ def phase_step_split(batch, capacity, device, reps=3):
     return record
 
 
-def pipeline_config(input_dir: str, output_dir: str) -> dict:
+def ptv3_cloud(points):
+    """The e2e cloud in the (N, 11) layout with seeded per-point features in
+    columns 7:11, which ``predict_single`` hands PTv3 (dim_feat 4,
+    use_feats). Without features the seeded model, whose biases start at 0,
+    computes zeros everywhere."""
+    import numpy as np
+
+    cloud = np.zeros((len(points), 11), np.float32)
+    cloud[:, :3] = points
+    cloud[:, 7:11] = np.random.default_rng(18).normal(size=(len(points), 4))
+    return cloud
+
+
+def ptv3_models(device):
+    """Offset and noise predictors of the pipeline's PTv3 (seeded weights);
+    the noise model's semantic head prefers class 0 (keep), as
+    ``pipeline_models`` does for TreeLearn."""
+    import torch
+
+    from treemorph_tpu_torch.evaluation.model_loaders import (
+        Predictor,
+        build_model,
+    )
+
+    model = build_model("pointtransformerv3", device=device, seed=0)
+    noise = model.clone()
+    with torch.no_grad():
+        noise.semantic_head.Dense_1.bias.copy_(torch.tensor([5.0, -5.0]))
+    return (
+        Predictor("pointtransformerv3", model, device),
+        Predictor("pointtransformerv3", noise, device),
+    )
+
+
+def capture_attention_inputs(predictor, cloud):
+    """One forward of ``predictor`` on ``cloud`` as ``predict_single`` pads
+    it; returns, per distinct (W, H, K, D) shape of ``window_attention``,
+    the first call's (q, k, v, seg) and the number of calls, and the
+    forward's seconds (host clock, synchronized)."""
+    import torch
+
+    from treemorph_tpu_torch.ops import attention
+    from treemorph_tpu_torch.pipeline.predict import _pad_flat
+
+    calls = {}
+    kernel = attention.window_attention
+
+    def recording(q, k, v, seg):
+        entry = calls.setdefault(tuple(q.shape), [(q, k, v, seg), 0])
+        entry[1] += 1
+        return kernel(q, k, v, seg)
+
+    coords, f, b, valid, _ = _pad_flat(cloud[:, :3], cloud[:, 7:11],
+                                       device=predictor.device)
+    attention.window_attention = recording
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predictor.predict_flat(coords, f, b, valid)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        attention.window_attention = kernel
+    return calls, secs
+
+
+def segmented_inputs(shape, device, gen):
+    """Random q, k, v of ``shape`` and seg ids of three segments per window
+    in sorted runs, a tenth of the rows padding (-1) and one window all
+    padding."""
+    import torch
+
+    w, h, kk, d = shape
+    q, k, v = (torch.randn(shape, device=device, generator=gen)
+               for _ in range(3))
+    seg = torch.sort(torch.randint(0, 3, (w, kk), device=device,
+                                   generator=gen), dim=1).values
+    pad = torch.rand((w, kk), device=device, generator=gen) < 0.1
+    seg = torch.where(pad, -1, seg).to(torch.int32)
+    seg[-1] = -1
+    return q, k, v, seg
+
+
+def phase_attention_vs_plain(cloud, device):
+    """Returns the per-forward kernel record (f32, the main path's type)
+    and the per-shape rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from treemorph_tpu_torch.ops.attention import (
+        allowed_pairs,
+        window_attention,
+        window_attention_reference,
+    )
+
+    offset_model, _ = ptv3_models(device)
+    captured, fwd_s = capture_attention_inputs(offset_model, cloud)
+    n_calls = sum(c for _, c in captured.values())
+    if n_calls != PTV3_BLOCKS:
+        raise AssertionError(f"{n_calls} window_attention calls per forward, "
+                             f"expected {PTV3_BLOCKS}")
+    gen = torch.Generator(device=device).manual_seed(4)
+    rows, worst, worst_rel = [], 0.0, 0.0
+    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+              "bound_ms": 0.0, "bytes_s": 0.0, "ops_s": 0.0}
+
+    def check(label, args, subset):
+        out = window_attention(*args)
+        torch.cuda.synchronize()
+        ref = window_attention_reference(*(a[subset] for a in args))
+        got = out[subset]
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        pad = (args[3][subset] < 0)[:, None, :, None].expand_as(got)
+        if not (err <= KERNEL_RTOL * scale and torch.isfinite(out).all()
+                and bool((got[pad] == 0).all())):
+            raise AssertionError(
+                f"window_attention {label}: max |err| {err:.3e} > "
+                f"{KERNEL_RTOL} x {scale:.3e}, or padding rows not 0")
+        return err, scale
+
+    for shape, ((q, k, v, seg), count) in sorted(captured.items()):
+        w, h, kk, d = shape
+        subset = torch.linspace(0, w - 1, min(w, ATTN_CHECK_WINDOWS),
+                                device=device).round().long().unique()
+        # allowed (query, key) pairs of this input: what its work needs
+        seg_runs = seg.long() + 1  # 0 = padding
+        n_seg = torch.zeros((w, int(seg_runs.max()) + 1), device=device,
+                            dtype=torch.long).scatter_add_(
+                                1, seg_runs, torch.ones_like(seg_runs))
+        pairs = int((n_seg[:, 1:] ** 2).sum())
+        mask = allowed_pairs(seg)[:, None]
+        err_rand, scale_rand = check(f"{shape} random, 3 segments",
+                                     segmented_inputs(shape, device, gen),
+                                     subset)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = (q.to(dtype), k.to(dtype), v.to(dtype), seg)
+            err, scale = check(f"{shape} {dtype}", args, subset)
+            worst = max(worst, err, err_rand)
+            worst_rel = max(worst_rel, err / max(scale, 1e-30),
+                            err_rand / max(scale_rand, 1e-30))
+            ms = cuda_ms(lambda: window_attention(*args), 20)
+            plain_ms = cuda_ms(lambda: window_attention_reference(*args), 3)
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                *args[:3], attn_mask=mask), 5)
+            nbytes = (3 * w * h * kk * d * args[0].element_size()
+                      + w * kk * 4 + w * h * kk * d * 4)
+            # 2 D multiply-adds per allowed pair and head for the scores and
+            # 2 D for the values: bf16 x bf16 score products take the
+            # tensor cores' rate, the f32 probabilities times the values
+            # the f32 rate
+            half = 2.0 * d * h * pairs
+            qk_rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+            ops_s = half / qk_rate + half / F32_FLOPS
+            bytes_s = nbytes / HBM_BYTES_PER_S
+            bound_ms = 1e3 * max(bytes_s, ops_s)
+            row = dict(shape=list(shape), dtype=str(dtype), calls=count,
+                       allowed_pairs=pairs, exps=h * pairs,
+                       max_abs_err=err, output_scale=scale,
+                       max_abs_err_random=err_rand, ms=ms,
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound_ms,
+                       bound_by="bytes" if bytes_s > ops_s else "operations")
+            rows.append(row)
+            log("kernel " + json.dumps(row))
+            if dtype == torch.float32:
+                for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                                 ("library_ms", library_ms),
+                                 ("bound_ms", bound_ms), ("bytes_s", bytes_s),
+                                 ("ops_s", ops_s)):
+                    totals[key] += count * val
+    record = {
+        "name": "window_attention",
+        "route": "cuda",
+        "source": "treemorph_tpu_torch/csrc/window_attention.cu",
+        "replaces": "treemorph_tpu/ops/attention.py:29",
+        "shape": "; ".join(f"({w}, {h}, {kk}, {d}) x{count}" for
+                           (w, h, kk, d), (_, count) in
+                           sorted(captured.items())),
+        "max_abs_err": worst,
+        "max_err_over_scale": worst_rel,
+        "ms": totals["ms"],
+        "plain_ms": totals["plain_ms"],
+        "bound_ms": totals["bound_ms"],
+        "bound_by": "bytes" if totals["bytes_s"] > totals["ops_s"]
+        else "operations",
+        "library_ms": totals["library_ms"],
+    }
+    log(f"phase 7a ok: window_attention within {KERNEL_RTOL} x scale of "
+        f"plain at {len(rows)} shape/type cases and on three-segment inputs; "
+        f"one forward's {PTV3_BLOCKS} launches (f32): kernel "
+        f"{totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, "
+        f"scaled_dot_product_attention {totals['library_ms']:.3f} ms, bound "
+        f"{totals['bound_ms']:.3f} ms; the capturing forward {fwd_s:.3f} s")
+    return record, rows
+
+
+def phase_ptv3_card_vs_cpu(cloud, device):
+    """The forward ``predict_single`` runs (offset model: offsets and
+    logits), on the card and on the CPU, on the cloud's first PTV3_CUT
+    points."""
+    import numpy as np
+
+    from treemorph_tpu_torch.pipeline.predict import _pad_flat
+
+    cut = cloud[:PTV3_CUT]
+    outs = []
+    for dev in (device, "cpu"):
+        offset_model, _ = ptv3_models(dev)
+        coords, f, b, v, n = _pad_flat(cut[:, :3], cut[:, 7:11], device=dev)
+        t0 = time.perf_counter()
+        res = offset_model.predict_flat(coords, f, b, v)
+        outs.append({
+            k: res[k][:n].float().cpu().numpy()
+            for k in ("offset_predictions", "semantic_prediction_logits")
+        })
+        log(f"  PTv3 forward on {dev}: {time.perf_counter() - t0:.2f} s, "
+            f"pool_overflow {int(res['pool_overflow'])}")
+    card, cpu = outs
+    off_err = float(np.abs(card["offset_predictions"]
+                           - cpu["offset_predictions"]).max())
+    off_scale = float(np.abs(cpu["offset_predictions"]).max())
+    # the argmax as the head gives it, and with the class-1 bias set at the
+    # CPU's median margin, where half the points sit on each side
+    margin = {k: o["semantic_prediction_logits"] @ np.array([-1.0, 1.0])
+              for k, o in zip(("card", "cpu"), outs)}
+    median = float(np.median(margin["cpu"]))
+    agree = float(((margin["card"] > 0) == (margin["cpu"] > 0)).mean())
+    balanced = float(((margin["card"] > median)
+                      == (margin["cpu"] > median)).mean())
+    finite = all(np.isfinite(o[k]).all() for o in outs for k in o)
+    log(f"PTv3 stage 1 card vs cpu on {len(cut)} points: offsets max |err| "
+        f"{off_err:.3e} (scale {off_scale:.3e}, limit {PTV3_OFFSET_RTOL} x "
+        f"scale), noise argmax agreement {agree:.5f} (class 1 on "
+        f"{(margin['cpu'] > 0).mean():.3f}), {balanced:.5f} at the median "
+        f"margin (limit {STAGE1_ARGMAX_AGREEMENT} for both)")
+    if not (finite and off_err <= PTV3_OFFSET_RTOL * off_scale
+            and min(agree, balanced) >= STAGE1_ARGMAX_AGREEMENT):
+        raise AssertionError("PTv3 stage 1 on the card disagrees with the CPU")
+    log("phase 7b ok")
+
+
+def profile_forward(predictor, cloud, top=10):
+    """One forward of ``predictor`` on ``cloud`` under ``torch.profiler``
+    after a warm-up forward: the wall seconds (host clock, synchronized),
+    the summed device time of the kernels (the device's busy share), and
+    the operators and kernels that take the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from treemorph_tpu_torch.pipeline.predict import _pad_flat
+
+    args = _pad_flat(cloud[:, :3], cloud[:, 7:11],
+                     device=predictor.device)[:4]
+    predictor.predict_flat(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        predictor.predict_flat(*args)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    rows = prof.key_averages()
+    kernels = [e for e in rows if e.device_type == DeviceType.CUDA]
+    ops = [e for e in rows if e.device_type == DeviceType.CPU]
+    busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
+
+    def table(events):
+        events = sorted(events, key=lambda e: e.self_device_time_total,
+                        reverse=True)[:top]
+        return [(e.key[:90], e.count, e.self_device_time_total / 1e3)
+                for e in events]
+
+    record = {"forward_seconds": wall_s, "device_busy_seconds": busy_s,
+              "device_idle_share": 1.0 - busy_s / wall_s,
+              "top_ops_device_ms": table(ops),
+              "top_kernels_device_ms": table(kernels)}
+    log("PTv3 forward profile: " + json.dumps(record))
+    return record
+
+
+def phase_ptv3_end_to_end(cloud, device):
+    """The PTv3 plot end to end (44 attention launches), then one forward
+    profiled; returns the kernel's launches."""
+    models = ptv3_models(device)
+    launches, _ = plot_end_to_end(cloud, "pointtransformerv3", models,
+                                  device, "window_attention", PTV3_BLOCKS)
+    if launches != 2 * PTV3_BLOCKS:
+        raise AssertionError(f"{launches} window_attention launches in "
+                             f"run_pipeline, expected {2 * PTV3_BLOCKS}")
+    profile_forward(models[0], cloud)
+    log("phase 7c ok")
+    return launches
+
+
+def pipeline_config(input_dir: str, output_dir: str,
+                    model_type: str = "treelearn") -> dict:
     """``configs/pipeline_config.yaml`` as a dict (no YAML parser needed),
     with the smoke run's directories and the stage-1 cloud saved."""
     return {
@@ -955,7 +1293,7 @@ def pipeline_config(input_dir: str, output_dir: str) -> dict:
             "save_qsm_cyl_csv": True, "cloud_save_type": "npy",
         },
         "stage1": {"predict_offset": True, "denoise": True,
-                   "model_type": "treelearn"},
+                   "model_type": model_type},
         "stage2": {"upsampling": True, "k_init": 10, "max_iterations": 10,
                    "min_height": 0.0, "use_only_original_points": True,
                    "min_points": MIN_POINTS},
@@ -1020,11 +1358,18 @@ def main() -> int:
         bwd_launches, cli_record = phase_training_cli(root, device)
         split = phase_step_split(batch, capacity, device)
     log(json.dumps({**per_step, **split, **cli_record}))
+    cloud = ptv3_cloud(points)
+    attn_record, _ = phase_attention_vs_plain(cloud, device)
+    phase_ptv3_card_vs_cpu(cloud, device)
+    attn_launches = phase_ptv3_end_to_end(cloud, device)
     log(f"total {time.perf_counter() - t0:.1f} s")
     head = ("name", "route", "source", "replaces")
     kernels = []
-    for record, launches, path in ((fwd_record, fwd_launches, "serving"),
-                                   (bwd_record, bwd_launches, "training")):
+    for record, launches, path in (
+        (fwd_record, fwd_launches, "serving"),
+        (bwd_record, bwd_launches, "training"),
+        (attn_record, attn_launches, "ptv3 serving"),
+    ):
         kernels.append({
             **{k: record[k] for k in head}, "launches": launches,
             "launches_counted_on": path,

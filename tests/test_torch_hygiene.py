@@ -56,10 +56,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
     cloud = np.random.default_rng(0).normal(size=(64, 3)).astype(np.float32)
     model = build_model("treelearn", device="cpu", channels=8,
                         num_blocks=1)
+    tiny_ptv3 = dict(enc_depths=(1,), enc_channels=(8,), enc_num_head=(1,),
+                     enc_patch_size=(64,), dec_depths=(), dec_channels=(),
+                     dec_num_head=(), dec_patch_size=())
+    ptv3 = Predictor("pointtransformerv3", build_model(
+        "pointtransformerv3", device="cpu", **tiny_ptv3), "cpu")
     calls = [
         lambda: build_model("treelearn", channels=8, num_blocks=1),
+        lambda: build_model("pointtransformerv3", **tiny_ptv3),
         lambda: Predictor("treelearn", model),
         lambda: predict_single(cloud),
+        lambda: predict_single(cloud, ptv3, ptv3),
         lambda: upsample(cloud, min_points=100),
         lambda: upsample_device(cloud, min_points=100),
         lambda: run_pipeline({"general": {"input_dir": str(tmp_path),

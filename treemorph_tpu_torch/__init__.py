@@ -10,8 +10,9 @@ against (``tests/test_torch_*.py``).
 Layout:
     csrc/        hand-written CUDA kernels (built with nvcc at first use)
     ops/         voxelize, rulebook + gather conv, band conv (forward and
-                 backward), z-order codes
-    models/      TreeLearn as torch modules, its loss, the flax weight bridge
+                 backward), window attention, z-order and Hilbert codes
+    models/      TreeLearn and PTv3 (inference) as torch modules, the
+                 TreeLearn loss, the flax weight bridge
     data/        labeled-tree datasets, padded batches, augmentations
     train/       harness (optimizer, train/eval steps, epoch loop),
                  families, schedule, checkpoints, the training CLI

@@ -1,8 +1,9 @@
 """Model construction and checkpoint loading for the pipeline.
 
-Port of ``treemorph_tpu/evaluation/model_loaders.py`` for TreeLearn: the
-pipeline's fixed hyperparameters (reference ``ModelLoaders.py:31-113``:
-TreeLearn num_blocks=3 dim_feat=4 voxel 0.02), :func:`build_model`, the
+Port of ``treemorph_tpu/evaluation/model_loaders.py`` for TreeLearn and
+PTv3: the pipeline's fixed hyperparameters (reference
+``ModelLoaders.py:31-113``: TreeLearn num_blocks=3 dim_feat=4 voxel 0.02;
+PTv3 dim_feat=4 with features, voxel 0.02), :func:`build_model`, the
 :class:`Predictor` the pipeline calls, and :func:`load_model` for the
 port's own checkpoints (:mod:`treemorph_tpu_torch.train.checkpoints`).
 Loading the JAX package's orbax checkpoints is not ported yet; weights of a
@@ -18,6 +19,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..models.ptv3 import PointTransformerWithHeads
 from ..models.treelearn import TreeLearn
 from ..train.checkpoints import MODEL_FILE, load_metadata
 from ..utils.device import resolve_device
@@ -27,6 +29,7 @@ FAMILY_DEFAULTS = {
     "treelearn": dict(
         channels=32, num_blocks=3, dim_feat=4, voxel_size=0.02, kernel_size=3
     ),
+    "pointtransformerv3": dict(dim_feat=4, use_feats=True, voxel_size=0.02),
 }
 
 
@@ -37,7 +40,7 @@ class Predictor:
     module is moved there, and so are the inputs of each call."""
 
     family: str
-    model: TreeLearn
+    model: TreeLearn | PointTransformerWithHeads
     device: torch.device | str | None = None
 
     def __post_init__(self):
@@ -45,7 +48,7 @@ class Predictor:
         self.model = self.model.to(self.device).eval()
 
     def predict_flat(self, coords, feats, batch_ids, valid) -> dict:
-        """Flat voxel-model layout (treelearn)."""
+        """Flat voxel-model layout (treelearn / ptv3)."""
         args = [
             torch.as_tensor(a).to(self.device)
             for a in (coords, feats, batch_ids, valid)
@@ -60,20 +63,24 @@ def build_model(
     device=None,
     seed: int = 0,
     **overrides,
-) -> TreeLearn:
+) -> TreeLearn | PointTransformerWithHeads:
     """A model of the given family with the pipeline's fixed
     hyperparameters (overrides win), initialized from ``seed`` like flax
-    initializes it, in eval mode on ``device`` (the CUDA device unless
-    named; raises without one)."""
+    initializes it (in distribution), in eval mode on ``device`` (the CUDA
+    device unless named; raises without one). ``batch_size`` is
+    TreeLearn's static batch-element count; PTv3 takes any."""
     device = resolve_device(device)
     model_type = model_type.lower()
-    if model_type != "treelearn":
+    if model_type not in FAMILY_DEFAULTS:
         raise NotImplementedError(
             f"model family {model_type!r} is not ported yet"
         )
     cfg = dict(FAMILY_DEFAULTS[model_type])
     cfg.update(overrides)
-    model = TreeLearn(batch_size=batch_size, **cfg)
+    if model_type == "treelearn":
+        model = TreeLearn(batch_size=batch_size, **cfg)
+    else:
+        model = PointTransformerWithHeads(**cfg)
     generator = torch.Generator().manual_seed(seed)
     model.reset_parameters(generator)
     return model.to(device).eval()

@@ -1,19 +1,23 @@
-"""Weight bridge: flax ``variables`` of the JAX package's ``TreeLearn.init``
-to the port's :class:`~treemorph_tpu_torch.models.treelearn.TreeLearn`
-``state_dict``.
+"""Weight bridge: flax ``variables`` of the JAX package's models to the
+``state_dict`` of the port's
+:class:`~treemorph_tpu_torch.models.treelearn.TreeLearn` and
+:class:`~treemorph_tpu_torch.models.ptv3.PointTransformerWithHeads`.
 
 The port's modules carry the flax names, so a flax path maps to a torch key
 by joining it with dots. Leaves map as follows (the inverse of
 ``treemorph_tpu/train/import_torch.py``):
 
-- submanifold kernels ``(K, Cin, Cout)``, octant ``down_kernel`` /
-  ``up_kernel`` ``(8, Cin, Cout)`` and ``shortcut`` ``(Cin, Cout)``: as
-  they are;
-- ``Dense_i`` ``kernel (in, out)`` -> ``Linear.weight (out, in)``, ``bias``
-  as it is;
-- ``MaskedBatchNorm`` ``scale`` / ``bias`` -> ``weight`` / ``bias``, and
-  ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` / ``running_var``
-  (flax momentum 0.9 is torch momentum 0.1).
+- conv kernels ``(K, Cin, Cout)`` (TreeLearn's submanifold convs, PTv3's
+  stem and xCPEs), octant ``down_kernel`` / ``up_kernel``
+  ``(8, Cin, Cout)``, ``shortcut`` ``(Cin, Cout)`` and the xCPE's conv
+  ``bias``: as they are;
+- every ``Dense`` ``kernel (in, out)``, whether auto-named (``Dense_i``) or
+  named (PTv3's ``qkv``, ``proj``, ``proj_skip``) -> ``Linear.weight
+  (out, in)``, ``bias`` as it is; a ``kernel`` leaf is a ``Dense`` kernel
+  exactly when it has two dims;
+- ``MaskedBatchNorm`` and ``LayerNorm`` ``scale`` / ``bias`` -> ``weight``
+  / ``bias``, and ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` /
+  ``running_var`` (flax momentum m is torch momentum 1 - m).
 
 Inputs are nested dicts of numpy arrays (``jax.device_get`` of the
 variables); nothing here imports JAX.
@@ -35,8 +39,8 @@ def _walk(tree: dict, prefix: tuple = ()):
 
 
 def flax_to_state_dict(variables) -> dict[str, torch.Tensor]:
-    """``state_dict`` of the port's TreeLearn for flax ``variables``
-    (a mapping with ``params`` and ``batch_stats``)."""
+    """``state_dict`` of the port's model for flax ``variables`` (a
+    mapping with ``params`` and ``batch_stats``)."""
     out: dict[str, torch.Tensor] = {}
     params = dict(variables["params"])
     bn_modules = {
@@ -46,10 +50,8 @@ def flax_to_state_dict(variables) -> dict[str, torch.Tensor]:
         module, leaf = path[:-1], path[-1]
         if module in bn_modules:
             name = {"scale": "weight", "bias": "bias"}[leaf]
-        elif module and module[-1].startswith("Dense_"):
-            name = leaf if leaf == "bias" else "weight"
-            if leaf == "kernel":
-                value = value.T
+        elif leaf == "kernel" and value.ndim == 2:
+            name, value = "weight", value.T
         else:
             name = leaf
         key = ".".join(module + (name,))

@@ -48,13 +48,11 @@ def _conv_dtype(name: str) -> torch.dtype:
 
 
 def _fan_in_normal_(w: torch.Tensor, generator) -> None:
-    """flax ``variance_scaling(1.0, "fan_in", "normal")``: a truncated
-    normal (+-2 std) with variance 1/fan_in, fan_in = product of all dims
-    but the last."""
+    """flax ``variance_scaling(1.0, "fan_in", "normal")``: a normal (not
+    truncated) with variance 1/fan_in, fan_in = product of all dims but the
+    last."""
     fan_in = math.prod(w.shape[:-1])
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
-                          generator=generator)
+    nn.init.normal_(w, std=math.sqrt(1.0 / fan_in), generator=generator)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -71,6 +69,13 @@ class MaskedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+
+    def reset_parameters(self) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
 
     def forward(self, x, mask):
         if self.training:
@@ -242,6 +247,20 @@ class MLPHead(nn.Module):
             f"Dense_{num_layers - 1}", nn.Linear(channels, out_channels)
         )
 
+    def reset_parameters(self, generator=None) -> None:
+        """flax's inits: Xavier-uniform hidden layers, N(0, 0.01) final
+        layer, zero biases; BN scale 1, bias 0, statistics (0, 1)."""
+        last = self.num_layers - 1
+        with torch.no_grad():
+            for i in range(self.num_layers):
+                lin = getattr(self, f"Dense_{i}")
+                if i < last:
+                    nn.init.xavier_uniform_(lin.weight, generator=generator)
+                    getattr(self, f"MaskedBatchNorm_{i}").reset_parameters()
+                else:
+                    nn.init.normal_(lin.weight, std=0.01, generator=generator)
+                lin.bias.zero_()
+
     def forward(self, x, mask):
         for i in range(self.num_layers - 1):
             x = getattr(self, f"Dense_{i}")(x)
@@ -354,10 +373,7 @@ class TreeLearn(nn.Module):
         with torch.no_grad():
             for name, mod in self.named_modules():
                 if isinstance(mod, MaskedBatchNorm):
-                    mod.weight.fill_(1.0)
-                    mod.bias.zero_()
-                    mod.running_mean.zero_()
-                    mod.running_var.fill_(1.0)
+                    mod.reset_parameters()
                 elif isinstance(mod, SubMConv):
                     _fan_in_normal_(mod.kernel, generator)
                 elif isinstance(mod, ResidualBlock):
@@ -367,16 +383,7 @@ class TreeLearn(nn.Module):
                     _fan_in_normal_(mod.down_kernel, generator)
                     _fan_in_normal_(mod.up_kernel, generator)
                 elif isinstance(mod, MLPHead):
-                    last = mod.num_layers - 1
-                    for i in range(mod.num_layers):
-                        lin = getattr(mod, f"Dense_{i}")
-                        if i < last:
-                            nn.init.xavier_uniform_(lin.weight,
-                                                    generator=generator)
-                        else:
-                            nn.init.normal_(lin.weight, std=0.01,
-                                            generator=generator)
-                        lin.bias.zero_()
+                    mod.reset_parameters(generator)
         return self
 
     def clone(self, **overrides) -> "TreeLearn":

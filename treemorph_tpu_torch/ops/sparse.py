@@ -3,12 +3,15 @@ down/inverse convs.
 
 Port of the main-path part of ``treemorph_tpu/ops/sparse.py``:
 
-1. **Rulebook**: for each voxel and each kernel offset, the index of the
-   neighbor voxel (or M, a zero pad row), shared by every submanifold conv
+1. **Rulebook**: for each row and each kernel offset, the index of the
+   neighbor row (or M, a zero pad row), shared by every submanifold conv
    at one level. The JAX package looks neighbors up in a dual-hash table;
    here the lookup is exact: the packed lexicographic keys of the level are
-   sorted once and every query is one ``searchsorted``. The result equals
-   the JAX rulebook built with ``verify_coords=True``, including the
+   sorted once (stably) and every query is one ``searchsorted``. Where
+   several rows share a coordinate (PTv3's level 0 holds points, not
+   voxels), a lookup returns the largest of their row indices, as the JAX
+   lookup's ``max`` over matching lanes does. The result equals the JAX
+   rulebook built with ``verify_coords=True``; on unique rows it keeps the
    antisymmetry ``rb[i, k] == j  <=>  rb[j, K-1-k] == i``.
 2. **Gather engine** (:func:`_subm_conv_impl`):
    ``out = sum_k feats[rb[:, k]] @ W[k]`` with f32 accumulation; the band
@@ -54,13 +57,16 @@ def build_rulebook(
     kernel_size: int = 3,
 ) -> torch.Tensor:
     """(M, K) int64 neighbor indices for a submanifold conv; M marks
-    'missing'. ``coords`` is (M, 4) (b, x, y, z) with unique valid rows."""
+    'missing'. ``coords`` is (M, 4) (b, x, y, z). The center column is the
+    row itself; another offset whose coordinate several valid rows share
+    finds the largest of their indices (a stable sort keeps equal keys in
+    index order, and the right-side ``searchsorted`` lands on the last)."""
     m = coords.shape[0]
     if kernel_size % 2 != 1:
         raise ValueError("submanifold rulebooks need odd kernels")
     dev = coords.device
     keys = pack_keys(coords, valid)
-    s_key, perm = torch.sort(keys)
+    s_key, perm = torch.sort(keys, stable=True)
     offs = kernel_offsets(kernel_size, dev)
     k = offs.shape[0]
     half = k // 2
@@ -82,10 +88,26 @@ def build_rulebook(
             | (q[:, 2] << COORD_BITS)
             | q[:, 3]
         )
-        pos = torch.searchsorted(s_key, qkey).clamp(max=m - 1)
+        pos = (torch.searchsorted(s_key, qkey, right=True) - 1).clamp(min=0)
         hit = (s_key[pos] == qkey) & in_range & valid
         columns.append(torch.where(hit, perm[pos], m))
     return torch.stack(columns, dim=1)
+
+
+def rulebook_subset_columns(k_from: int, k_to: int) -> list[int]:
+    """Columns of the ``k_to`` rulebook inside a ``k_from`` rulebook over
+    the same rows (the smaller cube's offsets are a subset of the
+    larger's): PTv3's level-0 k=3 rulebook is the k=5 stem rulebook's
+    central 27 columns."""
+    if not (k_from % 2 == 1 and k_to % 2 == 1 and k_to <= k_from):
+        raise ValueError(f"no k={k_to} subset of a k={k_from} rulebook")
+    rf, rt = (k_from - 1) // 2, (k_to - 1) // 2
+    return [
+        ((dx + rf) * k_from + (dy + rf)) * k_from + (dz + rf)
+        for dx in range(-rt, rt + 1)
+        for dy in range(-rt, rt + 1)
+        for dz in range(-rt, rt + 1)
+    ]
 
 
 def subm_conv_apply(

@@ -1,6 +1,6 @@
 """Stage 1: model-based offset refinement + denoising.
 
-Port of the TreeLearn path of ``treemorph_tpu/pipeline/predict.py``
+Port of the TreeLearn / PTv3 path of ``treemorph_tpu/pipeline/predict.py``
 (reference ``Modules/Pipeline/ModelPredicting.py:16-95``):
 :func:`predict_single` runs one forward per tree, applies the predicted
 offsets, then drops points whose noise-head argmax is class 1 (class 0 is
@@ -52,7 +52,8 @@ def predict_single(
     bucket: int = 1024,
     device=None,
 ) -> np.ndarray:
-    """TreeLearn path: whole-tree forward, offsets then denoise. Inputs are
+    """TreeLearn/PTv3 path: whole-tree forward, offsets then denoise.
+    Inputs are
     padded on ``device`` (the CUDA device unless named; raises without
     one), where the models must live."""
     device = resolve_device(device)
@@ -84,16 +85,22 @@ def predict_single(
 
 #: per-family capacity settings that cannot overflow on ANY input
 #: (divisor 1 = arrays sized to the worst case). Weights do not depend on
-#: capacities, so they carry straight into the relaxed model.
+#: capacities, so they carry straight into the relaxed model. The JAX
+#: package's PTv3 entry also sets ``dedup_divisor=1``; level-0 dedup is not
+#: ported (ROADMAP.md queue 1 item 11c), so there is no dedup cap to relax.
 SAFE_CAP_OVERRIDES = {
     "treelearn": dict(voxel_capacity_divisor=1),
+    "pointtransformerv3": dict(pool_shrink=2),
 }
 
 
 def _overflow_total(res: dict) -> int:
     return sum(
         int(res.get(k, 0) or 0)
-        for k in ("dropped_points", "dropped_voxels")
+        for k in (
+            "dropped_points", "dropped_voxels", "dedup_overflow",
+            "pool_overflow",
+        )
     )
 
 
@@ -148,13 +155,13 @@ def make_predictions(
     device=None,
 ) -> np.ndarray:
     """Dispatch by family (reference Pipeline.py:110-131)."""
-    if model_type == "treelearn":
+    if model_type in ("treelearn", "pointtransformerv3"):
         return predict_single(
             cloud, offset_model, noise_model, predict_offset, denoise,
             device=device,
         )
     if model_type == "no_model":
         return np.asarray(cloud, np.float32)[:, :3]
-    if model_type in ("pointtransformerv3", "pointnet2"):
+    if model_type == "pointnet2":
         raise NotImplementedError(f"model family {model_type!r} is not ported")
     raise ValueError(f"unknown model type {model_type!r}")

@@ -31,8 +31,8 @@ import torch
 _NOT_PORTED = {
     "pointnet2": "the pointnet2 family is not ported yet "
                  "(ROADMAP.md queue 1 item 12)",
-    "pointtransformerv3": "the pointtransformerv3 family is not ported "
-                          "yet (ROADMAP.md queue 1 item 11)",
+    "pointtransformerv3": "training the pointtransformerv3 family is not "
+                          "ported yet (ROADMAP.md queue 1 item 11b)",
     "raster": "raster training (--raster_dir, --hierarchical_json) comes "
               "with PointNet2 (ROADMAP.md queue 1 item 12)",
 }
