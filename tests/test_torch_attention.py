@@ -15,7 +15,9 @@ import jax.numpy as jnp
 from treemorph_tpu.ops import attention as jatt
 from treemorph_tpu_torch.ops import attention as tatt
 
-from test_torch_ops import one_torch_thread, t  # noqa: F401
+from test_torch_ops import (  # noqa: F401
+    fresh_jax_caches, one_torch_thread, t,
+)
 
 ATOL = 1e-5
 

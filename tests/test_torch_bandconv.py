@@ -18,7 +18,9 @@ from treemorph_tpu_torch.ops import bandconv as tband
 from treemorph_tpu_torch.ops import sparse as tsp
 from treemorph_tpu_torch.ops import voxelize as tvox
 
-from test_torch_ops import one_torch_thread, padded_inputs, t  # noqa: F401
+from test_torch_ops import (  # noqa: F401
+    fresh_jax_caches, one_torch_thread, padded_inputs, t,
+)
 
 
 def level(seed=0, n=1500):

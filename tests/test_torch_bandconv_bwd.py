@@ -22,7 +22,9 @@ from treemorph_tpu_torch.ops import bandconv as tband
 from treemorph_tpu_torch.ops import sparse as tsp
 
 from test_torch_bandconv import level
-from test_torch_ops import one_torch_thread, t  # noqa: F401
+from test_torch_ops import (  # noqa: F401
+    fresh_jax_caches, one_torch_thread, t,
+)
 
 
 def jax_plan(plan):

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from treemorph_tpu.ops import serialization as jser
@@ -79,6 +80,20 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def fresh_jax_caches():
+    """Each port test module starts and ends with empty JAX caches. A test
+    process keeps every XLA program it compiled, each with memory maps of
+    its own (``tests/test_ptv3.py`` alone leaves ~31,000); one that runs
+    several JAX-heavy files in the test lane reaches the kernel's limit of
+    65,530 maps and aborts inside the next compile. Clearing drops compiled
+    programs only; they are rebuilt when used again. Port test modules
+    import this fixture to use it."""
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
 
 
 @pytest.mark.parametrize("capacity", [None, 900])

@@ -22,7 +22,9 @@ from treemorph_tpu_torch.pipeline import predict as tpredict
 from treemorph_tpu_torch.pipeline.qsm import QSMParams, fit_qsm
 from treemorph_tpu_torch.pipeline.run import run_pipeline
 
-from test_torch_ops import one_torch_thread, surface_cloud  # noqa: F401
+from test_torch_ops import (  # noqa: F401
+    fresh_jax_caches, one_torch_thread, surface_cloud,
+)
 from test_torch_treelearn import (
     balance_noise_head,
     jax_model_and_variables,

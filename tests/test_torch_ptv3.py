@@ -35,7 +35,9 @@ from treemorph_tpu_torch.ops import serialization as tser
 from treemorph_tpu_torch.ops import sparse as tsp
 from treemorph_tpu_torch.pipeline.predict import predict_single
 
-from test_torch_ops import one_torch_thread, surface_cloud, t  # noqa: F401
+from test_torch_ops import (  # noqa: F401
+    fresh_jax_caches, one_torch_thread, surface_cloud, t,
+)
 
 TINY = dict(enc_depths=(2, 2), enc_channels=(16, 32), enc_num_head=(2, 2),
             enc_patch_size=(64, 64), dec_depths=(2,), dec_channels=(16,),

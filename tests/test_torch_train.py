@@ -44,7 +44,9 @@ from treemorph_tpu_torch.train.schedule import (
 )
 from treemorph_tpu_torch.utils.early_stopping import EarlyStopper
 
-from test_torch_ops import one_torch_thread, surface_cloud  # noqa: F401
+from test_torch_ops import (  # noqa: F401
+    fresh_jax_caches, one_torch_thread, surface_cloud,
+)
 from test_torch_treelearn import SMALL, jax_model_and_variables
 
 #: parameter entries whose gradient is zero but for rounding, in both

@@ -21,7 +21,9 @@ import jax.numpy as jnp
 from treemorph_tpu.evaluation.model_loaders import build_model as jbuild
 from treemorph_tpu_torch.models import TreeLearn, flax_to_state_dict
 
-from test_torch_ops import one_torch_thread, padded_inputs, t  # noqa: F401
+from test_torch_ops import (  # noqa: F401
+    fresh_jax_caches, one_torch_thread, padded_inputs, t,
+)
 
 SMALL = dict(channels=8, num_blocks=2, dim_feat=4, voxel_size=0.02,
              kernel_size=3)
