@@ -406,16 +406,17 @@ class _RetryCounter(logging.Handler):
             self.retries += 1
 
 
-def plot_end_to_end(cloud, model_type, models, device, kernel, per_forward):
+def plot_end_to_end(cloud, model_type, models, device, kernel, per_forward,
+                    overflow_routes=None):
     """``run_pipeline`` on ``cloud`` with ``model_type``'s offset and noise
     predictors ``models``, then the same stages one by one, timed. Checks
     the run and that ``kernel`` launched ``per_forward`` times in each
-    forward (less the convs whose band plan overflowed to the gather
-    route); returns its launches and the stage record."""
+    forward, less the calls that ``overflow_routes`` (a counter the run
+    adds to, such as the band convs' ``GATHER_ROUTES``) sent elsewhere;
+    returns its launches and the stage record."""
     import numpy as np
     import torch
 
-    from treemorph_tpu_torch.ops import bandconv
     from treemorph_tpu_torch.ops.cuda import LAUNCHES, reset_launches
     from treemorph_tpu_torch.pipeline.predict import predict_single
     from treemorph_tpu_torch.pipeline.qsm import QSMParams, fit_qsm
@@ -432,7 +433,8 @@ def plot_end_to_end(cloud, model_type, models, device, kernel, per_forward):
         cfg = pipeline_config(inp, os.path.join(tmp, "output"), model_type)
 
         predict_log.addHandler(retries)
-        bandconv.GATHER_ROUTES.clear()
+        if overflow_routes is not None:
+            overflow_routes.clear()
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
@@ -440,12 +442,12 @@ def plot_end_to_end(cloud, model_type, models, device, kernel, per_forward):
         e2e_s = time.perf_counter() - t0
         predict_log.removeHandler(retries)
         launches = LAUNCHES[kernel]
-        routes = sum(bandconv.GATHER_ROUTES.values())
+        routes = sum((overflow_routes or {}).values())
         expected = per_forward * (2 + retries.retries) - routes
         log(f"run_pipeline ({model_type}): {e2e_s:.2f} s, results {results}")
         log(f"{kernel} launches {launches}, expected {expected} "
             f"({2 * per_forward} per predict_single; retries "
-            f"{retries.retries}, overflowed-plan gather routes {routes}); "
+            f"{retries.retries}, routed elsewhere {routes}); "
             f"all launches {dict(LAUNCHES)}")
         out_dir = os.path.join(tmp, "output", model_type)
         stage1 = np.load(os.path.join(out_dir, "plot_pred_denoised.npy"))
@@ -494,9 +496,11 @@ def plot_end_to_end(cloud, model_type, models, device, kernel, per_forward):
 
 
 def phase_end_to_end(points, device):
+    from treemorph_tpu_torch.ops import bandconv
+
     launches, _ = plot_end_to_end(points, "treelearn",
                                   pipeline_models(device), device,
-                                  "band_conv", 21)
+                                  "band_conv", 21, bandconv.GATHER_ROUTES)
     log("phase 4 ok")
     return launches
 
@@ -1273,9 +1277,6 @@ def phase_ptv3_end_to_end(cloud, device):
     models = ptv3_models(device)
     launches, _ = plot_end_to_end(cloud, "pointtransformerv3", models,
                                   device, "window_attention", PTV3_BLOCKS)
-    if launches != 2 * PTV3_BLOCKS:
-        raise AssertionError(f"{launches} window_attention launches in "
-                             f"run_pipeline, expected {2 * PTV3_BLOCKS}")
     profile_forward(models[0], cloud)
     log("phase 7c ok")
     return launches

@@ -353,10 +353,53 @@ def test_build_model_and_options_off_the_path():
             tptv3.PointTransformerWithHeads(**option)
 
 
+def test_bfloat16_block_matches_jax(models):
+    """``compute_dtype="bfloat16"`` against the JAX package's: the xCPE,
+    the attention and the MLP of one block of the tiny model, each handed
+    the same level, rulebook and features. Each rounds to bf16 where JAX
+    does, so all but a few f32 sum-order flips of one bf16 step agree to
+    1e-5 of the output's scale (readings: 0, 0 and 1 of 15,056 elements
+    beyond it); a cast out of place, or a Dense or GELU rounded otherwise,
+    moves 47-100 % of them. None differs by more than 1e-2 of the scale."""
+    _, variables = models
+    block = variables["params"]["backbone"]["enc0_block0"]
+    c, _, b, v = two_element_batch(0)
+    feat = np.random.default_rng(5).normal(size=(P, 16)).astype(np.float32)
+    feat *= v[:, None]
+    ps_t = tptv3.make_pointset(t(c), t(feat), t(b), t(v), VOXEL)
+    coords = torch.cat([ps_t.batch[:, None], ps_t.grid_coord], 1).int()
+    rb = tsp.build_rulebook(coords, ps_t.valid, 3)
+    ps_j = jptv3.PointSet(
+        *(jnp.asarray(x.numpy()) for x in ps_t[:7]),
+        code_hi=None, code_lo=None)
+    rb_j, feat_j, valid_j = jnp.asarray(rb.numpy()), jnp.asarray(feat), v
+    tblock = tptv3.PTv3Block(16, 2, 64, 0, compute_dtype="bfloat16").eval()
+    tblock.load_state_dict(flax_to_state_dict({"params": block}),
+                           strict=True)
+    bf16 = dict(compute_dtype="bfloat16")
+    cases = {
+        "cpe": (jptv3.CPE(16, **bf16), (feat_j, rb_j, valid_j),
+                lambda: tblock.cpe(t(feat), rb, t(v))),
+        "attn": (jptv3.SerializedAttention(16, 2, 64, 0, **bf16),
+                 (ps_j, False), lambda: tblock.attn(ps_t)),
+        "mlp": (jptv3.FeedForward(16, **bf16), (feat_j,),
+                lambda: tblock.mlp(t(feat))),
+    }
+    for name, (jmod, args, port) in cases.items():
+        out_j = np.asarray(jax.jit(jmod.apply)({"params": block[name]},
+                                               *args))[v]
+        with torch.inference_mode():
+            out_t = port().numpy()[v]
+        err = np.abs(out_t - out_j) / np.abs(out_j).max()
+        assert (err > 1e-5).mean() < 1e-3, name
+        assert err.max() < 1e-2, name
+
+
 def test_bfloat16_compute(models, monkeypatch):
-    """``compute_dtype="bfloat16"`` (the JAX package's option): the
+    """``compute_dtype="bfloat16"`` through the whole model: every block's
     attention gets bf16 q, k, v, and the outputs stay within bf16 rounding
-    of the f32 forward (2e-2 of their scale)."""
+    of the f32 forward (2e-2 of their scale). Each block is held to the
+    JAX package's bf16 block by ``test_bfloat16_block_matches_jax``."""
     _, variables = models
     c, f, b, v = two_element_batch(0)
     seen = []

@@ -80,15 +80,25 @@ def _ln(channels: int) -> nn.LayerNorm:
 
 
 def _dense(linear: nn.Linear, x: torch.Tensor, dtype: torch.dtype):
-    """A flax ``Dense(dtype=...)``: input, kernel and bias in ``dtype``."""
+    """A flax ``Dense(dtype=...)`` whose output goes on in f32. In bf16 the
+    product takes bf16 operands and is rounded to bf16, and the bf16 bias
+    is added in f32, as XLA compiles ``Dense(dtype=bf16)(x).astype(f32)``
+    (it drops the rounding of a sum that is widened at once)."""
     if dtype == torch.float32:
         return linear(x)
-    return F.linear(x.to(dtype), linear.weight.to(dtype),
-                    linear.bias.to(dtype))
+    return (F.linear(x.to(dtype), linear.weight.to(dtype)).float()
+            + linear.bias.to(dtype).float())
 
 
 def _gelu(x):
-    return F.gelu(x, approximate="none")
+    """Exact GELU. On bf16 it rounds as XLA's ``nn.gelu`` does:
+    ``x/2 * erfc(-x * bf16(2**-0.5))`` in f32 with only ``erfc`` rounded
+    to bf16, then the result."""
+    if x.dtype != torch.bfloat16:
+        return F.gelu(x, approximate="none")
+    x = x.float()
+    erfc = torch.erfc(-x * 0.70703125).to(torch.bfloat16).float()
+    return (0.5 * x * erfc).to(torch.bfloat16)
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator) -> None:
@@ -191,7 +201,7 @@ class SerializedAttention(nn.Module):
         order = ps.orders[self.order_index]
         inverse = ps.inverses[self.order_index]
 
-        qkv = _dense(self.qkv, ps.feat, dt)[order]
+        qkv = _dense(self.qkv, ps.feat, dt).to(dt)[order]
         seg = torch.where(ps.valid[order], ps.batch[order], -1)
         seg = seg.to(torch.int32).reshape(p // k, k)
         qkv = qkv.reshape(p // k, k, 3, h, d)
@@ -199,7 +209,7 @@ class SerializedAttention(nn.Module):
                     for i in range(3))  # (W, H, K, D) each
         out = attention.window_attention(q, kk, v, seg)
         out = out.transpose(1, 2).reshape(p, c)[inverse]
-        return _dense(self.proj, out, dt).float()
+        return _dense(self.proj, out, dt)
 
 
 class FeedForward(nn.Module):
@@ -211,8 +221,8 @@ class FeedForward(nn.Module):
 
     def forward(self, x):
         dt = _conv_dtype(self.compute_dtype)
-        x = _gelu(_dense(self.Dense_0, x, dt))
-        return _dense(self.Dense_1, x, dt).float()
+        x = _gelu(_dense(self.Dense_0, x, dt).to(dt))
+        return _dense(self.Dense_1, x, dt)
 
 
 class CPE(nn.Module):
@@ -232,7 +242,7 @@ class CPE(nn.Module):
         x = subm_conv_apply(feat, self.kernel, rulebook, valid,
                             compute_dtype=dt)
         x = x + self.bias * valid[:, None]
-        return self.LayerNorm_0(_dense(self.Dense_0, x, dt).float())
+        return self.LayerNorm_0(_dense(self.Dense_0, x, dt))
 
 
 class PTv3Block(nn.Module):
