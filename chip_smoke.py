@@ -7,7 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Card and build: the card's name and power limit, torch and CUDA
    versions; every CUDA kernel of the port is built from ``csrc/`` (one
-   ``nvcc`` per source, in parallel) and the QSM core with ``g++``.
+   ``nvcc`` per source, in parallel) and the QSM core with ``g++``; each
+   kernel instantiation's registers, shared memory and spills as ptxas
+   reports them.
 2. Kernel against plain: ``band_conv_padded`` against its plain PyTorch
    version on the card, bf16 and f32, at the level shapes of the e2e cloud
    (level 0 ~P/2 rows: 7->32, 32->32, 64->32; level 1: 64->64, 128->64;
@@ -52,6 +54,29 @@ seeded weights, f32, on the e2e cloud given seeded per-point features):
     (44 kernel launches: 22 blocks x 2 models), then stage by stage, then
     one forward under ``torch.profiler`` (device busy share, top operators
     and kernels).
+
+PTv3 training (the CLI's ``pointtransformerv3`` family at full width, f32,
+on the training plots above, at the reference's PTv3 batch of 4 trees x
+16,384 points, scripts/bench_training.py:27-31):
+
+8a. Backward kernel against plain: ``window_attention_bwd`` on the card at
+    each distinct (W, H, 1024, 16) shape of a full-width train step, on the
+    inputs and output cotangents captured from that step (f32, and the same
+    cast to bf16) and on random ones with three segments and padding rows,
+    against its plain version; dq, dk and dv each within 1e-5 of their
+    scale, padding rows exactly 0; CUDA-event times against the bound, the
+    plain version and the backward of ``scaled_dot_product_attention``
+    with the same mask (f32 and bf16).
+8b. Training on the card: each of the step's 22 attentions differentiated
+    alone through autograd (``window_attention``'s ``autograd.Function``
+    and the backward kernel) on the step's own cotangent, against the plain
+    backward; one train step on a 2-tree cut, card against CPU (f32, the
+    same weights and order permutations, ``drop_path`` 0).
+8c. The training CLI at full width: one CV fold, 2 epochs of 15 steps,
+    counting both attention kernels' launches (22 backward per step); its
+    checkpoint through ``load_model`` serves one ``predict_single``.
+8d. A timed step split into forward, backward and optimizer, with peak
+    device memory, and one more step under ``torch.profiler``.
 
 The last two lines are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``. Float32 matmuls and convolutions run
@@ -108,6 +133,18 @@ PTV3_CUT = 65_536
 PTV3_OFFSET_RTOL = 1e-3
 #: windows of a level the plain attention is checked on
 ATTN_CHECK_WINDOWS = 48
+
+#: PTv3 training: the reference's PTv3 batch (scripts/bench_training.py:
+#: 27-31), one backward launch per attention block, the CLI run's epochs
+#: (test plot 1 leaves 60 training trees: 15 steps per epoch and 8
+#: validation batches)
+PTV3_TRAIN_TREES, PTV3_TRAIN_EPOCHS = 4, 2
+PTV3_BWD_PER_STEP = PTV3_BLOCKS
+#: card vs CPU, one f32 PTv3 train step: the loss, and every gradient
+#: against the step's largest (sum order, cuBLAS against the CPU's GEMMs,
+#: atomic pooled sums, through 22 blocks and back)
+PTV3_STEP_LOSS_RTOL = 1e-5
+PTV3_STEP_GRAD_RTOL = 1e-4
 
 #: the training workload: plots of 30 trees x 16,384 points, one 30-tree
 #: batch per step (scripts/bench_training.py:27-31, the reference's
@@ -219,6 +256,61 @@ def phase_card_and_build():
     native.load()
     log(f"phase 1 ok: nvcc build {secs:.2f} s, g++ build "
         f"{time.perf_counter() - t0:.2f} s")
+    log_register_use()
+
+
+def kernel_label(mangled: str) -> str:
+    """``name<type, D>`` of a mangled kernel instantiation such as
+    ``..._12dk_dv_kernelIfLi16EE...`` (the name's length precedes it, and
+    may follow hex digits of the file's hash)."""
+    import re
+
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(len(m.group())):
+            name = mangled[m.end():m.end() + int(m.group()[i:])]
+            if not name.endswith("_kernel"):
+                continue
+            rest = mangled[m.end() + len(name):]
+            args = re.match(r"I(?:(13__nv_bfloat16|f))?Li(\d+)E", rest)
+            if not args:
+                return name
+            kind = {"f": "f32, ", None: ""}.get(args.group(1), "bf16, ")
+            return f"{name}<{kind}{args.group(2)}>"
+    return mangled[:60]
+
+
+def log_register_use():
+    """Registers, shared memory and spills of every kernel instantiation as
+    ptxas reports them (``nvcc -Xptxas -v -c``, one process per source, all
+    started together)."""
+    import re
+    from concurrent.futures import ThreadPoolExecutor
+
+    from treemorph_tpu_torch.ops.cuda import CSRC_DIR, _nvcc, kernel_names
+
+    def report(name):
+        with tempfile.TemporaryDirectory() as tmp:
+            return subprocess.run(
+                [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                 "-std=c++17", "-O3", "-Xptxas", "-v", "-c", "-o",
+                 os.path.join(tmp, "k.o"), os.path.join(CSRC_DIR, f"{name}.cu")],
+                capture_output=True, text=True, check=True).stderr
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor() as pool:
+        reports = dict(zip(kernel_names(), pool.map(report, kernel_names())))
+    for name, text in reports.items():
+        entry, spills = "", ""
+        for line in text.splitlines():
+            found = re.search(r"entry function '(\S+)'", line)
+            if found:
+                entry = kernel_label(found.group(1))
+            elif "spill" in line:
+                spills = line.strip()
+            elif "Used" in line and entry:
+                log(f"  ptxas {name}: {entry}: {line.split(':', 1)[1].strip()}"
+                    f"; {spills}")
+    log(f"  register report {time.perf_counter() - t0:.1f} s")
 
 
 def level_plans(coords, batch_ids, valid, batch_size, capacity):
@@ -1072,6 +1164,19 @@ def segmented_inputs(shape, device, gen):
     return q, k, v, seg
 
 
+def allowed_pair_count(seg) -> int:
+    """Allowed (query, key) pairs per head of the windows ``seg`` (W, K):
+    the work of this input, sum over windows and segments of the
+    segment's rows squared."""
+    import torch
+
+    seg_runs = seg.long() + 1  # 0 = padding
+    n_seg = torch.zeros((seg.shape[0], int(seg_runs.max()) + 1),
+                        device=seg.device, dtype=torch.long).scatter_add_(
+                            1, seg_runs, torch.ones_like(seg_runs))
+    return int((n_seg[:, 1:] ** 2).sum())
+
+
 def phase_attention_vs_plain(cloud, device):
     """Returns the per-forward kernel record (f32, the main path's type)
     and the per-shape rows."""
@@ -1114,12 +1219,7 @@ def phase_attention_vs_plain(cloud, device):
         w, h, kk, d = shape
         subset = torch.linspace(0, w - 1, min(w, ATTN_CHECK_WINDOWS),
                                 device=device).round().long().unique()
-        # allowed (query, key) pairs of this input: what its work needs
-        seg_runs = seg.long() + 1  # 0 = padding
-        n_seg = torch.zeros((w, int(seg_runs.max()) + 1), device=device,
-                            dtype=torch.long).scatter_add_(
-                                1, seg_runs, torch.ones_like(seg_runs))
-        pairs = int((n_seg[:, 1:] ** 2).sum())
+        pairs = allowed_pair_count(seg)
         mask = allowed_pairs(seg)[:, None]
         err_rand, scale_rand = check(f"{shape} random, 3 segments",
                                      segmented_inputs(shape, device, gen),
@@ -1233,23 +1333,30 @@ def phase_ptv3_card_vs_cpu(cloud, device):
 
 def profile_forward(predictor, cloud, top=10):
     """One forward of ``predictor`` on ``cloud`` under ``torch.profiler``
-    after a warm-up forward: the wall seconds (host clock, synchronized),
-    the summed device time of the kernels (the device's busy share), and
-    the operators and kernels that take the most device time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    after a warm-up forward (:func:`profile_device`)."""
     from treemorph_tpu_torch.pipeline.predict import _pad_flat
 
     args = _pad_flat(cloud[:, :3], cloud[:, 7:11],
                      device=predictor.device)[:4]
     predictor.predict_flat(*args)
+    return profile_device(lambda: predictor.predict_flat(*args),
+                          "PTv3 forward", top)
+
+
+def profile_device(fn, label, top=10):
+    """One call of ``fn`` under ``torch.profiler``: the wall seconds (host
+    clock, synchronized), the summed device time of the kernels (the
+    device's busy share), and the operators and kernels that take the most
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        predictor.predict_flat(*args)
+        fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     rows = prof.key_averages()
@@ -1263,11 +1370,11 @@ def profile_forward(predictor, cloud, top=10):
         return [(e.key[:90], e.count, e.self_device_time_total / 1e3)
                 for e in events]
 
-    record = {"forward_seconds": wall_s, "device_busy_seconds": busy_s,
+    record = {"seconds": wall_s, "device_busy_seconds": busy_s,
               "device_idle_share": 1.0 - busy_s / wall_s,
               "top_ops_device_ms": table(ops),
               "top_kernels_device_ms": table(kernels)}
-    log("PTv3 forward profile: " + json.dumps(record))
+    log(f"{label} profile: " + json.dumps(record))
     return record
 
 
@@ -1280,6 +1387,391 @@ def phase_ptv3_end_to_end(cloud, device):
     profile_forward(models[0], cloud)
     log("phase 7c ok")
     return launches
+
+
+def ptv3_training_batch(root: str, device, trees=PTV3_TRAIN_TREES):
+    """The first ``trees``-tree batch of the CV fold that holds out plot 1
+    (the CLI's batches are these trees, shuffled), on ``device``."""
+    from treemorph_tpu_torch.data import batch_iterator, get_plot_split
+    from treemorph_tpu_torch.train.harness import to_device
+
+    trainset, _ = get_plot_split(root, 1)
+    batch = next(batch_iterator(trainset, trees, TRAIN_POINTS,
+                                shuffle=False))
+    return to_device(batch, device)
+
+
+def ptv3_training_model(device, drop_path=0.3):
+    """The training CLI's PTv3 (full width, dim_feat 4, features, voxel
+    0.02, f32) with seeded weights, on ``device``."""
+    from treemorph_tpu_torch.models.ptv3 import PointTransformerWithHeads
+    from treemorph_tpu_torch.train.families import init_ptv3
+
+    model = PointTransformerWithHeads(dim_feat=4, use_feats=True,
+                                      voxel_size=0.02, drop_path=drop_path)
+    return init_ptv3(model, 0).to(device)
+
+
+def capture_ptv3_step(batch, device):
+    """The forward and backward of one full-width PTv3 train step (the
+    family's ``forward_fn`` on step generator seed 0, the x50 loss); per
+    ``window_attention`` call, its inputs (q, k, v, seg) and the output
+    cotangent the step's backward gave it."""
+    import torch
+
+    from treemorph_tpu_torch.ops import attention
+    from treemorph_tpu_torch.train import families, harness
+
+    model = ptv3_training_model(device)
+    calls = []
+    kernel = attention.window_attention
+
+    def recording(q, k, v, seg):
+        out = kernel(q, k, v, seg)
+        entry = [q.detach(), k.detach(), v.detach(), seg, None]
+        calls.append(entry)
+        out.register_hook(
+            lambda g: entry.__setitem__(4, g.detach().float().contiguous()))
+        return out
+
+    forward_fn, loss_fn = families.ptv3_family()
+    attention.window_attention = recording
+    try:
+        out = forward_fn(model, batch, True, torch.Generator().manual_seed(0))
+        loss, _ = loss_fn(out, batch)
+        (loss * harness.LOSS_BACKWARD_SCALE).backward()
+    finally:
+        attention.window_attention = kernel
+    torch.cuda.synchronize()
+    if len(calls) != PTV3_BLOCKS or any(c[4] is None for c in calls):
+        raise AssertionError(f"{len(calls)} attention calls with cotangents "
+                             f"in a train step, expected {PTV3_BLOCKS}")
+    return calls
+
+
+def sdpa_backward_ms(args, mask) -> float:
+    """CUDA-event ms of the backward of ``scaled_dot_product_attention``
+    with the boolean ``mask``, on ``args``' q, k, v and cotangent (rows
+    with no allowed key give NaN there: a yardstick of time only)."""
+    import torch
+    import torch.nn.functional as F
+
+    leaves = [x.detach().clone().requires_grad_() for x in args[:3]]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+    g = args[4].to(out.dtype)
+    return cuda_ms(lambda: torch.autograd.grad(out, leaves, g,
+                                               retain_graph=True), 5)
+
+
+def phase_attention_bwd_vs_plain(calls, device):
+    """Returns the per-step backward kernel record (f32, the main path's
+    type) and the per-shape rows."""
+    import torch
+
+    from treemorph_tpu_torch.ops.attention import (
+        allowed_pairs,
+        window_attention_bwd,
+        window_attention_bwd_reference,
+    )
+
+    by_shape = {}
+    for call in calls:
+        entry = by_shape.setdefault(tuple(call[0].shape), [call, 0])
+        entry[1] += 1
+    gen = torch.Generator(device=device).manual_seed(5)
+    rows, worst, worst_rel = [], 0.0, 0.0
+    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+              "library_bf16_ms": 0.0, "bound_ms": 0.0, "bytes_s": 0.0,
+              "ops_s": 0.0}
+
+    def check(label, args):
+        grads = window_attention_bwd(*args)
+        torch.cuda.synchronize()
+        refs = window_attention_bwd_reference(*args)
+        pad = (args[3] < 0)[:, None, :, None].expand_as(grads[0])
+        errs = {}
+        for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            if not (err <= KERNEL_RTOL * scale and torch.isfinite(got).all()
+                    and bool((got[pad] == 0).all())):
+                raise AssertionError(
+                    f"window_attention_bwd {label} {name}: max |err| "
+                    f"{err:.3e} > {KERNEL_RTOL} x {scale:.3e}, or padding "
+                    f"rows not 0")
+            errs[name] = (err, scale)
+        return errs
+
+    for shape, ((q, k, v, seg, g), count) in sorted(by_shape.items()):
+        w, h, kk, d = shape
+        pairs = allowed_pair_count(seg)
+        mask = allowed_pairs(seg)[:, None]
+        rand = segmented_inputs(shape, device, gen) + (
+            torch.randn(shape, device=device, generator=gen),)
+        errs_rand = check(f"{shape} random, 3 segments", rand)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = (q.to(dtype), k.to(dtype), v.to(dtype), seg, g)
+            errs = check(f"{shape} {dtype}", args)
+            for err, scale in (*errs.values(), *errs_rand.values()):
+                worst = max(worst, err)
+                worst_rel = max(worst_rel, err / max(scale, 1e-30))
+            ms = cuda_ms(lambda: window_attention_bwd(*args), 20)
+            plain_ms = cuda_ms(lambda: window_attention_bwd_reference(*args),
+                               3)
+            library_ms = sdpa_backward_ms(args, mask)
+            # each input read once (q, k, v, seg, the f32 cotangent), each
+            # output written once (dq, dk, dv in f32)
+            nbytes = (3 * w * h * kk * d * args[0].element_size()
+                      + w * kk * 4 + w * h * kk * d * 4
+                      + 3 * w * h * kk * d * 4)
+            # 5 D multiply-adds per allowed pair and head (the scores, dp,
+            # dv, dq, dk) in f32
+            flops = 2.0 * 5 * d * h * pairs
+            ops_s = flops / F32_FLOPS
+            bytes_s = nbytes / HBM_BYTES_PER_S
+            bound_ms = 1e3 * max(bytes_s, ops_s)
+            row = dict(shape=list(shape), dtype=str(dtype), calls=count,
+                       valid_rows=int((seg >= 0).sum()),
+                       windows_with_rows=int((seg >= 0).any(1).sum()),
+                       allowed_pairs=pairs,
+                       err_over_scale={n: e / max(sc, 1e-30)
+                                       for n, (e, sc) in errs.items()},
+                       random_err_over_scale={
+                           n: e / max(sc, 1e-30)
+                           for n, (e, sc) in errs_rand.items()},
+                       ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound_ms,
+                       bound_by="bytes" if bytes_s > ops_s else "operations")
+            rows.append(row)
+            log("kernel " + json.dumps(row))
+            if dtype == torch.float32:
+                for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                                 ("library_ms", library_ms),
+                                 ("bound_ms", bound_ms), ("bytes_s", bytes_s),
+                                 ("ops_s", ops_s)):
+                    totals[key] += count * val
+            else:
+                totals["library_bf16_ms"] += count * library_ms
+    record = {
+        "name": "window_attention_bwd",
+        "route": "cuda",
+        "source": "treemorph_tpu_torch/csrc/window_attention_bwd.cu",
+        "replaces": "treemorph_tpu/ops/attention.py:71",
+        "shape": "; ".join(f"({w}, {h}, {kk}, {d}) x{count}" for
+                           (w, h, kk, d), (_, count) in
+                           sorted(by_shape.items())),
+        "max_abs_err": worst,
+        "max_err_over_scale": worst_rel,
+        "ms": totals["ms"],
+        "plain_ms": totals["plain_ms"],
+        "bound_ms": totals["bound_ms"],
+        "bound_by": "bytes" if totals["bytes_s"] > totals["ops_s"]
+        else "operations",
+        "library_ms": totals["library_ms"],
+        "library_bf16_ms": totals["library_bf16_ms"],
+    }
+    log(f"phase 8a ok: window_attention_bwd within {KERNEL_RTOL} x scale of "
+        f"plain at {len(rows)} shape/type cases and on three-segment inputs; "
+        f"one train step's {PTV3_BWD_PER_STEP} launches (f32): kernel "
+        f"{totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, "
+        f"scaled_dot_product_attention backward {totals['library_ms']:.3f} "
+        f"ms (bf16 {totals['library_bf16_ms']:.3f} ms), bound "
+        f"{totals['bound_ms']:.3f} ms")
+    return record, rows
+
+
+def ptv3_one_step(batch, device):
+    """Loss and parameter gradients (clipped as the step clips them) of one
+    ``make_train_step`` of the training PTv3 at ``drop_path`` 0 on
+    ``batch``, on ``device``, with step generator seed 1 (the same order
+    permutations on every device)."""
+    import torch
+
+    from treemorph_tpu_torch.train import families, harness
+
+    model = ptv3_training_model(device, drop_path=0.0)
+    state = harness.TrainState(model, harness.make_optimizer(model))
+    step = harness.make_train_step(*families.ptv3_family())
+    _, metrics = step(state, batch.map(lambda a: a.to(device)), 1e-2,
+                      torch.Generator().manual_seed(1))
+    grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    return float(metrics["loss"]), grads
+
+
+def phase_ptv3_train_checks(root, calls, device):
+    """Each attention of the captured step differentiated alone through
+    ``window_attention`` (autograd Function and backward kernel) on the
+    step's own cotangent, against the plain backward; then one train step
+    on a 2-tree cut, card against CPU."""
+    import torch
+
+    from treemorph_tpu_torch.ops.attention import (
+        window_attention,
+        window_attention_bwd_reference,
+    )
+    from treemorph_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+
+    torch.cuda.synchronize()
+    reset_launches()
+    worst = 0.0
+    for q, k, v, seg, g in calls:
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        window_attention(*leaves, seg).backward(g)
+        refs = window_attention_bwd_reference(q, k, v, seg, g)
+        for name, leaf, ref in zip(("dq", "dk", "dv"), leaves, refs):
+            if leaf.grad is None:
+                raise AssertionError(f"{name} of a {tuple(q.shape)} "
+                                     f"attention: no gradient")
+            err = float((leaf.grad - ref).abs().max())
+            scale = float(ref.abs().max())
+            worst = max(worst, err / max(scale, 1e-30))
+            if not err <= KERNEL_RTOL * scale:
+                raise AssertionError(
+                    f"{name} of a {tuple(q.shape)} attention through "
+                    f"autograd: max |err| {err:.3e} > {KERNEL_RTOL} x "
+                    f"{scale:.3e}")
+    launches = LAUNCHES["window_attention_bwd"]
+    log(f"phase 8b: {len(calls)} attentions of a full-width f32 train step, "
+        f"each differentiated alone through autograd on the step's own "
+        f"cotangent: within {worst:.2e} of scale of the plain backward "
+        f"(limit {KERNEL_RTOL}); window_attention_bwd launches {launches}")
+    if launches != len(calls):
+        raise AssertionError("the backward kernel did not run for every "
+                             "attention")
+    cut = ptv3_training_batch(root, "cpu", 2)
+    t0 = time.perf_counter()
+    card = ptv3_one_step(cut, device)
+    t1 = time.perf_counter()
+    cpu = ptv3_one_step(cut, "cpu")
+    log(f"  2-tree step: card {t1 - t0:.2f} s, CPU "
+        f"{time.perf_counter() - t1:.2f} s")
+    compare_steps("PTv3 train step, card vs CPU, f32", card, cpu,
+                  PTV3_STEP_LOSS_RTOL, PTV3_STEP_GRAD_RTOL)
+    log("phase 8b ok")
+
+
+def phase_ptv3_training_cli(root, device):
+    """The training CLI's pointtransformerv3 family at full width; returns
+    the backward kernel's launches and the run's record."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from treemorph_tpu_torch.evaluation.model_loaders import load_model
+    from treemorph_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from treemorph_tpu_torch.pipeline.predict import predict_single
+    from treemorph_tpu_torch.train import cli
+
+    save_dir = os.path.join(root, "ptv3_saves")
+    argv = ["pointtransformerv3", "--data_root", root, "--test_plots", "1",
+            "--epochs", str(PTV3_TRAIN_EPOCHS), "--batch_size",
+            str(PTV3_TRAIN_TREES), "--bucket", str(TRAIN_POINTS),
+            "--save_dir", save_dir, "--device", str(device)]
+    log("training CLI: python -m treemorph_tpu_torch.train.cli "
+        + " ".join(argv))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    history = cli.main(argv)[1]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    per_epoch = -(-TRAIN_TREES * (TRAIN_PLOTS - 1) // PTV3_TRAIN_TREES)
+    val_batches = -(-TRAIN_TREES // PTV3_TRAIN_TREES)
+    steps = PTV3_TRAIN_EPOCHS * per_epoch
+    forwards = steps + PTV3_TRAIN_EPOCHS * val_batches
+    for r in history:
+        log("epoch " + json.dumps(r))
+    log(f"training CLI (PTv3): {secs:.2f} s for {PTV3_TRAIN_EPOCHS} epochs "
+        f"of {per_epoch} steps, launches {launches}")
+    ckpt = os.path.join(save_dir, "pointtransformerv3_CV")
+    predictors = load_model("pointtransformerv3", ckpt, device=device)
+    with open(os.path.join(root, "plot_1.json")) as f:
+        cloud = np.load(json.load(f)[0])
+    served = (predict_single(cloud, predictors["O_P1"], None, device=device)
+              if "O_P1" in predictors else None)
+    losses = [r[k] for r in history for k in ("train_loss", "val_loss")]
+    checks = {
+        f"{PTV3_TRAIN_EPOCHS} epochs": len(history) == PTV3_TRAIN_EPOCHS,
+        "every loss finite": all(math.isfinite(x) for x in losses),
+        "last train loss below the first":
+            history[-1]["train_loss"] < history[0]["train_loss"],
+        "checkpoint loads and serves predict_single": served is not None
+            and served.shape == (len(cloud), 3)
+            and bool(np.isfinite(served).all()),
+        f"{PTV3_BWD_PER_STEP} window_attention_bwd launches per step":
+            launches.get("window_attention_bwd", 0)
+            == PTV3_BWD_PER_STEP * steps,
+        f"{PTV3_BLOCKS} window_attention launches per forward":
+            launches.get("window_attention", 0) == PTV3_BLOCKS * forwards,
+    }
+    for name, ok in checks.items():
+        log(f"  {'ok ' if ok else 'FAIL'} {name}")
+    if not all(checks.values()):
+        raise AssertionError("PTv3 training CLI checks failed")
+    log("phase 8c ok")
+    return launches.get("window_attention_bwd", 0), {
+        "ptv3_train_cli_seconds": secs, "ptv3_train_steps": steps,
+        "ptv3_train_losses": [r["train_loss"] for r in history],
+        "ptv3_val_losses": [r["val_loss"] for r in history],
+        "ptv3_launches": launches,
+    }
+
+
+def phase_ptv3_step_split(batch, device, reps=3):
+    """Seconds of a full-width PTv3 training step, split into forward (with
+    the loss), backward and optimizer, host clock around synchronized work;
+    median of ``reps`` steps after one warm-up step; peak device memory;
+    then one more step under ``torch.profiler``."""
+    import torch
+
+    from treemorph_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from treemorph_tpu_torch.train import families, harness
+
+    model = ptv3_training_model(device)
+    forward_fn, loss_fn = families.ptv3_family()
+    opt = harness.make_optimizer(model)
+    torch.cuda.reset_peak_memory_stats(device)
+
+    def step(seed, times=None):
+        t0 = time.perf_counter()
+        out = forward_fn(model, batch, True, torch.Generator().manual_seed(seed))
+        loss, _ = loss_fn(out, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model.zero_grad(set_to_none=True)
+        (loss * harness.LOSS_BACKWARD_SCALE).backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        harness.optimizer_step(opt, 1e-2)
+        torch.cuda.synchronize()
+        if times is not None:
+            times.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
+        if not torch.isfinite(loss):
+            raise AssertionError("non-finite loss in the timed steps")
+
+    splits = []
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        reset_launches()
+        step(i, splits)
+    fwd, bwd, optim = (statistics.median(x) for x in zip(*splits[1:]))
+    record = {
+        "ptv3_train_step_seconds": fwd + bwd + optim,
+        "ptv3_train_forward_seconds": fwd,
+        "ptv3_train_backward_seconds": bwd,
+        "ptv3_train_optimizer_seconds": optim,
+        "ptv3_train_points_per_step": int(batch.mask_valid.sum()),
+        "ptv3_train_peak_memory_gb":
+            torch.cuda.max_memory_allocated(device) / 1e9,
+        "ptv3_launches_per_step": dict(LAUNCHES),
+    }
+    log(json.dumps(record))
+    record["ptv3_train_step_profile"] = profile_device(
+        lambda: step(reps + 1), "PTv3 train step")
+    log("phase 8d ok")
+    return record
 
 
 def pipeline_config(input_dir: str, output_dir: str,
@@ -1358,11 +1850,22 @@ def main() -> int:
         phase_train_step_checks(batch, capacity, device)
         bwd_launches, cli_record = phase_training_cli(root, device)
         split = phase_step_split(batch, capacity, device)
-    log(json.dumps({**per_step, **split, **cli_record}))
-    cloud = ptv3_cloud(points)
-    attn_record, _ = phase_attention_vs_plain(cloud, device)
-    phase_ptv3_card_vs_cpu(cloud, device)
-    attn_launches = phase_ptv3_end_to_end(cloud, device)
+        del batch
+        log(json.dumps({**per_step, **split, **cli_record}))
+        cloud = ptv3_cloud(points)
+        attn_record, _ = phase_attention_vs_plain(cloud, device)
+        phase_ptv3_card_vs_cpu(cloud, device)
+        attn_launches = phase_ptv3_end_to_end(cloud, device)
+
+        ptv3_batch = ptv3_training_batch(root, device)
+        calls = capture_ptv3_step(ptv3_batch, device)
+        attn_bwd_record, _ = phase_attention_bwd_vs_plain(calls, device)
+        phase_ptv3_train_checks(root, calls, device)
+        del calls
+        attn_bwd_launches, ptv3_cli_record = phase_ptv3_training_cli(
+            root, device)
+        ptv3_split = phase_ptv3_step_split(ptv3_batch, device)
+        log(json.dumps({**ptv3_split, **ptv3_cli_record}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     head = ("name", "route", "source", "replaces")
     kernels = []
@@ -1370,6 +1873,7 @@ def main() -> int:
         (fwd_record, fwd_launches, "serving"),
         (bwd_record, bwd_launches, "training"),
         (attn_record, attn_launches, "ptv3 serving"),
+        (attn_bwd_record, attn_bwd_launches, "ptv3 training"),
     ):
         kernels.append({
             **{k: record[k] for k in head}, "launches": launches,

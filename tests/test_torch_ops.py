@@ -192,6 +192,42 @@ def test_gather_down_inverse_convs_match_jax(dtype):
     np.testing.assert_allclose(up_t.numpy(), up_j, **tol)
 
 
+def test_gather_vjp_on_duplicate_voxels():
+    """The gather engine's custom VJP (the JAX package's) gathers the
+    output gradient through the mirrored rulebook column, which is the
+    forward's transpose only when the rulebook is antisymmetric. Rows that
+    share a voxel (PTv3's level 0 without dedup) break that: 80 rows, 20 of
+    them duplicates, k=3, float64. ``d_feats`` then differs from autograd of
+    the same forward by more than a tenth of its scale, while ``d_w`` and
+    both gradients on the duplicate-free rows agree. A deviation of the
+    JAX reference (ROADMAP.md queue 3); the port keeps its VJP."""
+    rng = np.random.default_rng(9)
+    cells = rng.choice(6**3, size=60, replace=False)
+    vox = np.stack(np.unravel_index(cells, (6, 6, 6)), axis=1)
+    for rows in (vox, np.concatenate([vox, vox[rng.choice(60, 20, False)]])):
+        coords = t(np.concatenate([np.zeros((len(rows), 1), np.int64), rows],
+                                  axis=1)).int()
+        valid = torch.ones(len(rows), dtype=torch.bool)
+        rb = tsp.build_rulebook(coords, valid, 3)
+        feats = torch.from_numpy(rng.normal(size=(len(rows), 4)))
+        w = torch.from_numpy(rng.normal(size=(27, 4, 5)))
+        g = torch.from_numpy(rng.normal(size=(len(rows), 5)))
+        grads = []
+        for conv in (
+            lambda f, k: tsp.subm_conv_apply(f, k, rb, valid, torch.float64),
+            lambda f, k: tsp._subm_conv_impl(torch.float64, f, k, rb, valid),
+        ):
+            f, k = feats.clone().requires_grad_(), w.clone().requires_grad_()
+            grads.append(torch.autograd.grad(conv(f, k), (f, k), g))
+        (vjp_f, vjp_w), (true_f, true_w) = grads
+        torch.testing.assert_close(vjp_w, true_w, rtol=0, atol=1e-12)
+        err = float((vjp_f - true_f).abs().max() / true_f.abs().max())
+        if len(rows) == 60:
+            assert err < 1e-12
+        else:
+            assert err > 0.1
+
+
 def test_z_order_codes_match_jax():
     rng = np.random.default_rng(3)
     grid = rng.integers(0, 1 << 16, size=(4096, 3)).astype(np.int32)

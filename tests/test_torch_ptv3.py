@@ -59,14 +59,50 @@ def duplicated_cloud(seed, n_voxels, shift=(0.0, 0.0, 0.0)):
     return (pts + np.asarray(shift)).astype(np.float32)
 
 
+def bucket_of(grid4, m):
+    """The JAX hash table's bucket of (b, x, y, z) rows in a table over m
+    rows (the port's copy of its hash and size)."""
+    n_buckets = (1 << max(8 * m - 1, 127).bit_length()) // 16
+    return (tsp._spatial_hash(t(np.asarray(grid4, np.int64)))
+            & (n_buckets - 1)).numpy()
+
+
+def overflow_points(pts, rng, m=P):
+    """Points to add to element 0 of ``pts`` (its grid: floor((p - min) /
+    VOXEL), the min unchanged) so that JAX hash buckets of a table over
+    ``m`` rows hold more than 16 rows: 40 points in one occupied voxel, and
+    10 points in each of two empty voxels next to the cloud that share a
+    bucket."""
+    lo = pts.min(axis=0)
+    grid = np.floor((pts - lo) / VOXEL).astype(np.int64)
+    occupied = {tuple(g) for g in grid}
+    crowded = grid[len(grid) // 2]
+    empty = sorted({tuple(g + d) for g in grid[::7]
+                    for d in ((1, 0, 0), (0, 1, 0), (0, 0, 1))} - occupied)
+    buckets = bucket_of([(0,) + e for e in empty], m)
+    first = next(i for i in range(len(empty))
+                 if (buckets[i + 1:] == buckets[i]).any())
+    second = first + 1 + int(np.argmax(buckets[first + 1:] == buckets[first]))
+    cells = np.concatenate([np.repeat(crowded[None], 40, 0),
+                            np.repeat(np.array([empty[first]]), 10, 0),
+                            np.repeat(np.array([empty[second]]), 10, 0)])
+    return (lo + (cells + rng.uniform(0.05, 0.95, cells.shape)) * VOXEL
+            ).astype(np.float32)
+
+
 def two_element_batch(seed=0, n=1000):
     """Flat (coords, feats, batch ids, valid) of two overlapping trees, in
-    shuffled order, padded to P."""
+    shuffled order, padded to P. Element 0 also holds a voxel of 40 points
+    and two voxels of 10 that share a JAX hash bucket
+    (:func:`overflow_points`)."""
     rng = np.random.default_rng(seed + 50)
     a = duplicated_cloud(seed, 120)
     b = duplicated_cloud(seed + 1, 120, shift=(0.01, 0.0, 0.0))
-    pts = np.concatenate([a, b])[:n]
-    ids = np.concatenate([np.zeros(len(a)), np.ones(len(b))])[:n]
+    pts = np.concatenate([a, b])[:n - 60]
+    ids = np.concatenate([np.zeros(len(a)), np.ones(len(b))])[:n - 60]
+    extra = overflow_points(pts[ids == 0], rng)
+    pts = np.concatenate([pts, extra])
+    ids = np.concatenate([ids, np.zeros(len(extra))])
     perm = rng.permutation(len(pts))
     coords = np.zeros((P, 3), np.float32)
     coords[: len(pts)] = pts[perm]
@@ -156,6 +192,28 @@ def test_rulebook_with_duplicates_matches_jax(kernel_size):
         np.testing.assert_array_equal(cols, jsp.rulebook_subset_columns(5, 3))
         np.testing.assert_array_equal(
             rb_t[:, cols], tsp.build_rulebook(t(coords), t(valid), 3).numpy())
+
+
+@pytest.mark.parametrize("kernel_size", [3, 5])
+def test_rulebook_bucket_overflow_matches_jax(kernel_size):
+    """Level 0 of a batch whose JAX hash buckets hold more than 16 rows (a
+    voxel of 40+ points, two voxels of 10 in one bucket): the JAX table
+    keeps the first 16 valid rows of each bucket, and the port's rulebook
+    equals its exact lookup (``verify_coords=True``) entry for entry."""
+    c, f, b, v = two_element_batch(0)
+    ps = tptv3.make_pointset(t(c), t(f), t(b), t(v), VOXEL)
+    coords = torch.cat([ps.batch[:, None], ps.grid_coord], 1).int()
+    grid = coords.numpy()[v]
+    _, per_voxel = np.unique(grid, axis=0, return_counts=True)
+    assert per_voxel.max() >= 40
+    assert np.bincount(bucket_of(grid, P)).max() > 16
+    kept = tsp.table_rows(coords, ps.valid).numpy()
+    assert kept.sum() < v.sum() and not kept[~v].any()
+    rb_j = np.asarray(jsp.build_rulebook(
+        jnp.asarray(coords.numpy()), jnp.asarray(ps.valid.numpy()),
+        kernel_size, verify_coords=True))
+    rb_t = tsp.build_rulebook(coords, ps.valid, kernel_size).numpy()
+    np.testing.assert_array_equal(rb_t, rb_j)
 
 
 # --- pooling --------------------------------------------------------------

@@ -465,15 +465,19 @@ def test_training_entry_points_default_to_cuda_and_raise_without_it(
 ):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     write_plots(tmp_path, trees=1, n=100)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        cli.main(["treelearn", "--data_root", str(tmp_path)])
+    for family in ("treelearn", "pointtransformerv3"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main([family, "--data_root", str(tmp_path)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_model("treelearn", str(tmp_path))
 
 
 def test_training_paths_not_ported_raise(tmp_path):
     for argv in (["pointnet2", "--data_root", str(tmp_path)],
-                 ["pointtransformerv3", "--data_root", str(tmp_path)],
+                 ["pointtransformerv3", "--data_root", str(tmp_path),
+                  "--dedup_divisor", "4"],
+                 ["pointtransformerv3", "--data_root", str(tmp_path),
+                  "--engine", "band"],
                  ["treelearn", "--raster_dir", str(tmp_path)]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(argv + ["--device", "cpu"])

@@ -1,6 +1,6 @@
-"""PointTransformerV3 with offset/semantic heads, as torch modules (inference).
+"""PointTransformerV3 with offset/semantic heads, as torch modules.
 
-Port of the inference path of ``treemorph_tpu/models/ptv3.py`` (reference
+Port of ``treemorph_tpu/models/ptv3.py`` (reference
 ``Modules/PointTransformerV3/PointTransformerV3.py`` + ``blocks.py``):
 points are grid-quantized and serialized along 4 curve orders (z, z-trans,
 hilbert, hilbert-trans); a k=5 submanifold conv stem; 5 encoder stages of
@@ -24,10 +24,15 @@ attn.qkv``, ``cpe.LayerNorm_0``, ``enc1_down.norm``, ...), so
 the other. Sort keys are one int64 ``batch << 48 | code``, whose stable
 sort is the JAX package's lexsort of ``(batch, hi, lo)``.
 
-Not ported (``NotImplementedError``, naming the ROADMAP item): training
-(stochastic depth with a generator, order shuffling), token / level-0
-dedup and the band and z-pack stems, RPE, per-element window padding and
-PDNorm.
+Training (``model.train()``) takes its randomness from the caller, as the
+JAX model takes rngs: one permutation of the four orders per stage
+(``order_perms``, drawn by :func:`draw_order_perms`), applied where the
+level is serialized, and a ``torch.Generator`` on the model's device for
+the blocks' stochastic depth (:class:`DropPath`).
+
+Not ported (``NotImplementedError``, naming the ROADMAP item): token /
+level-0 dedup and the band and z-pack stems, RPE, per-element window
+padding and PDNorm.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from ..ops.sparse import (
     rulebook_subset_columns,
     subm_conv_apply,
 )
+from .loss import point_wise_loss
 from .treelearn import MaskedBatchNorm, MLPHead, _conv_dtype, _fan_in_normal_
 
 DEFAULT_ORDERS = ("z", "z-trans", "hilbert", "hilbert-trans")
@@ -56,8 +62,6 @@ CODE_BITS = 3 * DEPTH
 #: hidden width of the blocks' MLPs over their channels
 MLP_RATIO = 4
 
-_TRAINING_TODO = ("PTv3 training (stochastic depth with a generator, order "
-                  "shuffling) is not ported yet (ROADMAP.md queue 1 item 11b)")
 _NOT_PORTED = {
     "dedup_divisor": "ROADMAP.md queue 1 item 11c",
     "dedup_tokens": "ROADMAP.md queue 1 item 11c",
@@ -147,10 +151,27 @@ def quantize_grid(coord, valid, grid_size: float):
     return torch.where(valid[:, None], grid.clamp(min=0), 0)
 
 
-def make_pointset(coord, feat, batch, valid, grid_size: float) -> PointSet:
+def draw_order_perms(generator: torch.Generator, num_stages: int):
+    """One permutation of the curve orders per stage (the JAX model's
+    ``jax.random.permutation`` of each stage's key), on the CPU."""
+    return [torch.randperm(len(DEFAULT_ORDERS), generator=generator)
+            for _ in range(num_stages)]
+
+
+def _shuffled(orders, inverses, code, perm):
+    """The level's orders, inverses and codes in the order ``perm`` (None:
+    unshuffled)."""
+    if perm is None:
+        return orders, inverses, code
+    perm = perm.to(orders.device)
+    return orders[perm], inverses[perm], code[perm]
+
+
+def make_pointset(coord, feat, batch, valid, grid_size: float,
+                  order_perm=None) -> PointSet:
     """Grid-quantize and serialize a flat padded batch along the four curve
-    orders (reference ``Point.serialization``, blocks.py:98-153, without
-    order shuffling)."""
+    orders (reference ``Point.serialization``, blocks.py:98-153), shuffled
+    by ``order_perm`` when one is given."""
     grid_coord = quantize_grid(coord, valid, grid_size)
     batch = torch.where(valid, batch.to(torch.int64), INVALID_BATCH)
     code = torch.stack([
@@ -158,21 +179,32 @@ def make_pointset(coord, feat, batch, valid, grid_size: float) -> PointSet:
         for name in DEFAULT_ORDERS
     ])
     orders, inverses = _batched_order_sort(batch.expand_as(code), code)
+    orders, inverses, code = _shuffled(orders, inverses, code, order_perm)
     return PointSet(coord, grid_coord, feat, batch, valid, orders, inverses,
                     code)
 
 
 class DropPath(nn.Module):
-    """Per-row stochastic depth; the identity in eval mode."""
+    """Per-row stochastic depth (timm's DropPath on (P, C) rows, the JAX
+    model's ``DropPath``): in train mode each row is kept with probability
+    ``1 - rate`` and scaled by ``1 / (1 - rate)``, or zeroed; the mask comes
+    from ``generator``, which lives on the rows' device. The identity in
+    eval mode or at rate 0."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x):
-        if self.training and self.rate > 0.0:
-            raise NotImplementedError(_TRAINING_TODO)
-        return x
+    def forward(self, x, generator: torch.Generator | None = None):
+        if not self.training or self.rate <= 0.0:
+            return x
+        if generator is None:
+            raise ValueError("DropPath in train mode draws its mask from a "
+                             "generator; none was given")
+        keep = 1.0 - self.rate
+        mask = torch.rand((x.shape[0], 1), generator=generator,
+                          device=x.device) < keep
+        return x * mask / keep
 
 
 class SerializedAttention(nn.Module):
@@ -260,12 +292,12 @@ class PTv3Block(nn.Module):
         self.mlp = FeedForward(channels, compute_dtype)
         self.drop_path = DropPath(drop_path)
 
-    def forward(self, ps: PointSet, rulebook) -> PointSet:
+    def forward(self, ps: PointSet, rulebook, generator=None) -> PointSet:
         feat = ps.feat + self.cpe(ps.feat, rulebook, ps.valid)
         x = self.attn(ps._replace(feat=self.norm1(feat)))
-        feat = feat + self.drop_path(x)
+        feat = feat + self.drop_path(x, generator)
         x = self.mlp(self.norm2(feat))
-        return ps._replace(feat=feat + self.drop_path(x))
+        return ps._replace(feat=feat + self.drop_path(x, generator))
 
 
 def _segment_amax(values, index, n, fill):
@@ -294,7 +326,7 @@ class SerializedPooling(nn.Module):
         self.proj = nn.Linear(in_channels, out_channels)
         self.norm = _bn(out_channels)
 
-    def forward(self, ps: PointSet, cap: int):
+    def forward(self, ps: PointSet, cap: int, order_perm=None):
         p = ps.feat.shape[0]
         dev = ps.feat.device
         order0 = ps.orders[0]
@@ -340,6 +372,8 @@ class SerializedPooling(nn.Module):
         head = order0[first.clamp(max=p - 1)]
         code = ps.code[:, head] >> 3
         orders, inverses = _batched_order_sort(batch.expand_as(code), code)
+        orders, inverses, code = _shuffled(orders, inverses, code,
+                                           order_perm)
         coarse = PointSet(coord, grid, feat, batch, coarse_valid, orders,
                           inverses, code)
         return coarse, cluster, overflow
@@ -438,9 +472,19 @@ class PointTransformerV3(nn.Module):
                     dec_channels[s], dec_num_head[s], dec_patch_size[s],
                     i % n_orders, dp_slice[i], compute_dtype))
 
-    def forward(self, coord, feat, batch, valid):
+    def forward(self, coord, feat, batch, valid, order_perms=None,
+                generator=None):
+        """``order_perms``: one permutation of the orders per stage (or
+        None: unshuffled); ``generator``: the stochastic depth's, needed in
+        train mode when ``drop_path`` > 0."""
         num_stages = len(self.enc_depths)
-        ps = make_pointset(coord, feat, batch, valid, self.grid_size)
+        perms = (list(order_perms) if order_perms is not None
+                 else [None] * num_stages)
+        if len(perms) != num_stages:
+            raise ValueError(f"{len(perms)} order permutations for "
+                             f"{num_stages} stages")
+        ps = make_pointset(coord, feat, batch, valid, self.grid_size,
+                           perms[0])
         coords4 = torch.cat([ps.batch[:, None], ps.grid_coord], dim=1)
         # one k=5 rulebook serves the stem and, sliced to its central 3^3
         # columns, the level-0 xCPEs
@@ -456,7 +500,8 @@ class PointTransformerV3(nn.Module):
                 cap = level_capacity(ps.feat.shape[0],
                                      self.enc_patch_size[s],
                                      self.pool_shrink)
-                coarse, cluster, over = getattr(self, f"enc{s}_down")(ps, cap)
+                coarse, cluster, over = getattr(self, f"enc{s}_down")(
+                    ps, cap, perms[s])
                 pool_overflow = pool_overflow + over
                 skips.append((ps, cluster, rulebook))
                 ps = coarse
@@ -465,12 +510,14 @@ class PointTransformerV3(nn.Module):
             else:
                 rulebook = rb5[:, rulebook_subset_columns(5, 3)]
             for i in range(self.enc_depths[s]):
-                ps = getattr(self, f"enc{s}_block{i}")(ps, rulebook)
+                ps = getattr(self, f"enc{s}_block{i}")(ps, rulebook,
+                                                       generator)
         for s in reversed(range(num_stages - 1)):
             fine, cluster, rulebook = skips.pop()
             ps = getattr(self, f"dec{s}_up")(ps.feat, ps.valid, fine, cluster)
             for i in range(self.dec_depths[s]):
-                ps = getattr(self, f"dec{s}_block{i}")(ps, rulebook)
+                ps = getattr(self, f"dec{s}_block{i}")(ps, rulebook,
+                                                       generator)
         return ps, pool_overflow
 
 
@@ -553,10 +600,14 @@ class PointTransformerWithHeads(nn.Module):
         ref = next(self.parameters())
         return model.to(ref.device).train(self.training)
 
-    def forward(self, coords, feats, batch_ids, valid) -> dict:
+    def forward(self, coords, feats, batch_ids, valid, order_perms=None,
+                generator=None) -> dict:
+        """``order_perms`` and ``generator``: the training randomness, as
+        :meth:`PointTransformerV3.forward` takes it."""
         if not self.use_feats:
             feats = torch.ones_like(feats)
-        ps, pool_overflow = self.backbone(coords, feats, batch_ids, valid)
+        ps, pool_overflow = self.backbone(coords, feats, batch_ids, valid,
+                                          order_perms, generator)
         return {
             "backbone_feats": ps.feat,
             "semantic_prediction_logits": self.semantic_head(ps.feat,
@@ -566,3 +617,26 @@ class PointTransformerWithHeads(nn.Module):
                                           device=ps.feat.device),
             "pool_overflow": pool_overflow,
         }
+
+
+def ptv3_loss(
+    output: dict,
+    flat_batch: dict,
+    loss_multiplier_semantic: float = 1.0,
+    loss_multiplier_offset: float = 1.0,
+):
+    """Masked loss (reference PointTransformerV3.py:102-110):
+    ``(loss, {"semantic_loss", "offset_loss"})``."""
+    sem_loss, off_loss = point_wise_loss(
+        output["semantic_prediction_logits"],
+        output["offset_predictions"],
+        flat_batch["semantic_labels"],
+        flat_batch["offset_labels"],
+        semantic_mask=flat_batch["mask_valid"],
+        offset_mask=flat_batch["mask_valid"] & flat_batch["mask_off"],
+    )
+    loss_dict = {
+        "semantic_loss": sem_loss * loss_multiplier_semantic,
+        "offset_loss": off_loss * loss_multiplier_offset,
+    }
+    return sum(loss_dict.values()), loss_dict

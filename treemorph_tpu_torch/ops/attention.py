@@ -1,16 +1,19 @@
-"""Masked window attention of PTv3's serialized blocks.
+"""Masked window attention of PTv3's serialized blocks, and its gradient.
 
-Port of ``treemorph_tpu/ops/attention.py`` (the forward). Points sorted
-along a space-filling curve are cut into windows of K rows; every
-(window, head) computes ``softmax(Q K^T / sqrt(D) + mask) V``, where a
-(query, key) pair is allowed only when both segment ids (batch elements)
-are equal and >= 0. A row with no allowed key, padding rows included,
-comes out 0.
+Port of ``treemorph_tpu/ops/attention.py``. Points sorted along a
+space-filling curve are cut into windows of K rows; every (window, head)
+computes ``softmax(Q K^T / sqrt(D) + mask) V``, where a (query, key) pair
+is allowed only when both segment ids (batch elements) are equal and
+>= 0. A row with no allowed key, padding rows included, comes out 0, and
+so do its gradients.
 
 :func:`window_attention` keeps the JAX layout: q, k, v (W, H, K, D) in f32
-or bf16, seg (W, K) int32, out (W, H, K, D) f32. On a CUDA tensor it
-launches the kernel of ``csrc/window_attention.cu`` or raises; a CPU tensor
-takes :func:`window_attention_reference`, the plain version.
+or bf16, seg (W, K) int32, out (W, H, K, D) f32. It is differentiable
+(:class:`_WindowAttention`, the JAX package's custom VJP): on CUDA tensors
+the forward launches the kernel of ``csrc/window_attention.cu`` and the
+backward that of ``csrc/window_attention_bwd.cu``, or raise; CPU tensors
+take the plain versions, :func:`window_attention_reference` and
+:func:`window_attention_bwd_reference`.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ HEAD_DIMS = (8, 16, 32, 64)
 #: f32 elements of one chunk's (windows, H, K, K) score tensor in the plain
 #: version (the whole tensor is 4.4-8.9 GB at the plot's level 0)
 _PLAIN_CHUNK_ELEMENTS = 1 << 26
+#: the JAX kernels' fill for disallowed scores
+NEG_INF = -1e30
 
 
 def allowed_pairs(seg: torch.Tensor) -> torch.Tensor:
@@ -61,44 +66,71 @@ def window_attention_reference(q, k, v, seg, bias=None):
     return out
 
 
-def window_attention(q, k, v, seg):
-    """Masked attention within each window; (W, H, K, D) float32.
+def window_attention_bwd_reference(q, k, v, seg, g):
+    """Plain PyTorch version of the backward (the JAX package's
+    ``_window_attention_bwd_kernel``), in f32: P recomputed with the
+    forward's mask, the -1e30 fill and the 1e-20 clamp, then ``dv = P^T g``,
+    ``dp = g V^T``, ``ds = P * (dp - rowsum(dp * P))``, ``dq = ds K scale``,
+    ``dk = ds^T (q scale)``. Runs over chunks of windows as the forward's
+    plain version does; returns (dq, dk, dv), each (W, H, K, D) f32."""
+    w_count, h, kk, d = q.shape
+    scale = d**-0.5
+    dq, dk, dv = (torch.empty((w_count, h, kk, d), dtype=torch.float32,
+                              device=q.device) for _ in range(3))
+    step = max(1, _PLAIN_CHUNK_ELEMENTS // (h * kk * kk))
+    for w0 in range(0, w_count, step):
+        sl = slice(w0, w0 + step)
+        qs = q[sl].float() * scale
+        kf, vf, gf = k[sl].float(), v[sl].float(), g[sl].float()
+        ok = allowed_pairs(seg[sl])[:, None]
+        s = torch.where(ok, qs @ kf.transpose(-1, -2), NEG_INF)
+        e = torch.where(ok, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+        p = e / e.sum(dim=-1, keepdim=True).clamp(min=1e-20)
+        dv[sl] = p.transpose(-1, -2) @ gf
+        dp = gf @ vf.transpose(-1, -2)
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        dq[sl] = (ds @ kf) * scale
+        dk[sl] = ds.transpose(-1, -2) @ qs
+    return dq, dk, dv
 
-    On a CUDA tensor this launches the kernel of
-    ``csrc/window_attention.cu`` (D in :data:`HEAD_DIMS`, K a multiple of
-    :data:`TILE`) or raises; a CPU tensor takes the plain version."""
-    if q.device.type == "cpu":
-        return window_attention_reference(q, k, v, seg)
-    if q.device.type != "cuda":
-        raise ValueError(f"window_attention: unsupported device {q.device}")
+
+def _check_inputs(name, q, k, v, seg, g=None):
+    """Raise on what the CUDA kernels do not take."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
-            f"window_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)} must be one (W, H, K, D) shape"
         )
     w_count, h, kk, d = q.shape
     if seg.shape != (w_count, kk) or seg.dtype != torch.int32:
-        raise ValueError(
-            f"window_attention: seg {tuple(seg.shape)} {seg.dtype}, want "
-            f"({w_count}, {kk}) int32"
-        )
+        raise ValueError(f"{name}: seg {tuple(seg.shape)} {seg.dtype}, want "
+                         f"({w_count}, {kk}) int32")
     if d not in HEAD_DIMS:
-        raise ValueError(f"window_attention: head dim {d} not in {HEAD_DIMS}")
+        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
     if kk % TILE or kk == 0:
-        raise ValueError(f"window_attention: window {kk} not a multiple of "
-                         f"{TILE}")
+        raise ValueError(f"{name}: window {kk} not a multiple of {TILE}")
     if q.dtype not in (torch.float32, torch.bfloat16) or not (
         k.dtype == v.dtype == q.dtype
     ):
-        raise TypeError(f"window_attention: dtypes {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}; want one of f32, bf16")
+        raise TypeError(f"{name}: dtypes {q.dtype}, {k.dtype}, {v.dtype}; "
+                        f"want one of f32, bf16")
     tensors = (q, k, v, seg)
+    if g is not None:
+        if g.shape != q.shape or g.dtype != torch.float32:
+            raise ValueError(f"{name}: g {tuple(g.shape)} {g.dtype}, want "
+                             f"{tuple(q.shape)} float32")
+        tensors += (g,)
     if any(t.device != q.device for t in tensors):
-        raise ValueError("window_attention: tensors on different devices")
+        raise ValueError(f"{name}: tensors on different devices")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("window_attention: tensors must be contiguous")
+        raise ValueError(f"{name}: tensors must be contiguous")
 
-    lib = _library()
+
+def _window_attention_cuda(q, k, v, seg):
+    """The forward kernel of ``csrc/window_attention.cu``."""
+    _check_inputs("window_attention", q, k, v, seg)
+    w_count, h, kk, d = q.shape
+    lib = _library("window_attention")
     out = torch.empty((w_count, h, kk, d), dtype=torch.float32,
                       device=q.device)
     with torch.cuda.device(q.device):
@@ -112,13 +144,83 @@ def window_attention(q, k, v, seg):
     return out
 
 
-def _library():
-    lib = load_library("window_attention")
+def window_attention_bwd(q, k, v, seg, g):
+    """(dq, dk, dv) of :func:`window_attention` for the output cotangent
+    ``g`` (f32), each (W, H, K, D) f32, by the kernels of
+    ``csrc/window_attention_bwd.cu`` on CUDA tensors (D in
+    :data:`HEAD_DIMS`, K a multiple of :data:`TILE`); raises on anything
+    else. One call runs two grids (row statistics and ``dq``, then ``dk``
+    and ``dv``) and counts one launch."""
+    if q.device.type != "cuda":
+        raise ValueError(f"window_attention_bwd: unsupported device "
+                         f"{q.device}")
+    _check_inputs("window_attention_bwd", q, k, v, seg, g)
+    w_count, h, kk, d = q.shape
+    lib = _library("window_attention_bwd")
+    dq, dk, dv = (torch.empty((w_count, h, kk, d), dtype=torch.float32,
+                              device=q.device) for _ in range(3))
+    # per query row: max score, 1 / sum of exponentials, rowsum(dp * P)
+    stats = torch.empty((w_count, h, kk, 4), dtype=torch.float32,
+                        device=q.device)
+    with torch.cuda.device(q.device):
+        rc = lib.window_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+            g.data_ptr(), int(q.dtype == torch.bfloat16), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), w_count, h, kk,
+            d, d**-0.5, stream_handle(q.device),
+        )
+    check_launch("window_attention_bwd", rc)
+    LAUNCHES["window_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class _WindowAttention(torch.autograd.Function):
+    """Window attention with the JAX package's custom VJP
+    (``_window_attention_bwd``): the backward recomputes the probabilities
+    from the saved inputs and returns dq, dk, dv cast to the inputs' dtype
+    (the cotangent widened to f32) and no gradient for ``seg``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg):
+        ctx.save_for_backward(q, k, v, seg)
+        if q.device.type == "cpu":
+            return window_attention_reference(q, k, v, seg)
+        return _window_attention_cuda(q, k, v, seg)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, seg = ctx.saved_tensors
+        bwd = (window_attention_bwd_reference if q.device.type == "cpu"
+               else window_attention_bwd)
+        dq, dk, dv = bwd(q, k, v, seg, g.float().contiguous())
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+
+
+def window_attention(q, k, v, seg):
+    """Masked attention within each window; (W, H, K, D) float32,
+    differentiable in q, k and v.
+
+    On CUDA tensors this launches the kernel of
+    ``csrc/window_attention.cu`` (D in :data:`HEAD_DIMS`, K a multiple of
+    :data:`TILE`), and its backward that of
+    ``csrc/window_attention_bwd.cu``, or raises; CPU tensors take the
+    plain versions."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"window_attention: unsupported device {q.device}")
+    return _WindowAttention.apply(q, k, v, seg)
+
+
+def _library(name):
+    """The loaded kernel library ``name`` (``window_attention`` or
+    ``window_attention_bwd``), its launch function typed."""
+    lib = load_library(name)
     if not getattr(lib, "_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.window_attention_launch.argtypes = [
-            p, p, p, p, i, p, i, i, i, i, ctypes.c_float, p,
-        ]
-        lib.window_attention_launch.restype = ctypes.c_int
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn = getattr(lib, f"{name}_launch")
+        if name == "window_attention":  # q k v seg bf16 out
+            fn.argtypes = [p, p, p, p, i, p, i, i, i, i, f, p]
+        else:  # q k v seg g bf16 dq dk dv stats
+            fn.argtypes = [p, p, p, p, p, i, p, p, p, p, i, i, i, i, f, p]
+        fn.restype = ctypes.c_int
         lib._typed = True
     return lib

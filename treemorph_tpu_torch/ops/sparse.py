@@ -5,14 +5,17 @@ Port of the main-path part of ``treemorph_tpu/ops/sparse.py``:
 
 1. **Rulebook**: for each row and each kernel offset, the index of the
    neighbor row (or M, a zero pad row), shared by every submanifold conv
-   at one level. The JAX package looks neighbors up in a dual-hash table;
-   here the lookup is exact: the packed lexicographic keys of the level are
-   sorted once (stably) and every query is one ``searchsorted``. Where
-   several rows share a coordinate (PTv3's level 0 holds points, not
-   voxels), a lookup returns the largest of their row indices, as the JAX
-   lookup's ``max`` over matching lanes does. The result equals the JAX
-   rulebook built with ``verify_coords=True``; on unique rows it keeps the
-   antisymmetry ``rb[i, k] == j  <=>  rb[j, K-1-k] == i``.
+   at one level. The JAX package looks neighbors up in a dual-hash table
+   that keeps the first 16 valid rows (by index) of each hash bucket;
+   here the same rows are kept (:func:`table_rows`) and the lookup over
+   them is exact: their packed lexicographic keys are sorted once (stably)
+   and every query is one ``searchsorted``. Where several kept rows share
+   a coordinate (PTv3's level 0 holds points, not voxels), a lookup
+   returns the largest of their row indices, as the JAX lookup's ``max``
+   over matching lanes does. The result equals the JAX rulebook built with
+   ``verify_coords=True`` for every input; on unique rows whose buckets
+   hold at most 16 rows it keeps the antisymmetry
+   ``rb[i, k] == j  <=>  rb[j, K-1-k] == i``.
 2. **Gather engine** (:func:`_subm_conv_impl`):
    ``out = sum_k feats[rb[:, k]] @ W[k]`` with f32 accumulation; the band
    engine (:mod:`.bandconv`) falls back to it when its plan overflows. Its
@@ -51,6 +54,42 @@ def kernel_offsets(kernel_size: int = 3, device=None) -> torch.Tensor:
     return torch.tensor(offs, dtype=torch.int64, device=device)
 
 
+#: valid rows the JAX package's hash table keeps per bucket (its
+#: ``SLOTS_PER_BUCKET``: one 128-byte row of 16 indices and 16 hashes)
+SLOTS_PER_BUCKET = 16
+_U32 = 0xFFFFFFFF
+
+
+def _spatial_hash(coords: torch.Tensor) -> torch.Tensor:
+    """The JAX package's bucket hash of (b, x, y, z) rows: uint32 products
+    XORed, here as int64 masked to 32 bits."""
+    c = coords.to(torch.int64)
+    return (((c[:, 0] * 2654435761) & _U32)
+            ^ ((c[:, 1] * 73856093) & _U32)
+            ^ ((c[:, 2] * 19349663) & _U32)
+            ^ ((c[:, 3] * 83492791) & _U32))
+
+
+def table_rows(coords: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """(M,) bool: the valid rows the JAX package's ``build_table`` stores.
+    Its ``t = 2^bitlen(max(8M - 1, 127))`` slots form ``t / 16`` buckets;
+    each valid row's lane is its rank by row index among the valid rows of
+    its bucket, and rows at lane 16 or above are dropped."""
+    m = coords.shape[0]
+    slots = 1 << max(8 * m - 1, 127).bit_length()
+    n_buckets = slots // SLOTS_PER_BUCKET
+    bucket = _spatial_hash(coords) & (n_buckets - 1)
+    s_bucket, perm = torch.sort(torch.where(valid, bucket, n_buckets),
+                                stable=True)
+    pos = torch.arange(m, device=coords.device)
+    first = torch.ones(m, dtype=torch.bool, device=coords.device)
+    first[1:] = s_bucket[1:] != s_bucket[:-1]
+    lane = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    kept = torch.empty_like(valid)
+    kept[perm] = lane < SLOTS_PER_BUCKET
+    return kept & valid
+
+
 def build_rulebook(
     coords: torch.Tensor,
     valid: torch.Tensor,
@@ -58,14 +97,16 @@ def build_rulebook(
 ) -> torch.Tensor:
     """(M, K) int64 neighbor indices for a submanifold conv; M marks
     'missing'. ``coords`` is (M, 4) (b, x, y, z). The center column is the
-    row itself; another offset whose coordinate several valid rows share
-    finds the largest of their indices (a stable sort keeps equal keys in
-    index order, and the right-side ``searchsorted`` lands on the last)."""
+    row itself; another offset looks its coordinate up among the rows the
+    JAX hash table keeps (:func:`table_rows`) and finds the largest of
+    their indices there (a stable sort keeps equal keys in index order,
+    and the right-side ``searchsorted`` lands on the last), or M when the
+    table kept none."""
     m = coords.shape[0]
     if kernel_size % 2 != 1:
         raise ValueError("submanifold rulebooks need odd kernels")
     dev = coords.device
-    keys = pack_keys(coords, valid)
+    keys = pack_keys(coords, table_rows(coords, valid))
     s_key, perm = torch.sort(keys, stable=True)
     offs = kernel_offsets(kernel_size, dev)
     k = offs.shape[0]
@@ -164,7 +205,10 @@ def _gather_grads(dtype, feats, weights, rulebook, valid, grad,
     the exact transpose of the forward gather, with no scatter.
     ``d_weights`` recomputes the forward gathers and contracts over rows.
     Operands are rounded to ``dtype``; ``d_feats`` is None unless
-    ``feats_grad``."""
+    ``feats_grad``. Rows that share a coordinate (PTv3's level 0) break
+    the antisymmetry, and ``d_feats`` then differs from the forward's true
+    transpose: the JAX package's VJP does the same, and the port is held
+    to it (ROADMAP.md queue 3)."""
     m, cin = feats.shape
     k, _, cout = weights.shape
     acc = torch.promote_types(dtype, torch.float32)

@@ -1,22 +1,28 @@
 """Training CLI, the port's counterpart of ``scripts/train.py`` for
-TreeLearn:
+TreeLearn and PTv3:
 
     python -m treemorph_tpu_torch.train.cli treelearn --data_root DIR \\
         [--test_plots 3 4 6 8] [--engine band --conv_dtype bfloat16] \\
         [--device cpu]
+    python -m treemorph_tpu_torch.train.cli pointtransformerv3 \\
+        --data_root DIR [--batch_size 4] [--device cpu]
 
 Per-plot cross-validation over ``--test_plots`` (leave-one-plot-out over
 the ``plot_{n}.json`` manifests in ``--data_root``), AdamW (weight decay
 1e-3) with CosineAnnealingWarmRestarts(T_0=50, eta_min=1e-4), the x50 loss
 scale and global-norm clip 1.0, early stopping with best-checkpoint saves
 to ``{save_dir}/{name}_CV/P{plot}/``, loss multipliers and noise-cloud
-training. The level-0 voxel capacity is worked out from the fold's clouds
-(:func:`level0_capacity`). It runs on the CUDA device unless ``--device``
+training. TreeLearn's level-0 voxel capacity is worked out from the
+fold's clouds (:func:`level0_capacity`). PTv3 is the pipeline's model at
+full width (``scripts/train.py:130-143``: features on, ``--dim_feat``,
+``--voxel_size``, ``--conv_dtype`` as its compute dtype, the gather stem),
+each step drawing its order shuffles and drop-path masks from a generator
+derived from ``--seed``. It runs on the CUDA device unless ``--device``
 names another, and raises without one. No YAML parser is needed.
 
-Not ported yet, and raising ``NotImplementedError``: the ``pointnet2`` and
-``pointtransformerv3`` families and raster training (``--raster_dir``,
-``--hierarchical_json``). It trains on one device.
+Not ported yet, and raising ``NotImplementedError``: the ``pointnet2``
+family, raster training (``--raster_dir``, ``--hierarchical_json``), and
+PTv3's ``--dedup_divisor`` and non-gather stems. It trains on one device.
 """
 
 from __future__ import annotations
@@ -31,8 +37,9 @@ import torch
 _NOT_PORTED = {
     "pointnet2": "the pointnet2 family is not ported yet "
                  "(ROADMAP.md queue 1 item 12)",
-    "pointtransformerv3": "training the pointtransformerv3 family is not "
-                          "ported yet (ROADMAP.md queue 1 item 11b)",
+    "ptv3_stem": "PTv3's level-0 dedup (--dedup_divisor) and its band and "
+                 "z-pack stems (--engine) are not ported yet (ROADMAP.md "
+                 "queue 1 item 11c)",
     "raster": "raster training (--raster_dir, --hierarchical_json) comes "
               "with PointNet2 (ROADMAP.md queue 1 item 12)",
 }
@@ -83,10 +90,14 @@ def parse_args(argv=None):
                    choices=["gather", "band", "zpack", "pencil", "brick"],
                    help="TreeLearn conv engine (band = the band conv "
                    "kernels; engines share one parameter layout, so "
-                   "checkpoints are interchangeable)")
+                   "checkpoints are interchangeable); PTv3 stem engine "
+                   "(gather only, pencil meaning gather)")
     p.add_argument("--conv_dtype", default="float32",
                    choices=["float32", "bfloat16"],
-                   help="conv compute dtype (f32 accumulation)")
+                   help="conv compute dtype (f32 accumulation); PTv3's "
+                        "compute dtype")
+    p.add_argument("--dedup_divisor", type=int, default=None,
+                   help="PTv3 level-0 dedup (not ported yet)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default: the CUDA device; raises "
                         "without one)")
@@ -119,16 +130,50 @@ def level0_capacity(datasets, batch_size: int, voxel_size: float,
     return -(-int(worst * margin) // 8192) * 8192
 
 
+def build(args, batch_size: int, voxel_size: float, capacity):
+    """The family's model (initialized from ``--seed``, on the CPU), its
+    (forward_fn, loss_fn) and the checkpoint metadata ``load_model``
+    rebuilds the model from (``scripts/train.py::build``)."""
+    from ..models.ptv3 import PointTransformerWithHeads
+    from ..models.treelearn import TreeLearn
+    from . import families
+
+    losses = (args.loss_multiplier_semantic, args.loss_multiplier_offset)
+    metadata = {"model": args.model, "voxel_size": voxel_size,
+                "dim_feat": args.dim_feat}
+    if args.model == "pointtransformerv3":
+        model = PointTransformerWithHeads(
+            dim_feat=args.dim_feat, use_feats=True, voxel_size=voxel_size,
+            compute_dtype=args.conv_dtype,
+        )
+        metadata["use_feats"] = True
+        return (families.init_ptv3(model, args.seed),
+                families.ptv3_family(*losses), metadata)
+    model = TreeLearn(
+        channels=args.channels,
+        num_blocks=args.num_blocks,
+        dim_feat=args.dim_feat,
+        voxel_size=voxel_size,
+        batch_size=batch_size,
+        engine=args.engine,
+        conv_dtype=args.conv_dtype,
+        voxel_capacity=capacity,
+    )
+    family_fn = (families.treelearn_noise_family if args.noise_root
+                 else families.treelearn_family)
+    metadata.update(num_blocks=args.num_blocks, channels=args.channels)
+    return (families.init_treelearn(model, args.seed), family_fn(*losses),
+            metadata)
+
+
 def main(argv=None) -> dict:
     """Train every CV fold; returns ``{plot: history}``."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
     from ..data import batch_iterator, get_plot_split
-    from ..models.treelearn import TreeLearn
     from ..utils.device import resolve_device
     from ..utils.early_stopping import EarlyStopper
-    from . import families
     from .checkpoints import save_checkpoint
     from .harness import (
         TrainState,
@@ -143,6 +188,11 @@ def main(argv=None) -> dict:
         raise NotImplementedError(_NOT_PORTED[args.model])
     if args.raster_dir is not None or args.hierarchical_json is not None:
         raise NotImplementedError(_NOT_PORTED["raster"])
+    if args.model == "pointtransformerv3" and (
+        args.dedup_divisor is not None
+        or args.engine not in ("gather", "pencil")
+    ):
+        raise NotImplementedError(_NOT_PORTED["ptv3_stem"])
     if args.data_root is None:
         raise SystemExit("--data_root is required")
     device = resolve_device(args.device)
@@ -159,13 +209,15 @@ def main(argv=None) -> dict:
                 noise_root=args.noise_root,
             )
             voxel_size = args.voxel_size or 0.02
-            # random_scale grows a cloud by up to 5 %, its voxels by up to
-            # 1.05^3
-            capacity = level0_capacity(
-                (trainset, valset), args.batch_size, voxel_size,
-                1.02 * (1.05**3 if args.augment else 1.0),
-            )
-            logging.info("level-0 voxel capacity %d", capacity)
+            capacity = None
+            if args.model == "treelearn":
+                # random_scale grows a cloud by up to 5 %, its voxels by up
+                # to 1.05^3
+                capacity = level0_capacity(
+                    (trainset, valset), args.batch_size, voxel_size,
+                    1.02 * (1.05**3 if args.augment else 1.0),
+                )
+                logging.info("level-0 voxel capacity %d", capacity)
             if args.augment:
                 from ..data.augmentations import default_augmentations
 
@@ -187,25 +239,9 @@ def main(argv=None) -> dict:
                     valset, args.batch_size, args.bucket, shuffle=False
                 )
 
-            model = TreeLearn(
-                channels=args.channels,
-                num_blocks=args.num_blocks,
-                dim_feat=args.dim_feat,
-                voxel_size=voxel_size,
-                batch_size=example.batch_size,
-                engine=args.engine,
-                conv_dtype=args.conv_dtype,
-                voxel_capacity=capacity,
-            )
-            model = families.init_treelearn(model, args.seed).to(device)
-            family_fn = (
-                families.treelearn_noise_family
-                if args.noise_root
-                else families.treelearn_family
-            )
-            forward_fn, loss_fn = family_fn(
-                args.loss_multiplier_semantic, args.loss_multiplier_offset
-            )
+            model, (forward_fn, loss_fn), metadata = build(
+                args, example.batch_size, voxel_size, capacity)
+            model = model.to(device)
             fixed = tuple(args.fixed_modules or ())
             state = TrainState(
                 model, make_optimizer(model, args.weight_decay, fixed)
@@ -214,17 +250,7 @@ def main(argv=None) -> dict:
             eval_step = make_eval_step(forward_fn, loss_fn)
 
             ckpt_path = os.path.join(args.save_dir, f"{name}_CV", f"P{plot}")
-            metadata = {
-                "model": args.model,
-                "plot": plot,
-                # the RESOLVED voxel size: load_model rebuilds the
-                # architecture from this
-                "voxel_size": voxel_size,
-                "num_blocks": args.num_blocks,
-                "channels": args.channels,
-                "dim_feat": args.dim_feat,
-                "noise_distance": args.noise_distance,
-            }
+            metadata.update(plot=plot, noise_distance=args.noise_distance)
             stopper = EarlyStopper(
                 patience=args.patience,
                 verbose=args.verbose,
@@ -242,6 +268,7 @@ def main(argv=None) -> dict:
                 ),
                 early_stopper=stopper,
                 verbose=args.verbose,
+                seed=args.seed,
             )
             logging.info(
                 "fold P%s done: best val %.4f", plot, stopper.best_loss

@@ -1,10 +1,13 @@
 """Model-family adapters: uniform (forward_fn, loss_fn) pairs for the
 harness.
 
-Port of the TreeLearn part of ``treemorph_tpu/train/families.py``. The
-harness hands over a :class:`~treemorph_tpu_torch.data.PaddedBatch` of
-tensors; TreeLearn consumes the flat voxel-model layout, so the adapters
-reshape (views, no copies). PointNet2 and PTv3 are not ported yet.
+Port of the TreeLearn and PTv3 parts of ``treemorph_tpu/train/families.py``.
+The harness hands over a :class:`~treemorph_tpu_torch.data.PaddedBatch` of
+tensors and, in a train step, the step's ``torch.Generator``; the models
+consume the flat layout, so the adapters reshape (views, no copies).
+TreeLearn draws nothing at random; PTv3 draws its order shuffles and
+stochastic-depth masks from the step's generator. PointNet2 is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Callable
 
 import torch
 
+from ..models import ptv3
 from ..models.loss import point_wise_loss
 from ..models.treelearn import TreeLearn, treelearn_loss
 
@@ -62,7 +66,7 @@ def treelearn_family(
 ) -> tuple[Callable, Callable]:
     """(forward_fn, loss_fn) for the harness, TreeLearn flavor."""
 
-    def forward_fn(model: TreeLearn, batch, train: bool):
+    def forward_fn(model: TreeLearn, batch, train: bool, generator=None):
         flat = _flatten_padded(batch)
         return model.train(train)(
             flat["coords"], flat["feats"], flat["batch_ids"],
@@ -90,7 +94,7 @@ def treelearn_noise_family(
     reads that pass, and the semantic CE is taken against the noise
     cloud's labels. The offset loss stays on the main cloud."""
 
-    def forward_fn(model: TreeLearn, batch, train: bool):
+    def forward_fn(model: TreeLearn, batch, train: bool, generator=None):
         flat = _flatten_padded(batch)
         nflat = _flatten_noise(batch)
         return model.train(train)(
@@ -125,4 +129,54 @@ def treelearn_noise_family(
 def init_treelearn(model: TreeLearn, seed: int = 0) -> TreeLearn:
     """``model`` with flax's initializers drawn from ``seed`` (the weights
     do not depend on the batch, so no example batch is needed)."""
+    return model.reset_parameters(torch.Generator().manual_seed(seed))
+
+
+def split_step_generator(generator: torch.Generator, device):
+    """The step's generator split in two, as the JAX family splits the step
+    key: a CPU generator for the order shuffles and one on ``device`` for
+    the stochastic-depth masks, each seeded from ``generator``."""
+    seeds = torch.randint(0, 2**62, (2,), generator=generator)
+    shuffle = torch.Generator().manual_seed(int(seeds[0]))
+    drop = torch.Generator(device=device).manual_seed(int(seeds[1]))
+    return shuffle, drop
+
+
+def ptv3_family(
+    loss_multiplier_semantic: float = 1.0,
+    loss_multiplier_offset: float = 1.0,
+) -> tuple[Callable, Callable]:
+    """(forward_fn, loss_fn) for the harness, PTv3 flavor. In train mode
+    the step's generator feeds order shuffling and stochastic depth (the
+    reference's shuffle_orders and DropPath, ``PointTransformerV3.py:299``,
+    ``blocks.py:599-601``); eval mode draws nothing."""
+
+    def forward_fn(model: ptv3.PointTransformerWithHeads, batch, train: bool,
+                   generator=None):
+        flat = _flatten_padded(batch)
+        args = (flat["coords"], flat["feats"], flat["batch_ids"],
+                flat["mask_valid"])
+        if not train:
+            return model.train(False)(*args)
+        if generator is None:
+            raise ValueError("a PTv3 train step draws its order shuffles and "
+                             "drop-path masks from the step's generator")
+        shuffle, drop = split_step_generator(generator, args[0].device)
+        perms = ptv3.draw_order_perms(shuffle, len(model.backbone.enc_depths))
+        return model.train(True)(*args, order_perms=perms, generator=drop)
+
+    def loss_fn(output, batch):
+        return ptv3.ptv3_loss(
+            output,
+            _flatten_padded(batch),
+            loss_multiplier_semantic=loss_multiplier_semantic,
+            loss_multiplier_offset=loss_multiplier_offset,
+        )
+
+    return forward_fn, loss_fn
+
+
+def init_ptv3(model: ptv3.PointTransformerWithHeads,
+              seed: int = 0) -> ptv3.PointTransformerWithHeads:
+    """``model`` with flax's initializers drawn from ``seed``."""
     return model.reset_parameters(torch.Generator().manual_seed(seed))

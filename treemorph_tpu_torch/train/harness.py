@@ -96,9 +96,11 @@ def make_train_step(
     fixed_modules: tuple = (),
     mesh=None,
 ):
-    """The train step ``(state, batch, lr) -> (state, metrics)``.
+    """The train step ``(state, batch, lr, generator=None) -> (state,
+    metrics)``; ``generator`` is the step's own (:func:`run_training`
+    derives one per step from the run's seed).
 
-    forward_fn(model, batch, train) -> output dict
+    forward_fn(model, batch, train, generator) -> output dict
     loss_fn(output, batch) -> (loss, loss_dict)
 
     ``fixed_modules`` (pair it with the same argument of
@@ -110,13 +112,13 @@ def make_train_step(
         raise NotImplementedError(_MESH_TODO)
     fixed = tuple(fixed_modules)
 
-    def train_step(state: TrainState, batch, lr: float):
+    def train_step(state: TrainState, batch, lr: float, generator=None):
         model = state.model.train()
         pinned = {
             name: buf.clone() for name, buf in model.named_buffers()
             if _is_fixed(name, fixed)
         }
-        out = forward_fn(model, batch, True)
+        out = forward_fn(model, batch, True, generator)
         loss, loss_dict = loss_fn(out, batch)
         model.zero_grad(set_to_none=True)
         (loss * LOSS_BACKWARD_SCALE).backward()
@@ -174,22 +176,31 @@ def run_training(
     mesh=None,
     verbose: bool = False,
     accum_steps: Optional[tuple] = None,
+    seed: int = 0,
 ):
     """Epoch loop with per-epoch validation, logging and early stopping
     (reference ``run_training``, train_utils.py:130-197). Each batch moves
-    to the model's device once; returns ``(state, history)``."""
+    to the model's device once; each train step gets a generator of its
+    own, seeded in turn from one seeded by ``seed`` (the JAX harness splits
+    its key once per step). Returns ``(state, history)``."""
     if mesh is not None:
         raise NotImplementedError(_MESH_TODO)
     if accum_steps is not None:
         make_accum_steps()
     device = next(state.model.parameters()).device
+    run_generator = torch.Generator().manual_seed(seed)
+
+    def step_generator():
+        step_seed = torch.randint(0, 2**62, (), generator=run_generator)
+        return torch.Generator().manual_seed(int(step_seed))
 
     history = []
     for epoch in range(epochs):
         lr = float(lr_schedule(epoch))
         t0 = time.time()
         train_metrics = [
-            train_step(state, to_device(batch, device), lr)[1]
+            train_step(state, to_device(batch, device), lr,
+                       step_generator())[1]
             for batch in train_batches(epoch)
         ]
         val_metrics = [
