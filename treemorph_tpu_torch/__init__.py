@@ -9,10 +9,11 @@ against (``tests/test_torch_*.py``).
 
 Layout:
     csrc/        hand-written CUDA kernels (built with nvcc at first use)
-    ops/         voxelize, rulebook + gather conv, band conv (forward and
-                 backward), window attention, z-order and Hilbert codes
-    models/      TreeLearn and PTv3 (inference) as torch modules, the
-                 TreeLearn loss, the flax weight bridge
+    ops/         voxelize, rulebook + gather conv, band conv and window
+                 attention (forward and backward), z-order and Hilbert
+                 codes
+    models/      TreeLearn and PTv3 as torch modules, their losses, the
+                 flax weight bridge
     data/        labeled-tree datasets, padded batches, augmentations
     train/       harness (optimizer, train/eval steps, epoch loop),
                  families, schedule, checkpoints, the training CLI

@@ -1,7 +1,7 @@
 from .treelearn import TreeLearn, treelearn_loss
-from .ptv3 import PointTransformerWithHeads
+from .ptv3 import PointTransformerWithHeads, ptv3_loss
 from .loss import point_wise_loss
 from .convert import flax_to_state_dict
 
 __all__ = ["TreeLearn", "treelearn_loss", "PointTransformerWithHeads",
-           "point_wise_loss", "flax_to_state_dict"]
+           "ptv3_loss", "point_wise_loss", "flax_to_state_dict"]
