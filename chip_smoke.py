@@ -78,6 +78,32 @@ on the training plots above, at the reference's PTv3 batch of 4 trees x
 8d. A timed step split into forward, backward and optimizer, with peak
     device memory, and one more step under ``torch.profiler``.
 
+The z-band conv (z-band plans over the profile workload of
+``python -m treemorph_tpu_torch.scripts.profile_zband`` and over the
+TreeLearn plot's levels 0-2):
+
+9a. ``zband_conv_padded`` against its plain version, bf16 and f32, at the
+    profile's three convs and at every 3x3x3 conv shape of the plot's
+    levels; residual rows, route, CUDA-event times against the bound, the
+    plain version, the band kernel on the same conv and the gather engine.
+9b. ``zband_subm_conv_apply`` through autograd against the gather engine
+    (f32, random cotangent): output, ``d_feats`` and ``d_w``; the backward
+    launches the kernel.
+9c. The profile script's ``main()`` on the card, its launches counted;
+    z-band against gather within 1e-5 of scale in f32, 1e-2 in bf16.
+
+The brick conv (the plot's levels 0-2 in 4^3 bricks, capped at M / 4):
+
+10a. ``brick_conv_cells``, core and full variants, against its plain
+     version on each level's halo'd bricks, timed beside the bound, the
+     plain version and ``F.conv3d``.
+10b. The level-0 brick path (``brickize`` -> ``to_dense`` -> ``_halo_pad``
+     -> ``brick_conv`` forward and backward), its two launches counted,
+     against autograd of ``F.conv3d`` in float64 (cuDNN's f32 weight
+     gradient is logged beside it).
+10c. ``brick_subm_conv`` (``F.conv3d`` and x-slab schedules) against the
+     gather engine on the level-0 voxels.
+
 The last two lines are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``. Float32 matmuls and convolutions run
 without TF32 (set below) so f32 comparisons are full precision.
@@ -170,6 +196,20 @@ ENGINE_RTOL = 1e-4
 #: few flip under another f32 sum order (and the atomic voxel sums)
 STEP_LOSS_RTOL = 1e-3
 STEP_GRAD_RTOL = 1e-2
+
+#: z-band plans take the profile script's residual cap, m // 2 rows (the
+#: default m // 4 overflows on surface clouds, whose column ends leave ~40 %
+#: of rows with a missing anchor)
+ZBAND_RES_DIVISOR = 2
+#: z-band against the gather engine in the profile: f32 differs in sum
+#: order; in bf16 the gather engine also rounds the weights to bf16
+PROFILE_F32_RTOL, PROFILE_BF16_RTOL = 1e-5, 1e-2
+#: brick engine: bricks per level capped at M / 4 (the JAX TreeLearn's
+#: ``brick_divisor``), each level's (Cin = Cout) width
+BRICK_DIVISOR = 4
+BRICK_WIDTHS = (32, 64, 96)
+#: autograd and engine checks of phases 9b, 10b and 10c: f32, sum order
+AUTOGRAD_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -272,10 +312,15 @@ def kernel_label(mangled: str) -> str:
                 continue
             rest = mangled[m.end() + len(name):]
             args = re.match(r"I(?:(13__nv_bfloat16|f))?Li(\d+)E", rest)
+            if args:
+                kind = {"f": "f32, ", None: ""}.get(args.group(1), "bf16, ")
+                return f"{name}<{kind}{args.group(2)}>"
+            args = re.match(r"I(?:(13__nv_bfloat16|f)|Lb([01]))E", rest)
             if not args:
                 return name
-            kind = {"f": "f32, ", None: ""}.get(args.group(1), "bf16, ")
-            return f"{name}<{kind}{args.group(2)}>"
+            kind = {"f": "f32", "1": "true", "0": "false"}.get(
+                args.group(1) or args.group(2), "bf16")
+            return f"{name}<{kind}>"
     return mangled[:60]
 
 
@@ -313,17 +358,13 @@ def log_register_use():
     log(f"  register report {time.perf_counter() - t0:.1f} s")
 
 
-def level_plans(coords, batch_ids, valid, batch_size, capacity):
-    """Band plans of the three levels TreeLearn builds for these points
-    (level capacities as ``UBlock`` sets them), and the level-0 voxel
-    count."""
+def level_sets(coords, batch_ids, valid, batch_size, capacity):
+    """(coords, valid) of the three voxel levels TreeLearn builds for these
+    points (level capacities as ``UBlock`` sets them), and the level-0
+    voxel count."""
     import torch
 
-    from treemorph_tpu_torch.ops.bandconv import build_band_plan
-    from treemorph_tpu_torch.ops.sparse import (
-        build_downsample,
-        build_rulebook,
-    )
+    from treemorph_tpu_torch.ops.sparse import build_downsample
     from treemorph_tpu_torch.ops.voxelize import voxelize_treelearn_features
 
     vox = voxelize_treelearn_features(
@@ -331,18 +372,35 @@ def level_plans(coords, batch_ids, valid, batch_size, capacity):
         batch_ids, valid, 0.02, batch_size, capacity=capacity,
     )
     c, v = vox.voxel_coords, vox.voxel_valid
-    plans = []
+    levels = []
     for level in range(3):
-        plans.append(build_band_plan(build_rulebook(c, v), v))
+        levels.append((c, v))
         if level < 2:
             m = c.shape[0]
             ds = build_downsample(c, v, min(max(m // 2, 256), m))
             c, v = ds.coarse_coords, ds.coarse_valid
-    return plans, int(vox.num_voxels)
+    return levels, int(vox.num_voxels)
 
 
-def e2e_level_plans(points, device):
-    """Band plans of the three levels the e2e cloud's stage 1 builds."""
+def band_plans(levels):
+    """One band plan per (coords, valid) level."""
+    from treemorph_tpu_torch.ops.bandconv import build_band_plan
+    from treemorph_tpu_torch.ops.sparse import build_rulebook
+
+    return [build_band_plan(build_rulebook(c, v), v) for c, v in levels]
+
+
+def level_plans(coords, batch_ids, valid, batch_size, capacity):
+    """Band plans of the three levels TreeLearn builds for these points,
+    and the level-0 voxel count."""
+    levels, n_voxels = level_sets(coords, batch_ids, valid, batch_size,
+                                  capacity)
+    return band_plans(levels), n_voxels
+
+
+def e2e_levels(points, device):
+    """(coords, valid) of the three levels the e2e cloud's stage 1
+    builds."""
     import torch
 
     from treemorph_tpu_torch.pipeline.predict import pad_to_bucket
@@ -352,7 +410,12 @@ def e2e_level_plans(points, device):
     coords[: len(points)] = torch.from_numpy(points).to(device)
     valid = torch.arange(p, device=device) < len(points)
     batch_ids = torch.zeros(p, dtype=torch.int32, device=device)
-    return level_plans(coords, batch_ids, valid, 1, p // 2)[0]
+    return level_sets(coords, batch_ids, valid, 1, p // 2)[0]
+
+
+def e2e_level_plans(points, device):
+    """Band plans of the three levels the e2e cloud's stage 1 builds."""
+    return band_plans(e2e_levels(points, device))
 
 
 def in_window_entries(plan) -> int:
@@ -1774,6 +1837,448 @@ def phase_ptv3_step_split(batch, device, reps=3):
     return record
 
 
+def within_scale(label, got, ref, rtol):
+    """max |got - ref| and max |ref|; raises unless the first is within
+    ``rtol`` of the second and ``got`` is finite."""
+    import torch
+
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    if not (err <= rtol * scale and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"{label}: max |err| {err:.3e} > {rtol} x "
+                             f"{scale:.3e}, or not finite")
+    return err, scale
+
+
+def share_of_scale(label, got, ref, rtol) -> float:
+    """max |got - ref| / max |ref|, checked by :func:`within_scale`."""
+    err, scale = within_scale(label, got, ref, rtol)
+    return err / max(scale, 1e-30)
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """Bound in ms (bytes at the HBM rate, f32 operations at the f32 rate)
+    and which of the two sets it."""
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return 1e3 * max(bytes_s, ops_s), ("bytes" if bytes_s > ops_s
+                                        else "operations")
+
+
+def profile_rulebooks(device):
+    """(label, rulebook, valid, Cin, Cout) of the z-band profile workload's
+    convs (``treemorph_tpu_torch/scripts/profile_zband.py``: the bench
+    cloud deduplicated to 32,768 voxels)."""
+    import torch
+
+    from treemorph_tpu_torch.ops.sparse import build_dedup, build_rulebook
+    from treemorph_tpu_torch.scripts.profile_zband import SHAPES, bench_coords
+
+    coords = torch.from_numpy(bench_coords()).to(device)
+    dd = build_dedup(coords, torch.ones(len(coords), dtype=torch.bool,
+                                        device=device), cap=32768)
+    return [(f"profile {label}", build_rulebook(dd.coords, dd.valid, k),
+             dd.valid, cin, cout) for k, cin, cout, label in SHAPES]
+
+
+def phase_zband_vs_plain(profile, levels, device):
+    """9a: ``zband_conv_padded`` against its plain version, bf16 and f32,
+    at the profile workload's three convs and at every K = 27 conv shape of
+    the TreeLearn plot's levels 0-2 (z-band plans over their rulebooks),
+    timed beside the bound, the plain version, the band kernel on the same
+    conv and the gather engine. Returns the kernel record (one pass of the
+    profile workload: its 3 convs in bf16 and f32) and the rows."""
+    import torch
+
+    from treemorph_tpu_torch.ops.bandconv import (
+        TILE,
+        ZALIGN,
+        band_conv_padded,
+        build_band_plan,
+        build_zband_plan,
+        zband_conv_padded,
+        zband_conv_padded_plain,
+        zband_pack,
+    )
+    from treemorph_tpu_torch.ops.sparse import _subm_conv_impl, build_rulebook
+
+    cases = [(*case, True) for case in profile]
+    for level, (c, v) in enumerate(levels):
+        rb = build_rulebook(c, v)
+        cases += [(f"L{level} {cin}->{cout}", rb, v, cin, cout, False)
+                  for lvl, cin, cout, _ in LEVEL_CONVS if lvl == level]
+    gen = torch.Generator(device=device).manual_seed(9)
+    rows, worst = [], 0.0
+    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, band_ms=0.0,
+                  gather_ms=0.0, bytes=0.0, flops=0.0)
+    for label, rb, valid, cin, cout, profiled in cases:
+        m, k = rb.shape
+        ksize = round(k ** (1 / 3))
+        plan = build_zband_plan(rb, valid, res_divisor=ZBAND_RES_DIVISOR)
+        bplan = build_band_plan(rb, valid) if k == 27 else None
+        mp = plan.anchors.shape[0] * TILE
+        # found anchors inside their windows (the kernel's work) and
+        # outside them (the residual repair's: the kernel must skip them)
+        anchors = plan.anchors.long()
+        local = anchors - (plan.starts.long() * ZALIGN).T[:, :, None]
+        inside = (local >= 0) & (local < plan.win)
+        covered = int(((anchors < m) & inside).sum())
+        outside = int(((anchors < m) & ~inside).sum())
+        w = torch.randn((k, cin, cout), device=device, generator=gen)
+        w /= (k * cin) ** 0.5
+        w2 = w.reshape(ksize * ksize, ksize * cin, cout).contiguous()
+        feats = torch.randn((m, cin), device=device, generator=gen)
+        feats *= valid[:, None]
+        for dtype in (torch.bfloat16, torch.float32):
+            zq = zband_pack(feats.to(dtype), plan.zoff, ksize, mp)
+            args = (plan.anchors, plan.starts, zq, w2, m, plan.win)
+            out = zband_conv_padded(*args)
+            torch.cuda.synchronize()
+            err, scale = within_scale(f"zband_conv {label} {dtype}", out,
+                                      zband_conv_padded_plain(*args),
+                                      KERNEL_RTOL)
+            worst = max(worst, err)
+            ms = cuda_ms(lambda: zband_conv_padded(*args), 20)
+            plain_ms = cuda_ms(lambda: zband_conv_padded_plain(*args), 5)
+            band_ms = None
+            if bplan is not None:
+                fpad = torch.zeros((bplan.rb_tiles.shape[0] * TILE, cin),
+                                   dtype=dtype, device=device)
+                fpad[:m] = feats
+                band_ms = cuda_ms(lambda: band_conv_padded(
+                    bplan.rb_tiles, bplan.starts, fpad, w, m, bplan.win), 20)
+            gather_ms = cuda_ms(
+                lambda: _subm_conv_impl(dtype, feats, w, rb, valid), 5)
+            nbytes = ((plan.anchors.numel() + plan.starts.numel()) * 4
+                      + zq.numel() * zq.element_size() + w2.numel() * 4
+                      + mp * cout * 4)
+            flops = 2.0 * covered * ksize * cin * cout
+            bound_ms, bound_by = bound(nbytes, flops)
+            row = dict(conv=label, k=k, cin=cin, cout=cout, dtype=str(dtype),
+                       m=m, valid=int(valid.sum()), covered_anchors=covered,
+                       found_anchors_outside_window=outside,
+                       residual_rows=int(plan.res_valid.sum()),
+                       route="zband" if bool(plan.ok)
+                       else "gather (residual overflow)",
+                       max_abs_err=err, output_scale=scale, ms=ms,
+                       plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, band_kernel_ms=band_ms,
+                       gather_ms=gather_ms)
+            rows.append(row)
+            log("kernel " + json.dumps(row))
+            if profiled:
+                for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                                 ("bound_ms", bound_ms),
+                                 ("band_ms", band_ms or 0.0),
+                                 ("gather_ms", gather_ms), ("bytes", nbytes),
+                                 ("flops", flops)):
+                    totals[key] += val
+    record = {
+        "name": "zband_conv",
+        "route": "cuda",
+        "source": "treemorph_tpu_torch/csrc/zband_conv.cu",
+        "replaces": "treemorph_tpu/ops/bandconv.py:851",
+        "shape": "the profile workload's 3 convs (k=5 4->32, k=3 32->32, "
+                 "k=3 64->64 over 32,768 rows) x (bf16, f32), one launch "
+                 "each",
+        "max_abs_err": worst,
+        "ms": totals["ms"],
+        "plain_ms": totals["plain_ms"],
+        "bound_ms": totals["bound_ms"],
+        "bound_by": bound(totals["bytes"], totals["flops"])[1],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes a windowed sparse "
+                        "conv; the band kernel (k=3 only) and the gather "
+                        "engine on the same convs:",
+        "band_kernel_ms": totals["band_ms"],
+        "gather_ms": totals["gather_ms"],
+    }
+    log(f"phase 9a ok: zband_conv within {KERNEL_RTOL} x scale of plain at "
+        f"{len(rows)} conv/type cases; the profile workload's 6 launches: "
+        f"kernel {totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, "
+        f"bound {totals['bound_ms']:.3f} ms, band kernel (k=3) "
+        f"{totals['band_ms']:.3f} ms, gather {totals['gather_ms']:.3f} ms")
+    return record, rows
+
+
+def phase_zband_autograd(profile, device):
+    """9b: ``zband_subm_conv_apply`` through autograd against the gather
+    engine (its custom VJP) in f32 on the profile's k=3 32->32 conv and a
+    random cotangent; one kernel launch forward and one backward."""
+    import torch
+
+    from treemorph_tpu_torch.ops.bandconv import (
+        build_zband_plan,
+        zband_subm_conv_apply,
+    )
+    from treemorph_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from treemorph_tpu_torch.ops.sparse import _subm_conv
+
+    label, rb, valid, cin, cout = profile[1]
+    plan = build_zband_plan(rb, valid, res_divisor=ZBAND_RES_DIVISOR)
+    if not bool(plan.ok):
+        raise AssertionError(f"{label}: the z-band plan overflowed")
+    gen = torch.Generator(device=device).manual_seed(10)
+    feats = torch.randn((rb.shape[0], cin), device=device, generator=gen)
+    w = torch.randn((27, cin, cout), device=device, generator=gen) * 0.1
+    cot = torch.randn((rb.shape[0], cout), device=device, generator=gen)
+    results = []
+    for engine in ("zband", "gather"):
+        f = feats.clone().requires_grad_()
+        wl = w.clone().requires_grad_()
+        torch.cuda.synchronize()
+        reset_launches()
+        out = (zband_subm_conv_apply(f, wl, plan, valid) if engine == "zband"
+               else _subm_conv(torch.float32, f, wl, rb, valid))
+        fwd = LAUNCHES["zband_conv"]
+        out.backward(cot)
+        torch.cuda.synchronize()
+        results.append((out.detach(), f.grad, wl.grad, fwd,
+                        LAUNCHES["zband_conv"] - fwd))
+    (out, d_f, d_w, fwd, bwd), (ref, r_f, r_w, _, _) = results
+    errs = {name: share_of_scale(f"9b {name}", a, b, AUTOGRAD_RTOL)
+            for name, a, b in (("out", out, ref), ("d_feats", d_f, r_f),
+                               ("d_w", d_w, r_w))}
+    if (fwd, bwd) != (1, 1):
+        raise AssertionError(f"9b: zband_conv launches forward {fwd}, "
+                             f"backward {bwd}; expected 1 and 1")
+    log(f"phase 9b ok: {label} through autograd against the gather engine, "
+        f"f32: max |err| / scale {errs} (limit {AUTOGRAD_RTOL}); "
+        f"zband_conv launches forward {fwd}, backward {bwd}")
+
+
+def phase_profile_zband(device):
+    """9c: the port's ``profile_zband`` on the card, its launches counted;
+    z-band against gather within 1e-5 of scale in f32, 1e-2 in bf16."""
+    import torch
+
+    from treemorph_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from treemorph_tpu_torch.scripts import profile_zband
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    records = profile_zband.main([])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = LAUNCHES["zband_conv"]
+    expected = sum(r["zband_calls"] for r in records if r["route"] == "zband")
+    for r in records:
+        log("profile_zband " + json.dumps(r))
+    bad = [r for r in records if not r["max_abs_diff"] <= r["scale"] * (
+        PROFILE_F32_RTOL if r["dtype"] == "f32" else PROFILE_BF16_RTOL)]
+    if bad or launches != expected or launches == 0:
+        raise AssertionError(
+            f"9c: zband against gather out of bounds in {bad}, or zband_conv "
+            f"launches {launches} != {expected} calls on the z-band route")
+    log(f"phase 9c ok: profile_zband in {secs:.1f} s, zband_conv launches "
+        f"{launches} (= its calls on the z-band route), all launches "
+        f"{dict(LAUNCHES)}")
+    return launches
+
+
+def brick_inputs(levels, level, device, seed):
+    """Level ``level``'s voxels in bricks (cap M / BRICK_DIVISOR, as the JAX
+    TreeLearn sets it) with seeded features and weights of that level's
+    width: (coords, valid, structure, feats, weights)."""
+    import torch
+
+    from treemorph_tpu_torch.ops.bricks import brickize
+
+    c, v = levels[level]
+    width = BRICK_WIDTHS[level]
+    cap = max(c.shape[0] // BRICK_DIVISOR, 64)
+    bs = brickize(c, v, cap)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    feats = torch.randn((c.shape[0], width), device=device, generator=gen)
+    feats *= v[:, None]
+    w = torch.randn((27, width, width), device=device, generator=gen)
+    return c, v, bs, feats, w / (27 * width) ** 0.5
+
+
+def phase_brick_vs_plain(levels, device):
+    """10a: ``brick_conv_cells``, core and full variants, against its plain
+    version on the halo'd bricks of the TreeLearn plot's levels 0-2, timed
+    beside the bound, the plain version and ``F.conv3d``. Returns the
+    kernel record (level 0: the core variant, the path's forward, with the
+    full variant, its backward, beside it) and the rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from treemorph_tpu_torch.ops.brick_conv import (
+        CELLS6,
+        brick_conv_cells,
+        brick_conv_cells_plain,
+    )
+    from treemorph_tpu_torch.ops.bricks import (
+        _halo_pad,
+        conv3d_kernel,
+        to_dense,
+    )
+
+    rows, worst = [], 0.0
+    for level in range(3):
+        c, v, bs, feats, w = brick_inputs(levels, level, device, 11 + level)
+        cap, width = bs.brick_coords.shape[0], w.shape[1]
+        h = _halo_pad(to_dense(feats, bs), bs).reshape(cap, CELLS6, width)
+        h = h.contiguous()
+        kernel5 = conv3d_kernel(w).contiguous()
+        h5 = h.view(cap, 6, 6, 6, width).permute(0, 4, 1, 2, 3)
+        dropped = int((v & (bs.brick_id >= cap)).sum())
+        for core_only in (True, False):
+            variant = "core" if core_only else "full"
+            out = brick_conv_cells(h, w, core_only)
+            torch.cuda.synchronize()
+            err, scale = within_scale(
+                f"brick_conv L{level} {variant}", out,
+                brick_conv_cells_plain(h, w, core_only), KERNEL_RTOL)
+            worst = max(worst, err)
+            ms = cuda_ms(lambda: brick_conv_cells(h, w, core_only), 20)
+            plain_ms = cuda_ms(
+                lambda: brick_conv_cells_plain(h, w, core_only), 3)
+            library_ms = None
+            if core_only:
+                # the yardstick computes the same function
+                within_scale(f"F.conv3d L{level} against the core variant",
+                             F.conv3d(h5, kernel5).permute(0, 2, 3, 4, 1)
+                             .reshape(out.shape), out, KERNEL_RTOL)
+                library_ms = cuda_ms(lambda: F.conv3d(h5, kernel5), 20)
+            cells = out.shape[1]
+            nbytes = (h.numel() + w.numel() + cap * cells * width) * 4
+            flops = 2.0 * cap * cells * 27 * width * width
+            bound_ms, bound_by = bound(nbytes, flops)
+            row = dict(level=level, variant=variant, bricks=cap,
+                       valid_bricks=int(bs.brick_valid.sum()),
+                       valid_voxels=int(v.sum()), dropped_voxels=dropped,
+                       cin=width, cout=width, max_abs_err=err,
+                       output_scale=scale, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       conv3d_ms=library_ms)
+            rows.append(row)
+            log("kernel " + json.dumps(row))
+        del h, h5, out
+    core, full = rows[0], rows[1]  # level 0
+    record = {
+        "name": "brick_conv",
+        "route": "cuda",
+        "source": "treemorph_tpu_torch/csrc/brick_conv.cu",
+        "replaces": "treemorph_tpu/ops/brick_conv.py:57",
+        "also_replaces": "treemorph_tpu/ops/brick_conv.py:75",
+        "shape": f"level 0: ({core['bricks']}, 216, {core['cin']}) halo'd "
+                 f"bricks ({core['valid_bricks']} holding voxels) x (27, "
+                 f"{core['cin']}, {core['cout']}); ms, plain, bound and "
+                 f"library are the core variant's (the forward), full_* the "
+                 f"full variant's (the backward's d_h)",
+        "max_abs_err": worst,
+        "ms": core["ms"],
+        "plain_ms": core["plain_ms"],
+        "bound_ms": core["bound_ms"],
+        "bound_by": core["bound_by"],
+        "library_ms": core["conv3d_ms"],
+        "library_note": "F.conv3d on the halo'd tensor's channels-first "
+                        "view (a permute, no copy; cuDNN's layout handling "
+                        "is inside the timed call), TF32 off",
+        "full_ms": full["ms"],
+        "full_plain_ms": full["plain_ms"],
+        "full_bound_ms": full["bound_ms"],
+    }
+    log(f"phase 10a ok: brick_conv within {KERNEL_RTOL} x scale of plain at "
+        f"{len(rows)} level/variant cases; level 0 core "
+        f"{record['ms']:.3f} ms (bound {record['bound_ms']:.3f}, plain "
+        f"{record['plain_ms']:.3f}, F.conv3d {record['library_ms']:.3f}), "
+        f"full {record['full_ms']:.3f} ms (bound "
+        f"{record['full_bound_ms']:.3f})")
+    return record, rows
+
+
+def phase_brick_autograd(levels, device):
+    """10b: the brick path at level 0 (``brickize`` -> ``to_dense`` ->
+    ``_halo_pad`` -> ``brick_conv`` forward and backward), its launches
+    counted, against autograd of ``F.conv3d`` on the same halo'd tensor in
+    float64: the output, ``d_h`` and ``d_w`` within 1e-5 of scale. The
+    reference is float64 because cuDNN's f32 weight gradient at this level
+    (4.3M cells summed) sits 7-9e-6 of scale off float64 (the port's
+    5-8e-7), too near the gate to referee it; its f32 errors are logged."""
+    import torch
+    import torch.nn.functional as F
+
+    from treemorph_tpu_torch.ops.brick_conv import brick_conv
+    from treemorph_tpu_torch.ops.bricks import (
+        _halo_pad,
+        brickize,
+        conv3d_kernel,
+        to_dense,
+    )
+    from treemorph_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+
+    c, v, _, feats, w = brick_inputs(levels, 0, device, 14)
+    cap = max(c.shape[0] // BRICK_DIVISOR, 64)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    bs = brickize(c, v, cap)
+    padded = _halo_pad(to_dense(feats, bs), bs).requires_grad_()
+    wl = w.clone().requires_grad_()
+    out = brick_conv(padded, wl)
+    cot = torch.randn(out.shape, device=device,
+                      generator=torch.Generator(device=device).manual_seed(15))
+    out.backward(cot)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = LAUNCHES["brick_conv"]
+    refs = {}
+    for dtype in (torch.float64, torch.float32):
+        p2 = padded.detach().to(dtype).requires_grad_()
+        w2 = w.to(dtype).requires_grad_()
+        ref = F.conv3d(p2.permute(0, 4, 1, 2, 3), conv3d_kernel(w2))
+        ref = ref.permute(0, 2, 3, 4, 1)
+        ref.backward(cot.to(dtype))
+        refs[dtype] = (ref.detach(), p2.grad, w2.grad)
+    names = ("out", "d_h", "d_w")
+    errs = {name: share_of_scale(f"10b {name}", a, b, AUTOGRAD_RTOL)
+            for name, a, b in zip(names, (out.detach(), padded.grad,
+                                          wl.grad), refs[torch.float64])}
+    cudnn_f32 = {name: float((a - b).abs().max() / b.abs().max())
+                 for name, a, b in zip(names, refs[torch.float32],
+                                       refs[torch.float64])}
+    if launches != 2:
+        raise AssertionError(f"10b: brick_conv launches {launches}, expected "
+                             "2 (core forward, full backward)")
+    log(f"phase 10b ok: level-0 brick path ({cap} bricks) forward and "
+        f"backward in {secs:.3f} s (first call), against F.conv3d autograd "
+        f"in float64: max |err| / scale {errs} (limit {AUTOGRAD_RTOL}); "
+        f"F.conv3d's own f32 autograd against it {cudnn_f32}; brick_conv "
+        f"launches {launches}")
+    return launches
+
+
+def phase_brick_engine(levels, device):
+    """10c: ``brick_subm_conv`` (both schedules) on the card against the
+    gather engine on the same level-0 voxels, valid voxels within 1e-5 of
+    scale."""
+    import torch
+
+    from treemorph_tpu_torch.ops.bricks import (
+        brick_subm_conv,
+        from_dense,
+        to_dense,
+    )
+    from treemorph_tpu_torch.ops.sparse import _subm_conv_impl, build_rulebook
+
+    c, v, bs, feats, w = brick_inputs(levels, 0, device, 16)
+    dense = to_dense(feats, bs)
+    active = to_dense(v.float()[:, None], bs)
+    ref = _subm_conv_impl(torch.float32, feats, w, build_rulebook(c, v), v)[v]
+    errs = {}
+    for impl in ("conv", "xslab"):
+        flat = from_dense(brick_subm_conv(dense, w, bs, active, impl=impl),
+                          bs)[v]
+        errs[impl] = share_of_scale(f"10c brick_subm_conv {impl}", flat,
+                                    ref, AUTOGRAD_RTOL)
+    log(f"phase 10c ok: brick_subm_conv on {int(v.sum())} level-0 voxels "
+        f"against the gather engine: max |err| / scale {errs} (limit "
+        f"{AUTOGRAD_RTOL})")
+
+
 def pipeline_config(input_dir: str, output_dir: str,
                     model_type: str = "treelearn") -> dict:
     """``configs/pipeline_config.yaml`` as a dict (no YAML parser needed),
@@ -1866,6 +2371,16 @@ def main() -> int:
             root, device)
         ptv3_split = phase_ptv3_step_split(ptv3_batch, device)
         log(json.dumps({**ptv3_split, **ptv3_cli_record}))
+        del ptv3_batch
+    levels = e2e_levels(points, device)
+    profile = profile_rulebooks(device)
+    zband_record, _ = phase_zband_vs_plain(profile, levels, device)
+    phase_zband_autograd(profile, device)
+    zband_launches = phase_profile_zband(device)
+    del profile
+    brick_record, _ = phase_brick_vs_plain(levels, device)
+    brick_launches = phase_brick_autograd(levels, device)
+    phase_brick_engine(levels, device)
     log(f"total {time.perf_counter() - t0:.1f} s")
     head = ("name", "route", "source", "replaces")
     kernels = []
@@ -1874,6 +2389,11 @@ def main() -> int:
         (bwd_record, bwd_launches, "training"),
         (attn_record, attn_launches, "ptv3 serving"),
         (attn_bwd_record, attn_bwd_launches, "ptv3 training"),
+        (zband_record, zband_launches,
+         "z-band profile (python -m treemorph_tpu_torch.scripts."
+         "profile_zband)"),
+        (brick_record, brick_launches,
+         "level-0 brick path, forward and backward"),
     ):
         kernels.append({
             **{k: record[k] for k in head}, "launches": launches,

@@ -15,6 +15,7 @@ from treemorph_tpu_torch.pipeline.predict import predict_single
 from treemorph_tpu_torch.pipeline.run import run_pipeline
 from treemorph_tpu_torch.pipeline.upsample import upsample_device
 from treemorph_tpu_torch.pipeline import upsample
+from treemorph_tpu_torch.scripts import profile_zband
 
 PACKAGE = os.path.dirname(treemorph_tpu_torch.__file__)
 REPO = os.path.dirname(PACKAGE)
@@ -72,6 +73,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
         lambda: run_pipeline({"general": {"input_dir": str(tmp_path),
                                           "output_dir": str(tmp_path)},
                               "stage1": {"model_type": "treelearn"}}),
+        lambda: profile_zband.main([]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

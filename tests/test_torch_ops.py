@@ -69,6 +69,16 @@ def t(x):
     return torch.from_numpy(np.array(x))
 
 
+def assert_scaled_close(got, want, rtol):
+    """max |got - want| within ``rtol`` of max |want|, on real work (a
+    scale above 0.1)."""
+    got, want = np.asarray(got), np.asarray(want)
+    scale = np.abs(want).max()
+    assert scale > 0.1
+    err = np.abs(got - want).max()
+    assert err <= rtol * scale, f"max |err| {err:.3e} > {rtol} x {scale:.3e}"
+
+
 @pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
     """The port's tests run torch on one CPU thread. The test lane runs

@@ -9,7 +9,8 @@ against (``tests/test_torch_*.py``).
 
 Layout:
     csrc/        hand-written CUDA kernels (built with nvcc at first use)
-    ops/         voxelize, rulebook + gather conv, band conv and window
+    ops/         voxelize, rulebook + gather conv, point dedup, band and
+                 z-band convs, brick layout and brick conv, window
                  attention (forward and backward), z-order and Hilbert
                  codes
     models/      TreeLearn and PTv3 as torch modules, their losses, the
@@ -23,6 +24,7 @@ Layout:
     utils/       host IO, fitting helpers, mesh export, the CSV table,
                  early stopping
     fixtures/    synthetic QSM / tree-cloud generators
+    scripts/     profile_zband (z-band vs band vs gather engines)
 
 Entry points (``build_model``, ``Predictor``, ``load_model``,
 ``predict_single``, ``upsample``, ``run_pipeline``, the training CLI

@@ -19,6 +19,11 @@ by joining it with dots. Leaves map as follows (the inverse of
   / ``bias``, and ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` /
   ``running_var`` (flax momentum m is torch momentum 1 - m).
 
+Every conv engine takes its kernels as (K, Cin, Cout) in kernel-offset
+order: the gather, band and z-band engines (``ops/sparse.py``,
+``ops/bandconv.py``) and the brick engine and brick conv (``ops/bricks.py``,
+``ops/brick_conv.py``). So no engine adds a layout here.
+
 Inputs are nested dicts of numpy arrays (``jax.device_get`` of the
 variables); nothing here imports JAX.
 """

@@ -26,6 +26,20 @@ repairs the residual entries in f32. A conv whose features need no
 gradient (the stem, on raw voxel features) takes the gather formulation for
 its weight gradient, as the JAX package's ``needs_feats_grad=False`` convs
 do.
+
+The z-packed variant (:class:`ZBandPlan`, :func:`zband_subm_conv_apply`,
+``csrc/zband_conv.cu`` through :func:`zband_conv_padded`) packs each row's
+ksize z-neighbors into one row, so a (dx, dy) group is one row read and one
+(ksize*Cin, Cout) product. Nothing builds a ``ZBandPlan`` on its own
+(:func:`choose_band_plan` never does); a caller passes one to
+:func:`.sparse.subm_conv_apply`, as
+``python -m treemorph_tpu_torch.scripts.profile_zband`` does. Types, in
+both band engines: bf16 mode rounds the features to bf16, keeps the
+weights f32 and multiplies in f32; f32 mode reads f32 features. The JAX
+package's kernels instead select f32 features as a bf16 hi/lo pair (about
+16 mantissa bits), so in f32 mode the port sits nearer the exact sum than
+the JAX package does, and is held to it at 1e-4 of the output's scale
+rather than 1e-5.
 """
 
 from __future__ import annotations
@@ -517,3 +531,316 @@ def choose_band_plan(
     if band_viable(k, cin, cout, dtype, window):
         return build_band_plan(rulebook, valid, window)
     return rulebook
+
+
+# ---------------------------------------------------------------------------
+# z-packed band conv: one anchor row per (dx, dy) group
+# ---------------------------------------------------------------------------
+
+ZALIGN = 8  # z-band window anchors are stored in units of 8 rows
+#: the z-band kernel's shared memory (csrc/zband_conv.cu): 128 gathered
+#: rows of a 32-channel chunk, one chunk of the group filter and the tile's
+#: anchors
+_ZBAND_SMEM = (TILE * _PITCH + _CHUNK * _MAX_COL_GROUPS * _COLS + TILE) * 4
+
+
+class ZBandPlan(NamedTuple):
+    """Banded conv schedule with z-packed feature bands.
+
+    Row ``i`` of the packed features ``zq`` holds, for dz = -r..r, the
+    features of the voxel at (b, x, y, z_i + dz) or zeros (``zoff`` says
+    which row that is). The rulebook's ksize entries of one (dx, dy) group
+    of row ``i`` are then the bands of ONE row, the group's dz = 0 entry
+    (its anchor): a group costs one row read and one (ksize*Cin, Cout)
+    product. Entries of groups whose anchor is missing or outside its
+    window go to the residual repair, as in :class:`BandPlan`."""
+
+    rulebook: torch.Tensor  # (M, K) int64 full rulebook (gather route)
+    anchors: torch.Tensor  # (n_tiles, G, TILE) int32 dz=0 neighbor rows
+    starts: torch.Tensor  # (G, n_tiles) int32 window anchor, ZALIGN units
+    zoff: torch.Tensor  # (M, ksize-1) int64 row shift of the z+dz voxel
+    # (slots dz = -r..-1, +1..+r), 0 = missing
+    ok: torch.Tensor  # () bool: residual rows fit the cap
+    valid: torch.Tensor  # (M,) bool
+    res_rows: torch.Tensor  # (R,) int64 output rows owning residual entries
+    res_rb: torch.Tensor  # (R, K) int64 rulebook restricted to them
+    res_valid: torch.Tensor  # (R,) bool
+    win: int  # window rows (a multiple of ZALIGN)
+
+
+def build_zband_plan(
+    rulebook: torch.Tensor,
+    valid: torch.Tensor,
+    window: int = WIN,
+    res_divisor: int = 4,
+) -> ZBandPlan:
+    """Window schedule anchored at each (dx, dy) group's dz=0 column, on
+    :func:`build_band_plan`'s premise (lex-sorted level, monotone rulebook
+    columns). The z-shift table comes from the center group's columns: the
+    (0, 0, dz) neighbor of row i sits at row i+s with |s| <= |dz|."""
+    m, k = rulebook.shape
+    dev = rulebook.device
+    ksize = round(k ** (1 / 3))
+    r = (ksize - 1) // 2
+    g = ksize * ksize
+    win = -(-window // ZALIGN) * ZALIGN
+    mp = max(-(-m // TILE), -(-win // TILE)) * TILE
+    n_tiles = mp // TILE
+    pad = mp - m
+
+    iota = torch.arange(m, device=dev)
+    gc = (g - 1) // 2  # center (dx = dy = 0) group
+    zoff = torch.stack([
+        torch.where(col < m, col - iota, 0)
+        for col in (rulebook[:, gc * ksize + dz + r]
+                    for dz in [*range(-r, 0), *range(1, r + 1)])
+    ], dim=1)
+
+    rb = torch.cat(
+        [rulebook, torch.full((pad, k), m, dtype=rulebook.dtype, device=dev)]
+    )
+    tiles = rb.reshape(n_tiles, TILE, k).transpose(1, 2)  # (n_tiles, K, T)
+    grouped = tiles.reshape(n_tiles, g, ksize, TILE)
+    found = grouped < m
+    anchors = grouped[:, :, r, :]  # (n_tiles, G, TILE)
+    anc_found = found[:, :, r, :]
+    min_idx = torch.where(anc_found, anchors, mp).amin(dim=2)
+    has = anc_found.any(dim=2)
+    base8 = torch.div(
+        torch.where(has, min_idx, 0).clamp(0, mp - win), ZALIGN,
+        rounding_mode="floor",
+    )
+    local = anchors - (base8 * ZALIGN)[:, :, None]
+    covered = anc_found & (local >= 0) & (local < win)
+    viol = found & ~covered[:, :, None, :]
+
+    # missing-anchor groups (a found dz != 0 entry whose dz = 0 column is
+    # empty: surface slopes end z-columns) are residual too, so the cap is
+    # larger than BandPlan's
+    rcap = max(m // res_divisor, 256)
+    row_viol = viol.any(dim=2).any(dim=1)  # (n_tiles, TILE)
+    count = row_viol.sum()
+    rows = torch.nonzero(row_viol.reshape(-1)).squeeze(1)[:rcap]
+    res_rows = torch.full((rcap,), m - 1, dtype=torch.int64, device=dev)
+    res_rows[: rows.shape[0]] = rows
+    res_valid = torch.arange(rcap, device=dev) < count
+    res_rows = torch.where(res_valid, res_rows, m - 1)
+    viol_mk = viol.reshape(n_tiles, k, TILE).transpose(1, 2).reshape(mp, k)
+    rb_masked = torch.where(viol_mk, rb, m)
+    res_rb = torch.where(res_valid[:, None], rb_masked[res_rows], m)
+    return ZBandPlan(
+        rulebook=rulebook,
+        anchors=anchors.to(torch.int32).contiguous(),
+        starts=base8.T.to(torch.int32).contiguous(),
+        zoff=zoff,
+        ok=count <= rcap,
+        valid=valid,
+        res_rows=res_rows,
+        res_rb=res_rb,
+        res_valid=res_valid,
+        win=win,
+    )
+
+
+def zband_pack(feats: torch.Tensor, zoff: torch.Tensor, ksize: int,
+               mp: int) -> torch.Tensor:
+    """(Mp, ksize*Cin) z-packed rows of the (M, Cin) features, bands
+    ordered dz = -r..r (the kernel-offset order within a group), zero rows
+    below ``mp``: band dz of row i is ``feats[i + s]`` where ``zoff`` gives
+    the shift ``s`` of the (0, 0, dz) neighbor (|s| <= |dz|), else 0."""
+    m, cin = feats.shape
+    r = (ksize - 1) // 2
+    zq = torch.zeros((mp, ksize * cin), dtype=feats.dtype,
+                     device=feats.device)
+    zq[:m, r * cin:(r + 1) * cin] = feats
+    for t, dz in enumerate([*range(-r, 0), *range(1, r + 1)]):
+        band = zq[:m, (dz + r) * cin:(dz + r + 1) * cin]
+        step = 1 if dz > 0 else -1
+        for s in range(step, dz + step, step):
+            hit = zoff[:, t] == s
+            lo, hi = max(0, -s), min(m, m - s)  # rows whose i + s is a row
+            rows = torch.nonzero(hit[lo:hi]).squeeze(1) + lo
+            band[rows] = feats[rows + s]
+    return zq
+
+
+def zband_conv_padded_plain(
+    anchors: torch.Tensor,  # (n_tiles, G, TILE) int32
+    starts: torch.Tensor,  # (G, n_tiles) int32, ZALIGN units
+    zq: torch.Tensor,  # (Mp, ksize*Cin) bf16 or f32
+    w2: torch.Tensor,  # (G, ksize*Cin, Cout) f32
+    m: int,
+    win: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`zband_conv_padded`: per group, the
+    covered anchors' packed rows gathered and multiplied in f32.
+    (Mp, Cout) float32."""
+    n_tiles, g, tile = anchors.shape
+    idx = anchors.to(torch.int64)
+    local = idx - (starts.to(torch.int64) * ZALIGN).T[:, :, None]
+    ok = (idx < m) & (local >= 0) & (local < win)
+    f32 = zq.float()
+    out = torch.zeros((n_tiles * tile, w2.shape[-1]), dtype=torch.float32,
+                      device=zq.device)
+    for gi in range(g):
+        keep = ok[:, gi, :].reshape(-1)
+        rows = torch.where(keep, idx[:, gi, :].reshape(-1), 0)
+        out = out + (f32[rows] * keep[:, None]) @ w2[gi]
+    return out
+
+
+def zband_conv_padded(
+    anchors: torch.Tensor,
+    starts: torch.Tensor,
+    zq: torch.Tensor,
+    w2: torch.Tensor,
+    m: int,
+    win: int,
+) -> torch.Tensor:
+    """For every 128-row output tile t and row i, the sum over (dx, dy)
+    groups g whose anchor ``a = anchors[t, g, i]`` is found (< m) and lies
+    in the group's window ``[8 * starts[g, t], + win)`` of
+    ``zq[a] @ w2[g]`` (see :func:`zband_conv_padded_plain`); (Mp, Cout)
+    float32.
+
+    On a CUDA tensor this launches the kernel of ``csrc/zband_conv.cu`` or
+    raises; a CPU tensor takes the plain version."""
+    if zq.device.type == "cpu":
+        return zband_conv_padded_plain(anchors, starts, zq, w2, m, win)
+    if zq.device.type != "cuda":
+        raise ValueError(f"zband_conv_padded: unsupported device {zq.device}")
+    n_tiles, g, tile = anchors.shape
+    mp, e = zq.shape
+    gw, e_w, cout = w2.shape
+    if g not in (9, 25) or gw != g:
+        raise ValueError(
+            f"zband_conv_padded takes 3x3x3 and 5x5x5 kernels (G={g}, {gw})"
+        )
+    if tile != TILE or mp != n_tiles * TILE or e_w != e or e % round(
+            g ** 0.5):
+        raise ValueError(
+            f"zband_conv_padded: shapes anchors {tuple(anchors.shape)}, zq "
+            f"{tuple(zq.shape)}, w2 {tuple(w2.shape)}"
+        )
+    if starts.shape != (g, n_tiles) or win % ZALIGN or not 0 < win <= mp:
+        raise ValueError(
+            f"zband_conv_padded: starts {tuple(starts.shape)}, win {win}"
+        )
+    if anchors.dtype != torch.int32 or starts.dtype != torch.int32:
+        raise TypeError("zband_conv_padded: anchors and starts must be int32")
+    if zq.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"zband_conv_padded: zq dtype {zq.dtype}")
+    if w2.dtype != torch.float32:
+        raise TypeError(f"zband_conv_padded: w2 dtype {w2.dtype}")
+    tensors = (anchors, starts, zq, w2)
+    if any(t.device != zq.device for t in tensors):
+        raise ValueError("zband_conv_padded: tensors on different devices")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("zband_conv_padded: tensors must be contiguous")
+
+    lib = _zband_library()
+    out = torch.empty((mp, cout), dtype=torch.float32, device=zq.device)
+    with torch.cuda.device(zq.device):
+        rc = lib.zband_conv_launch(
+            anchors.data_ptr(), starts.data_ptr(), zq.data_ptr(),
+            int(zq.dtype == torch.bfloat16), w2.data_ptr(), out.data_ptr(),
+            n_tiles, g, e, cout, m, win, stream_handle(zq.device),
+        )
+    check_launch("zband_conv", rc)
+    LAUNCHES["zband_conv"] += 1
+    return out
+
+
+def _zband_library():
+    lib = load_library("zband_conv")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.zband_conv_launch.argtypes = [p, p, p, i, p, p, i, i, i, i, i, i,
+                                          p]
+        lib.zband_conv_launch.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def zband_viable(k: int, dtype) -> bool:
+    """Whether the z-band kernel takes this conv shape: 3x3x3 or 5x5x5
+    kernels. It stages 32 packed channels of 128 rows at a time and splits
+    wide outputs over blocks, so its shared memory (``_ZBAND_SMEM``) is the
+    same for every width; the TPU gate was a VMEM budget."""
+    return (
+        k in (27, 125)
+        and dtype in (torch.bfloat16, torch.float32)
+        and _ZBAND_SMEM <= SMEM_LIMIT
+    )
+
+
+def _zband_impl(feats, weights, plan: ZBandPlan, valid, dtype):
+    m, cin = feats.shape
+    k, _, cout = weights.shape
+    ksize = round(k ** (1 / 3))
+    mp = plan.anchors.shape[0] * TILE
+    masked = feats * valid[:, None]
+    zq = zband_pack(masked.to(dtype), plan.zoff, ksize, mp)
+    # (K, Cin, Cout) -> (G, ksize*Cin, Cout): the kernel-offset order runs
+    # dz fastest, as zq's bands do
+    w2 = weights.float().reshape(ksize * ksize, ksize * cin, cout)
+    out = zband_conv_padded(
+        plan.anchors, plan.starts, zq, w2.contiguous(), m, plan.win
+    )[:m]
+    out = out.index_add(
+        0, plan.res_rows, _residual_repair(masked, weights, plan, m)
+    )
+    return out * valid[:, None]
+
+
+class _ZBandConv(torch.autograd.Function):
+    """The z-band conv with the JAX package's ``_zband_conv_vjp`` gradient:
+    ``d_feats`` is the same kernel and repair over the same plan on the
+    output gradient with the offset-flipped, channel-transposed kernel
+    (which entries a window covers depends on the rulebook, not on the
+    weights); ``d_w`` is the gather formulation."""
+
+    @staticmethod
+    def forward(ctx, feats, weights, valid, plan, dtype):
+        ctx.save_for_backward(feats, weights, valid)
+        ctx.plan, ctx.dtype = plan, dtype
+        return _zband_impl(feats, weights, plan, valid, dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from .sparse import _gather_grads
+
+        feats, weights, valid = ctx.saved_tensors
+        d_feats = None
+        if ctx.needs_input_grad[0]:
+            w_bwd = weights.flip(0).transpose(1, 2)
+            d_feats = _zband_impl(
+                grad.float() * valid[:, None], w_bwd, ctx.plan, valid,
+                ctx.dtype,
+            ).to(feats.dtype)
+        _, d_w = _gather_grads(
+            ctx.dtype, feats, weights, ctx.plan.rulebook, valid, grad, False
+        )
+        return d_feats, d_w.to(weights.dtype), None, None, None
+
+
+def zband_subm_conv_apply(
+    feats: torch.Tensor,  # (M, Cin)
+    weights: torch.Tensor,  # (K, Cin, Cout), kernel-offset layout
+    plan: ZBandPlan,
+    valid: torch.Tensor,
+    compute_dtype=None,
+) -> torch.Tensor:
+    """Submanifold conv on the z-packed band engine; same weights layout as
+    every other engine. Takes the exact gather engine when the plan's
+    residual cap overflowed (``plan.ok`` false) or the kernel does not take
+    the shape, and counts each such conv in :data:`GATHER_ROUTES`."""
+    from .sparse import _subm_conv
+
+    dtype = compute_dtype or feats.dtype
+    gather_dtype = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
+    viable = zband_viable(weights.shape[0], dtype)
+    if not viable or not bool(plan.ok):
+        GATHER_ROUTES["zband shape" if not viable else "zband overflow"] += 1
+        return _subm_conv(gather_dtype, feats, weights, plan.rulebook, valid)
+    return _ZBandConv.apply(feats, weights, valid, plan, gather_dtype)

@@ -25,7 +25,8 @@ Port of the main-path part of ``treemorph_tpu/ops/sparse.py``:
 3. **Strided convs**: the stride-2 coarse level comes from the same sorted
    dedup as :mod:`.voxelize` and records each fine voxel's ``parent`` and
    child octant, so the down conv is a scatter-add and the inverse conv a
-   gather.
+   gather. :func:`build_dedup` is the same sort at stride 1 (points to
+   unique voxels).
 
 Index tensors are int64 (torch's index type); ``valid`` masks thread
 through every step.
@@ -154,19 +155,29 @@ def rulebook_subset_columns(k_from: int, k_to: int) -> list[int]:
 def subm_conv_apply(
     feats: torch.Tensor,  # (M, Cin)
     weights: torch.Tensor,  # (K, Cin, Cout)
-    rulebook,  # (M, K) rulebook, or a BandPlan
+    rulebook,  # (M, K) rulebook, a BandPlan or a ZBandPlan
     valid: torch.Tensor,  # (M,)
     compute_dtype=None,
 ) -> torch.Tensor:
     """Submanifold conv: out[i] = sum_k W[k] @ feats[nbr_k(i)].
 
-    ``rulebook`` may be a :class:`~.bandconv.BandPlan`, selecting the band
+    ``rulebook`` may be a :class:`~.bandconv.BandPlan` or a
+    :class:`~.bandconv.ZBandPlan`, selecting the band or the z-packed band
     engine (same weights layout). ``compute_dtype=torch.bfloat16`` rounds
     features (and, on the gather engine, weights) to bf16; accumulation
     stays float32 (float64 for ``torch.float64``, gather engine only)."""
-    from .bandconv import BandPlan, band_subm_conv_apply
+    from .bandconv import (
+        BandPlan,
+        ZBandPlan,
+        band_subm_conv_apply,
+        zband_subm_conv_apply,
+    )
 
     dtype = compute_dtype or feats.dtype
+    if isinstance(rulebook, ZBandPlan):
+        return zband_subm_conv_apply(
+            feats, weights, rulebook, valid, compute_dtype=dtype
+        )
     if isinstance(rulebook, BandPlan):
         return band_subm_conv_apply(
             feats, weights, rulebook, valid, compute_dtype=dtype
@@ -260,6 +271,47 @@ class _SubmConv(torch.autograd.Function):
 
 def _subm_conv(dtype, feats, weights, rulebook, valid):
     return _SubmConv.apply(feats, weights, rulebook, valid, dtype)
+
+
+class DedupMap(NamedTuple):
+    """Point rows -> unique-voxel rows (stride-1 dedup): the conv runs once
+    per unique voxel, and duplicate rows read its output back through
+    ``v2u``. A voxel's representative is its first row by index."""
+
+    rows: torch.Tensor  # (cap,) int64 representative point row per voxel
+    coords: torch.Tensor  # (cap, 4) int32 unique (b, x, y, z), lex-sorted
+    valid: torch.Tensor  # (cap,) bool
+    v2u: torch.Tensor  # (P,) int64 unique id; cap = overflow/invalid dump
+    num_unique: torch.Tensor  # () int64
+    overflow: torch.Tensor  # () int64 points whose voxel exceeded cap
+
+
+def build_dedup(
+    coords: torch.Tensor, valid: torch.Tensor, cap: int | None = None
+) -> DedupMap:
+    """Group equal (b, x, y, z) rows with the sort of
+    :func:`build_downsample` at stride 1. Unique voxels come out
+    lex-sorted; voxels beyond ``cap`` dump to row ``cap`` (counted)."""
+    m = coords.shape[0]
+    if cap is None:
+        cap = m
+    dev = coords.device
+    r = sorted_runs(coords, valid)
+    v2u_full = torch.empty(m, dtype=torch.int64, device=dev)
+    v2u_full[r.s_orig] = r.s_id
+    v2u = torch.where(valid, v2u_full.clamp(max=cap), cap)
+    # valid runs sort first, so unique row r is valid iff r < num
+    u_valid = torch.arange(cap, device=dev) < r.num
+    rows = torch.where(u_valid, first_rows_of_runs(r, cap), 0)
+    u_coords = torch.where(u_valid[:, None], coords[rows], 0)
+    return DedupMap(
+        rows=rows,
+        coords=u_coords.to(torch.int32),
+        valid=u_valid,
+        v2u=v2u,
+        num_unique=r.num.clamp(max=cap),
+        overflow=(valid & (v2u_full >= cap)).sum(),
+    )
 
 
 class DownsampleMap(NamedTuple):
