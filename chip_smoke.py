@@ -46,8 +46,10 @@ seeded weights, f32, on the e2e cloud given seeded per-point features):
     distinct (W, H, 1024, 16) shape of the plot's forward, on the inputs the
     main path gives it (f32, and the same cast to bf16) and on random ones
     with three segments and padding rows, against its plain version on a
-    spread of the windows; CUDA-event times against the bound, the plain
-    version and ``scaled_dot_product_attention`` with the same mask.
+    spread of the windows; the training forward (``window_attention_fwd``)
+    gives the same output and a log-sum-exp within 1e-5 of scale of the
+    plain one's; CUDA-event times against the bound, the plain version and
+    ``scaled_dot_product_attention`` with the same mask.
 7b. Stage 1 on the card against the CPU: the forward ``predict_single``
     runs, on the cloud's first 65,536 points.
 7c. End to end: ``run_pipeline`` with ``model_type: pointtransformerv3``
@@ -63,9 +65,11 @@ on the training plots above, at the reference's PTv3 batch of 4 trees x
     each distinct (W, H, 1024, 16) shape of a full-width train step, on the
     inputs and output cotangents captured from that step (f32, and the same
     cast to bf16) and on random ones with three segments and padding rows,
-    against its plain version; dq, dk and dv each within 1e-5 of their
-    scale, padding rows exactly 0; CUDA-event times against the bound, the
-    plain version and the backward of ``scaled_dot_product_attention``
+    fed the forward kernel's output and log-sum-exp, against its plain
+    version (which recomputes the probabilities); dq, dk and dv each within
+    1e-5 of their scale, padding rows exactly 0; CUDA-event times in f32
+    and bf16 against the bound (f32 rate, and TF32 in the kernel's passes),
+    the plain version and the backward of ``scaled_dot_product_attention``
     with the same mask (f32 and bf16).
 8b. Training on the card: each of the step's 22 attentions differentiated
     alone through autograd (``window_attention``'s ``autograd.Function``
@@ -95,8 +99,11 @@ TreeLearn plot's levels 0-2):
 The brick conv (the plot's levels 0-2 in 4^3 bricks, capped at M / 4):
 
 10a. ``brick_conv_cells``, core and full variants, against its plain
-     version on each level's halo'd bricks, timed beside the bound, the
-     plain version and ``F.conv3d``.
+     version on each level's halo'd bricks and on a dense random tensor of
+     the same shape (all-zero bricks exactly 0), timed beside the bounds
+     (f32 rate and TF32 in three passes, over every brick and over the
+     bricks whose input is not zero, counted and printed), the plain
+     version and ``F.conv3d`` (TF32 off; and on, logged).
 10b. The level-0 brick path (``brickize`` -> ``to_dense`` -> ``_halo_pad``
      -> ``brick_conv`` forward and backward), its two launches counted,
      against autograd of ``F.conv3d`` in float64 (cuDNN's f32 weight
@@ -130,6 +137,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+#: the TF32 tensor-core rate, which the brick conv and the attention
+#: backward run on (in three passes for f32 operands, 3xTF32)
+TF32_FLOPS = 495e12
 
 #: (level, Cin, Cout, launches per forward) of every band conv of the
 #: pipeline's TreeLearn (channels 32, num_blocks 3): level 0 has the input
@@ -311,16 +321,16 @@ def kernel_label(mangled: str) -> str:
             if not name.endswith("_kernel"):
                 continue
             rest = mangled[m.end() + len(name):]
-            args = re.match(r"I(?:(13__nv_bfloat16|f))?Li(\d+)E", rest)
-            if args:
-                kind = {"f": "f32, ", None: ""}.get(args.group(1), "bf16, ")
-                return f"{name}<{kind}{args.group(2)}>"
-            args = re.match(r"I(?:(13__nv_bfloat16|f)|Lb([01]))E", rest)
+            args = re.match(r"I((?:13__nv_bfloat16|f|Lb[01]E|Li\d+E)+)E",
+                            rest)
             if not args:
                 return name
-            kind = {"f": "f32", "1": "true", "0": "false"}.get(
-                args.group(1) or args.group(2), "bf16")
-            return f"{name}<{kind}>"
+            words = {"f": "f32", "13__nv_bfloat16": "bf16", "Lb1E": "true",
+                     "Lb0E": "false"}
+            return name + "<" + ", ".join(
+                words.get(a, a[2:-1]) for a in re.findall(
+                    r"13__nv_bfloat16|Lb[01]E|Li\d+E|f", args.group(1))
+            ) + ">"
     return mangled[:60]
 
 
@@ -1249,6 +1259,7 @@ def phase_attention_vs_plain(cloud, device):
     from treemorph_tpu_torch.ops.attention import (
         allowed_pairs,
         window_attention,
+        window_attention_fwd,
         window_attention_reference,
     )
 
@@ -1259,14 +1270,20 @@ def phase_attention_vs_plain(cloud, device):
         raise AssertionError(f"{n_calls} window_attention calls per forward, "
                              f"expected {PTV3_BLOCKS}")
     gen = torch.Generator(device=device).manual_seed(4)
-    rows, worst, worst_rel = [], 0.0, 0.0
+    rows, worst, worst_rel, worst_lse = [], 0.0, 0.0, 0.0
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
               "bound_ms": 0.0, "bytes_s": 0.0, "ops_s": 0.0}
 
     def check(label, args, subset):
+        """The inference kernel (no log-sum-exp) against plain; the
+        training forward gives the same output, and its log-sum-exp within
+        1e-5 of scale of the plain one's (padding rows 0)."""
+        nonlocal worst_lse
         out = window_attention(*args)
+        out_t, lse = window_attention_fwd(*args)
         torch.cuda.synchronize()
-        ref = window_attention_reference(*(a[subset] for a in args))
+        ref, ref_lse = window_attention_reference(
+            *(a[subset] for a in args), return_lse=True)
         got = out[subset]
         err = float((got - ref).abs().max())
         scale = float(ref.abs().max())
@@ -1276,6 +1293,15 @@ def phase_attention_vs_plain(cloud, device):
             raise AssertionError(
                 f"window_attention {label}: max |err| {err:.3e} > "
                 f"{KERNEL_RTOL} x {scale:.3e}, or padding rows not 0")
+        if not torch.equal(out, out_t):
+            raise AssertionError(f"window_attention {label}: the forward "
+                                 f"that writes the log-sum-exp differs")
+        lse_err = share_of_scale(f"window_attention {label} lse",
+                                 lse[subset], ref_lse, KERNEL_RTOL)
+        if not bool((lse[subset][pad[..., 0]] == 0).all()):
+            raise AssertionError(f"window_attention {label}: lse of padding "
+                                 f"rows not 0")
+        worst_lse = max(worst_lse, lse_err)
         return err, scale
 
     for shape, ((q, k, v, seg), count) in sorted(captured.items()):
@@ -1333,6 +1359,7 @@ def phase_attention_vs_plain(cloud, device):
                            sorted(captured.items())),
         "max_abs_err": worst,
         "max_err_over_scale": worst_rel,
+        "lse_max_err_over_scale": worst_lse,
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
         "bound_ms": totals["bound_ms"],
@@ -1341,7 +1368,8 @@ def phase_attention_vs_plain(cloud, device):
         "library_ms": totals["library_ms"],
     }
     log(f"phase 7a ok: window_attention within {KERNEL_RTOL} x scale of "
-        f"plain at {len(rows)} shape/type cases and on three-segment inputs; "
+        f"plain at {len(rows)} shape/type cases and on three-segment inputs, "
+        f"its log-sum-exp within {worst_lse:.2e} of scale; "
         f"one forward's {PTV3_BLOCKS} launches (f32): kernel "
         f"{totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, "
         f"scaled_dot_product_attention {totals['library_ms']:.3f} ms, bound "
@@ -1535,6 +1563,7 @@ def phase_attention_bwd_vs_plain(calls, device):
         allowed_pairs,
         window_attention_bwd,
         window_attention_bwd_reference,
+        window_attention_fwd,
     )
 
     by_shape = {}
@@ -1544,11 +1573,16 @@ def phase_attention_bwd_vs_plain(calls, device):
     gen = torch.Generator(device=device).manual_seed(5)
     rows, worst, worst_rel = [], 0.0, 0.0
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-              "library_bf16_ms": 0.0, "bound_ms": 0.0, "bytes_s": 0.0,
-              "ops_s": 0.0}
+              "library_bf16_ms": 0.0, "bf16_ms": 0.0, "bound_ms": 0.0,
+              "bound_tf32_ms": 0.0, "bound_tf32_bf16_ms": 0.0,
+              "bytes_s": 0.0, "ops_s": 0.0}
 
     def check(label, args):
-        grads = window_attention_bwd(*args)
+        """The kernel, fed the forward kernel's output and log-sum-exp,
+        against the plain backward (which recomputes P); returns the errors
+        and the saved (out, lse)."""
+        saved = window_attention_fwd(*args[:4])
+        grads = window_attention_bwd(*args, *saved)
         torch.cuda.synchronize()
         refs = window_attention_bwd_reference(*args)
         pad = (args[3] < 0)[:, None, :, None].expand_as(grads[0])
@@ -1563,7 +1597,7 @@ def phase_attention_bwd_vs_plain(calls, device):
                     f"{err:.3e} > {KERNEL_RTOL} x {scale:.3e}, or padding "
                     f"rows not 0")
             errs[name] = (err, scale)
-        return errs
+        return errs, saved
 
     for shape, ((q, k, v, seg, g), count) in sorted(by_shape.items()):
         w, h, kk, d = shape
@@ -1571,14 +1605,14 @@ def phase_attention_bwd_vs_plain(calls, device):
         mask = allowed_pairs(seg)[:, None]
         rand = segmented_inputs(shape, device, gen) + (
             torch.randn(shape, device=device, generator=gen),)
-        errs_rand = check(f"{shape} random, 3 segments", rand)
+        errs_rand, _ = check(f"{shape} random, 3 segments", rand)
         for dtype in (torch.float32, torch.bfloat16):
             args = (q.to(dtype), k.to(dtype), v.to(dtype), seg, g)
-            errs = check(f"{shape} {dtype}", args)
+            errs, saved = check(f"{shape} {dtype}", args)
             for err, scale in (*errs.values(), *errs_rand.values()):
                 worst = max(worst, err)
                 worst_rel = max(worst_rel, err / max(scale, 1e-30))
-            ms = cuda_ms(lambda: window_attention_bwd(*args), 20)
+            ms = cuda_ms(lambda: window_attention_bwd(*args, *saved), 20)
             plain_ms = cuda_ms(lambda: window_attention_bwd_reference(*args),
                                3)
             library_ms = sdpa_backward_ms(args, mask)
@@ -1588,11 +1622,16 @@ def phase_attention_bwd_vs_plain(calls, device):
                       + w * kk * 4 + w * h * kk * d * 4
                       + 3 * w * h * kk * d * 4)
             # 5 D multiply-adds per allowed pair and head (the scores, dp,
-            # dv, dq, dk) in f32
+            # dv, dq, dk) in f32; the same on the TF32 tensor cores in the
+            # kernel's passes: 3 per product in f32, in bf16 1 (scores),
+            # 2 (dp, dq, dk) and 3 (dv)
             flops = 2.0 * 5 * d * h * pairs
             ops_s = flops / F32_FLOPS
             bytes_s = nbytes / HBM_BYTES_PER_S
             bound_ms = 1e3 * max(bytes_s, ops_s)
+            passes = 15 if dtype == torch.float32 else 10
+            bound_tf32_ms = 1e3 * max(
+                bytes_s, flops / 5 * passes / TF32_FLOPS)
             row = dict(shape=list(shape), dtype=str(dtype), calls=count,
                        valid_rows=int((seg >= 0).sum()),
                        windows_with_rows=int((seg >= 0).any(1).sum()),
@@ -1603,18 +1642,21 @@ def phase_attention_bwd_vs_plain(calls, device):
                            n: e / max(sc, 1e-30)
                            for n, (e, sc) in errs_rand.items()},
                        ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                       bound_ms=bound_ms,
+                       bound_ms=bound_ms, bound_tf32_ms=bound_tf32_ms,
                        bound_by="bytes" if bytes_s > ops_s else "operations")
             rows.append(row)
             log("kernel " + json.dumps(row))
             if dtype == torch.float32:
                 for key, val in (("ms", ms), ("plain_ms", plain_ms),
                                  ("library_ms", library_ms),
-                                 ("bound_ms", bound_ms), ("bytes_s", bytes_s),
-                                 ("ops_s", ops_s)):
+                                 ("bound_ms", bound_ms),
+                                 ("bound_tf32_ms", bound_tf32_ms),
+                                 ("bytes_s", bytes_s), ("ops_s", ops_s)):
                     totals[key] += count * val
             else:
                 totals["library_bf16_ms"] += count * library_ms
+                totals["bf16_ms"] += count * ms
+                totals["bound_tf32_bf16_ms"] += count * bound_tf32_ms
     record = {
         "name": "window_attention_bwd",
         "route": "cuda",
@@ -1631,15 +1673,21 @@ def phase_attention_bwd_vs_plain(calls, device):
         "bound_by": "bytes" if totals["bytes_s"] > totals["ops_s"]
         else "operations",
         "library_ms": totals["library_ms"],
+        "bound_tf32_ms": totals["bound_tf32_ms"],
+        "bf16_ms": totals["bf16_ms"],
         "library_bf16_ms": totals["library_bf16_ms"],
+        "bound_tf32_bf16_ms": totals["bound_tf32_bf16_ms"],
     }
     log(f"phase 8a ok: window_attention_bwd within {KERNEL_RTOL} x scale of "
         f"plain at {len(rows)} shape/type cases and on three-segment inputs; "
-        f"one train step's {PTV3_BWD_PER_STEP} launches (f32): kernel "
-        f"{totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, "
-        f"scaled_dot_product_attention backward {totals['library_ms']:.3f} "
-        f"ms (bf16 {totals['library_bf16_ms']:.3f} ms), bound "
-        f"{totals['bound_ms']:.3f} ms")
+        f"one train step's {PTV3_BWD_PER_STEP} launches: kernel f32 "
+        f"{totals['ms']:.3f} ms (bound {totals['bound_ms']:.3f} at the f32 "
+        f"rate, {totals['bound_tf32_ms']:.3f} at TF32 in 3 passes), bf16 "
+        f"{totals['bf16_ms']:.3f} ms (TF32 bound "
+        f"{totals['bound_tf32_bf16_ms']:.3f}); plain (f32) "
+        f"{totals['plain_ms']:.3f} ms; scaled_dot_product_attention backward "
+        f"f32 {totals['library_ms']:.3f} ms, bf16 "
+        f"{totals['library_bf16_ms']:.3f} ms")
     return record, rows
 
 
@@ -2095,12 +2143,37 @@ def brick_inputs(levels, level, device, seed):
     return c, v, bs, feats, w / (27 * width) ** 0.5
 
 
+def brick_bounds(h, w, cells, live):
+    """Bounds in ms of one brick conv call on ``h`` (B, 216, Cin) x ``w``:
+    the bytes (input read once, output written once) against the multiply-
+    adds of every brick (``all``) and of the ``live`` bricks (those whose
+    input is not all zero, what this input needs), each at the f32 rate
+    (``f32``) and on the TF32 tensor cores in the kernel's three passes
+    (``tf32``); and which of bytes or operations sets the f32 bound over
+    the live bricks."""
+    cap, _, cin = h.shape
+    cout = w.shape[-1]
+    nbytes = (h.numel() + w.numel() + cap * cells * cout) * 4
+    per_brick = 2.0 * cells * 27 * cin * cout
+    bounds = {}
+    for count_name, count in (("all", cap), ("live", live)):
+        bounds[f"{count_name}_f32"], by = bound(nbytes, per_brick * count)
+        bounds[f"{count_name}_tf32"] = 1e3 * max(
+            nbytes / HBM_BYTES_PER_S, 3 * per_brick * count / TF32_FLOPS)
+        if count_name == "live":
+            bounds["by"] = by
+    return bounds
+
+
 def phase_brick_vs_plain(levels, device):
     """10a: ``brick_conv_cells``, core and full variants, against its plain
-    version on the halo'd bricks of the TreeLearn plot's levels 0-2, timed
-    beside the bound, the plain version and ``F.conv3d``. Returns the
-    kernel record (level 0: the core variant, the path's forward, with the
-    full variant, its backward, beside it) and the rows."""
+    version on the halo'd bricks of the TreeLearn plot's levels 0-2 and on
+    a dense random tensor of the same shape (every brick live, so the
+    arithmetic shows apart from the zero-brick skip), timed beside the
+    bounds, the plain version and ``F.conv3d`` (TF32 off, and once on).
+    Returns the kernel record (level 0 of the plot: the core variant, the
+    path's forward, with the full variant, its backward, beside it) and the
+    rows."""
     import torch
     import torch.nn.functional as F
 
@@ -2119,44 +2192,63 @@ def phase_brick_vs_plain(levels, device):
     for level in range(3):
         c, v, bs, feats, w = brick_inputs(levels, level, device, 11 + level)
         cap, width = bs.brick_coords.shape[0], w.shape[1]
-        h = _halo_pad(to_dense(feats, bs), bs).reshape(cap, CELLS6, width)
-        h = h.contiguous()
+        plot = _halo_pad(to_dense(feats, bs), bs).reshape(cap, CELLS6, width)
+        dense = torch.randn(plot.shape, device=device,
+                            generator=torch.Generator(device=device)
+                            .manual_seed(21 + level))
         kernel5 = conv3d_kernel(w).contiguous()
-        h5 = h.view(cap, 6, 6, 6, width).permute(0, 4, 1, 2, 3)
         dropped = int((v & (bs.brick_id >= cap)).sum())
-        for core_only in (True, False):
-            variant = "core" if core_only else "full"
-            out = brick_conv_cells(h, w, core_only)
-            torch.cuda.synchronize()
-            err, scale = within_scale(
-                f"brick_conv L{level} {variant}", out,
-                brick_conv_cells_plain(h, w, core_only), KERNEL_RTOL)
-            worst = max(worst, err)
-            ms = cuda_ms(lambda: brick_conv_cells(h, w, core_only), 20)
-            plain_ms = cuda_ms(
-                lambda: brick_conv_cells_plain(h, w, core_only), 3)
-            library_ms = None
-            if core_only:
-                # the yardstick computes the same function
-                within_scale(f"F.conv3d L{level} against the core variant",
-                             F.conv3d(h5, kernel5).permute(0, 2, 3, 4, 1)
-                             .reshape(out.shape), out, KERNEL_RTOL)
-                library_ms = cuda_ms(lambda: F.conv3d(h5, kernel5), 20)
-            cells = out.shape[1]
-            nbytes = (h.numel() + w.numel() + cap * cells * width) * 4
-            flops = 2.0 * cap * cells * 27 * width * width
-            bound_ms, bound_by = bound(nbytes, flops)
-            row = dict(level=level, variant=variant, bricks=cap,
-                       valid_bricks=int(bs.brick_valid.sum()),
-                       valid_voxels=int(v.sum()), dropped_voxels=dropped,
-                       cin=width, cout=width, max_abs_err=err,
-                       output_scale=scale, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by,
-                       conv3d_ms=library_ms)
-            rows.append(row)
-            log("kernel " + json.dumps(row))
-        del h, h5, out
-    core, full = rows[0], rows[1]  # level 0
+        for source, h in (("plot", plot.contiguous()), ("dense", dense)):
+            live = int((h != 0).flatten(1).any(1).sum())
+            h5 = h.view(cap, 6, 6, 6, width).permute(0, 4, 1, 2, 3)
+            for core_only in (True, False):
+                variant = "core" if core_only else "full"
+                label = f"brick_conv L{level} {source} {variant}"
+                out = brick_conv_cells(h, w, core_only)
+                torch.cuda.synchronize()
+                err, scale = within_scale(
+                    label, out, brick_conv_cells_plain(h, w, core_only),
+                    KERNEL_RTOL)
+                worst = max(worst, err)
+                dead = (h == 0).flatten(1).all(1)
+                if not bool((out[dead] == 0).all()):
+                    raise AssertionError(f"{label}: an all-zero brick's "
+                                         f"output is not exactly 0")
+                ms = cuda_ms(lambda: brick_conv_cells(h, w, core_only), 20)
+                plain_ms = cuda_ms(
+                    lambda: brick_conv_cells_plain(h, w, core_only), 3)
+                library_ms = library_tf32_ms = None
+                if core_only:
+                    # the yardstick computes the same function
+                    within_scale(f"F.conv3d L{level} {source} against the "
+                                 f"core variant",
+                                 F.conv3d(h5, kernel5).permute(0, 2, 3, 4, 1)
+                                 .reshape(out.shape), out, KERNEL_RTOL)
+                    library_ms = cuda_ms(lambda: F.conv3d(h5, kernel5), 20)
+                    torch.backends.cudnn.allow_tf32 = True
+                    library_tf32_ms = cuda_ms(
+                        lambda: F.conv3d(h5, kernel5), 20)
+                    torch.backends.cudnn.allow_tf32 = False
+                bounds = brick_bounds(h, w, out.shape[1], live)
+                row = dict(level=level, input=source, variant=variant,
+                           bricks=cap, live_bricks=live,
+                           valid_bricks=int(bs.brick_valid.sum()),
+                           valid_voxels=int(v.sum()), dropped_voxels=dropped,
+                           cin=width, cout=width, max_abs_err=err,
+                           output_scale=scale, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bounds["all_f32"],
+                           bound_tf32_ms=bounds["all_tf32"],
+                           live_bound_ms=bounds["live_f32"],
+                           live_bound_tf32_ms=bounds["live_tf32"],
+                           live_bound_by=bounds["by"],
+                           conv3d_ms=library_ms,
+                           conv3d_tf32_ms=library_tf32_ms)
+                rows.append(row)
+                log("kernel " + json.dumps(row))
+            del h5
+        del plot, dense, out
+    core, full = rows[0], rows[1]  # level 0 of the plot
+    dense_core, dense_full = rows[2], rows[3]
     record = {
         "name": "brick_conv",
         "route": "cuda",
@@ -2164,29 +2256,52 @@ def phase_brick_vs_plain(levels, device):
         "replaces": "treemorph_tpu/ops/brick_conv.py:57",
         "also_replaces": "treemorph_tpu/ops/brick_conv.py:75",
         "shape": f"level 0: ({core['bricks']}, 216, {core['cin']}) halo'd "
-                 f"bricks ({core['valid_bricks']} holding voxels) x (27, "
-                 f"{core['cin']}, {core['cout']}); ms, plain, bound and "
+                 f"bricks ({core['live_bricks']} with a non-zero input) x "
+                 f"(27, {core['cin']}, {core['cout']}); ms, plain, bound and "
                  f"library are the core variant's (the forward), full_* the "
-                 f"full variant's (the backward's d_h)",
+                 f"full variant's (the backward's d_h), dense_* both on a "
+                 f"dense random tensor of the same shape",
         "max_abs_err": worst,
         "ms": core["ms"],
         "plain_ms": core["plain_ms"],
-        "bound_ms": core["bound_ms"],
-        "bound_by": core["bound_by"],
+        "bound_ms": core["live_bound_ms"],
+        "bound_by": core["live_bound_by"],
+        "bound_note": "bound_ms counts the multiply-adds of the bricks "
+                      "whose input is not all zero (this input's work) at "
+                      "the f32 rate; bound_all_bricks_ms counts every brick "
+                      "(PR 5's basis); *_tf32_ms the same on the TF32 "
+                      "tensor cores in three passes",
+        "bound_tf32_ms": core["live_bound_tf32_ms"],
+        "bound_all_bricks_ms": core["bound_ms"],
+        "bound_all_bricks_tf32_ms": core["bound_tf32_ms"],
         "library_ms": core["conv3d_ms"],
+        "library_tf32_ms": core["conv3d_tf32_ms"],
         "library_note": "F.conv3d on the halo'd tensor's channels-first "
                         "view (a permute, no copy; cuDNN's layout handling "
-                        "is inside the timed call), TF32 off",
+                        "is inside the timed call), TF32 off; "
+                        "library_tf32_ms with TF32 allowed",
         "full_ms": full["ms"],
         "full_plain_ms": full["plain_ms"],
-        "full_bound_ms": full["bound_ms"],
+        "full_bound_ms": full["live_bound_ms"],
+        "dense_ms": dense_core["ms"],
+        "dense_bound_ms": dense_core["live_bound_ms"],
+        "dense_bound_tf32_ms": dense_core["live_bound_tf32_ms"],
+        "dense_library_ms": dense_core["conv3d_ms"],
+        "dense_full_ms": dense_full["ms"],
+        "dense_full_bound_ms": dense_full["live_bound_ms"],
     }
     log(f"phase 10a ok: brick_conv within {KERNEL_RTOL} x scale of plain at "
-        f"{len(rows)} level/variant cases; level 0 core "
-        f"{record['ms']:.3f} ms (bound {record['bound_ms']:.3f}, plain "
-        f"{record['plain_ms']:.3f}, F.conv3d {record['library_ms']:.3f}), "
-        f"full {record['full_ms']:.3f} ms (bound "
-        f"{record['full_bound_ms']:.3f})")
+        f"{len(rows)} level/input/variant cases, all-zero bricks exactly 0; "
+        f"level 0 of the plot ({core['live_bricks']} of {core['bricks']} "
+        f"bricks live): core {record['ms']:.3f} ms (bound "
+        f"{record['bound_ms']:.3f} live / {record['bound_all_bricks_ms']:.3f}"
+        f" all, f32; plain {record['plain_ms']:.3f}, F.conv3d "
+        f"{record['library_ms']:.3f}), full {record['full_ms']:.3f} ms; "
+        f"dense: core {record['dense_ms']:.3f} ms (bound "
+        f"{record['dense_bound_ms']:.3f} f32, "
+        f"{record['dense_bound_tf32_ms']:.3f} TF32; F.conv3d "
+        f"{record['dense_library_ms']:.3f}), full "
+        f"{record['dense_full_ms']:.3f} ms")
     return record, rows
 
 

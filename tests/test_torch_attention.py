@@ -143,3 +143,122 @@ def test_backward_matches_pallas_kernel(dtype):
         assert np.all(got.numpy()[pad] == 0.0), name
         assert leaf.grad.dtype == tdt, name
         assert torch.equal(leaf.grad, got.to(tdt)), name
+
+
+def test_plain_lse_matches_numpy():
+    """The plain forward's log-sum-exp of each row's allowed scaled scores
+    against numpy's in float64; rows with no allowed key 0; the forward
+    with lse gives the same output as the one without."""
+    q, k, v, seg = inputs(7, n_segments=3, pad_frac=0.3)
+    seg[1] = -1
+    out, lse = tatt.window_attention_fwd(t(q), t(k), t(v), t(seg))
+    s = np.einsum("whid,whjd->whij", q.astype(np.float64),
+                  k.astype(np.float64)) * q.shape[-1] ** -0.5
+    ok = (seg[:, :, None] == seg[:, None, :]) & (seg >= 0)[:, :, None]
+    s = np.where(ok[:, None], s, -np.inf)
+    m = np.max(s, axis=-1, keepdims=True)
+    m = np.where(np.isfinite(m), m, 0.0)
+    total = np.exp(s - m).sum(-1)
+    pad = np.broadcast_to((seg < 0)[:, None, :], total.shape)
+    want = np.where(pad, 0.0, np.log(np.where(pad, 1.0, total)) + m[..., 0])
+    assert lse.dtype == torch.float32 and lse.shape == want.shape
+    np.testing.assert_allclose(lse.numpy(), want, rtol=0, atol=1e-5)
+    assert np.all(lse.numpy()[pad] == 0.0) and np.abs(want).max() > 1.0
+    assert torch.equal(out, tatt.window_attention(t(q), t(k), t(v), t(seg)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_from_saved_lse_matches_pallas_kernel(dtype):
+    """The backward on the kernel's route, fed the forward's saved output
+    and log-sum-exp (P = exp(s - lse), rowsum(dp * P) = g . out), against
+    the JAX package's Pallas backward: dq, dk and dv within 1e-5 of their
+    scale, padding rows exactly 0."""
+    q, k, v, seg = inputs(8, w=2, k=128, n_segments=3)
+    g = np.random.default_rng(9).normal(size=q.shape).astype(np.float32)
+    want = jax_backward(q, k, v, seg, g, dtype)
+    tdt = getattr(torch, dtype)
+    qt, kt, vt = (t(x).to(tdt) for x in (q, k, v))
+    out, lse = tatt.window_attention_fwd(qt, kt, vt, t(seg))
+    got = tatt.window_attention_bwd_reference(qt, kt, vt, t(seg), t(g),
+                                              out=out, lse=lse)
+    pad = np.broadcast_to((seg < 0)[:, None, :, None], q.shape)
+    for name, x, ref in zip(("dq", "dk", "dv"), got, want):
+        scale = np.abs(ref).max()
+        assert scale > 0.1, name
+        np.testing.assert_allclose(x.numpy(), ref, rtol=0, atol=1e-5 * scale,
+                                   err_msg=name)
+        assert np.all(x.numpy()[pad] == 0.0), name
+
+
+def tf32(x):
+    """x rounded to TF32 as the CUDA kernels round it: to nearest, ties away
+    from zero (half a TF32 unit, 0x1000, added to the bits, then the low 13
+    mantissa bits cleared)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def mma_product(x, y, passes, group=1):
+    """x @ y as ``csrc/window_attention_bwd.cu`` computes it, each operand
+    split into TF32 hi and lo: per 8 terms of the sum the passes (``passes``
+    3: lo*hi + hi*lo + hi*hi, a pass dropped where that lo is zero; 1:
+    hi*hi alone) one mma at a time into a fresh f32 fragment (each product
+    exact, each sum rounded to f32), added to the f32 accumulator after
+    ``group`` such steps."""
+    x_hi, y_hi = tf32(x), tf32(y)
+    x_lo, y_lo = tf32(x - x_hi), tf32(y - y_hi)
+    terms = [(x_hi, y_hi)]
+    if passes == 3:
+        terms = [(a, b) for a, b in ((x_lo, y_hi), (x_hi, y_lo))
+                 if a.any() and b.any()] + terms
+    acc = np.zeros((x.shape[0], y.shape[1]), np.float32)
+    for g0 in range(0, x.shape[1], 8 * group):
+        part = np.zeros_like(acc)
+        for k0 in range(g0, g0 + 8 * group, 8):
+            for a, b in terms:
+                part = (part + a[:, k0:k0 + 8].astype(np.float64)
+                        @ b[k0:k0 + 8].astype(np.float64)).astype(np.float32)
+        acc = acc + part
+    return acc
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_three_pass_tf32_backward_tile(dtype):
+    """The precision decision of the backward kernel on one 64-row tile at
+    D = 16 (one window and head, two segments, padding rows), from the
+    plain forward's f32 output and log-sum-exp: its five products in three
+    TF32 passes (bf16 q, k, v have no TF32 remainder, so those passes drop)
+    give dq, dk and dv within 1e-6 of their float64 scale; one TF32 pass
+    does not come within 1e-5."""
+    q, k, v, seg = inputs(10, w=1, h=1, k=64, d=16, n_segments=2,
+                          pad_frac=0.1)
+    g = np.random.default_rng(11).normal(size=q.shape).astype(np.float32)
+    if dtype == "bfloat16":
+        q, k, v = (t(x).to(torch.bfloat16).float().numpy()
+                   for x in (q, k, v))
+        assert not any((x - tf32(x)).any() for x in (q, k, v))
+    out, lse = tatt.window_attention_fwd(t(q), t(k), t(v), t(seg))
+    want = tatt.window_attention_bwd_reference(
+        *(t(x).double() for x in (q, k, v)), t(seg), t(g).double())
+    scale = 16**-0.5
+    q1, k1, v1, g1 = (x[0, 0] for x in (q, k, v, g))
+    ok = tatt.allowed_pairs(t(seg)).numpy()[0]
+    delta = (g1 * out.numpy()[0, 0]).sum(-1, keepdims=True)
+    for passes, limit in ((3, 1e-6), (1, None)):
+        s = mma_product(q1, k1.T, passes, group=2)
+        p = np.where(ok, np.exp(s * scale - lse.numpy()[0, 0, :, None]), 0)
+        p = p.astype(np.float32)
+        dp = mma_product(g1, v1.T, passes, group=2)
+        ds = (p * (dp - delta)).astype(np.float32)
+        got = (mma_product(ds, k1, passes) * scale,
+               mma_product(ds.T, q1, passes) * scale,
+               mma_product(p.T, g1, passes))
+        errs = [np.abs(x - w.numpy()[0, 0]).max() / np.abs(w.numpy()).max()
+                for x, w in zip(got, want)]
+        if limit:
+            assert max(errs) <= limit, errs
+            pad = seg[0] < 0
+            assert all(np.all(x[pad] == 0) for x in got)
+        else:
+            assert max(errs) > 1e-5, errs

@@ -134,3 +134,75 @@ def test_full_variant_matches_jax_on_any_input():
     # the core variant is the full variant's core cells
     np.testing.assert_allclose(full_t[:, tbc.core_cells()].numpy(),
                                core_t.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def tf32(x):
+    """x rounded to TF32 as the CUDA kernels round it: to nearest, ties away
+    from zero (half a TF32 unit, 0x1000, added to the bits, then the low 13
+    mantissa bits cleared)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def split_tf32(x):
+    """The kernels' split of an f32 value into TF32 hi and lo."""
+    hi = tf32(x)
+    return hi, tf32(np.asarray(x, np.float32) - hi)
+
+
+def emulate_brick_kernel(h, w, core_only, passes):
+    """``csrc/brick_conv.cu``'s arithmetic in numpy: per 16-channel chunk
+    and offset, for each of its two 8-channel k-steps the split operands'
+    products (lo*hi, hi*lo, hi*hi; ``passes=1``: hi*hi alone) summed one
+    mma at a time into a fresh f32 fragment (each product exact, each sum
+    rounded to f32), which is then added to the f32 accumulator."""
+    cells = (tbc.core_cells() if core_only else torch.arange(216)).numpy()
+    acc = np.zeros((h.shape[0], len(cells), w.shape[-1]), np.float32)
+    for c0 in range(0, h.shape[-1], 16):
+        for k, delta in enumerate(tbc.DELTAS):
+            a = h[:, (cells + delta) % 216]
+            part = np.zeros_like(acc)
+            for ks in (c0, c0 + 8):
+                a_hi, a_lo = split_tf32(a[..., ks:ks + 8])
+                b_hi, b_lo = split_tf32(w[k, ks:ks + 8])
+                terms = ([(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)]
+                         if passes == 3 else [(a_hi, b_hi)])
+                for x, y in terms:
+                    part = (part + x.astype(np.float64)
+                            @ y.astype(np.float64)).astype(np.float32)
+            acc = acc + part
+    return acc
+
+
+@pytest.mark.parametrize("core_only", [True, False])
+def test_three_pass_tf32_precision(core_only):
+    """The precision decision of the CUDA kernel, at the plot's level-0
+    width (32 -> 32), four bricks, one all zero: three TF32 passes land
+    within 1e-6 of the output scale of float64, one pass does not come
+    within 1e-5, and the all-zero brick's rows are exactly 0."""
+    rng = np.random.default_rng(7)
+    h = rng.normal(size=(4, 216, 32)).astype(np.float32)
+    h[2] = 0
+    w = (rng.normal(size=(27, 32, 32)) / np.sqrt(27 * 32)).astype(np.float32)
+    ref = tbc.brick_conv_cells_plain(
+        t(h).double(), t(w).double(), core_only).numpy()
+    scale = np.abs(ref).max()
+    three = emulate_brick_kernel(h, w, core_only, passes=3)
+    one = emulate_brick_kernel(h, w, core_only, passes=1)
+    assert np.abs(three - ref).max() <= 1e-6 * scale
+    assert np.abs(one - ref).max() > 1e-5 * scale
+    assert np.all(three[2] == 0) and scale > 1.0
+
+
+@pytest.mark.parametrize("core_only", [True, False])
+def test_plain_zero_brick_gives_exact_zeros(core_only):
+    """The plain version on an all-zero brick between non-zero ones: its
+    rows are exactly 0, as the kernel writes them without products."""
+    rng = np.random.default_rng(8)
+    h = rng.normal(size=(3, 216, 8)).astype(np.float32)
+    h[1] = 0
+    w = (rng.normal(size=(27, 8, 16)) * 0.2).astype(np.float32)
+    out = tbc.brick_conv_cells(t(h), t(w), core_only=core_only).numpy()
+    assert np.all(out[1] == 0)
+    assert np.all(np.abs(out[[0, 2]]).max(axis=(1, 2)) > 0.1)

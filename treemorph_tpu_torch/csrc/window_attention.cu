@@ -7,7 +7,10 @@
 //   out[w, h, i] = sum_j softmax_j(q_i . k_j * D^-1/2) v_j
 //
 // over the keys j allowed for query i: seg[w, i] == seg[w, j] >= 0. A query
-// with no allowed key (padding rows, seg -1) writes 0, never NaN.
+// with no allowed key (padding rows, seg -1) writes 0, never NaN. When the
+// caller passes an lse buffer (training: csrc/window_attention_bwd.cu reads
+// it), every row also writes its log-sum-exp m + log(l) of the scaled
+// scores (0 for a row with no allowed key); inference passes none.
 //
 // The TPU kernel holds a window's whole (K, K) score tile in VMEM (4 MB at
 // K = 1024), 18x the 227 KB of shared memory a block may use. Here one block
@@ -52,6 +55,7 @@ window_attention_kernel(const T* __restrict__ q,          // (W, H, K, D)
                         const T* __restrict__ v,          // (W, H, K, D)
                         const int32_t* __restrict__ seg,  // (W, K)
                         float* __restrict__ out,          // (W, H, K, D)
+                        float* __restrict__ lse,          // (W, H, K) or null
                         int heads, int kk, float scale) {
   __shared__ __align__(16) float k_s[TILE * D];
   __shared__ __align__(16) float v_s[TILE * D];
@@ -83,6 +87,7 @@ window_attention_kernel(const T* __restrict__ q,          // (W, H, K, D)
   if (hi < 0) {  // every query row is padding
 #pragma unroll
     for (int d = 0; d < D; ++d) out_row[d] = 0.f;
+    if (lse) lse[(size_t)wh * kk + row] = 0.f;
     return;
   }
 
@@ -136,6 +141,9 @@ window_attention_kernel(const T* __restrict__ q,          // (W, H, K, D)
       for (int d = 0; d < D; ++d) acc[d] *= alpha;
 #pragma unroll
       for (int j = 0; j < CHUNK; ++j) {
+        // ptxas spills 12 bytes here at D = 16 and 32; a select in place
+        // of the branch spills none but made the plot's forward 5 % slower
+        // on the card (24.2 -> 25.4 ms), so the branch stays
         if (s[j] == -INFINITY) continue;
         const float p = expf(s[j] - m_new);
         l += p;
@@ -156,34 +164,39 @@ window_attention_kernel(const T* __restrict__ q,          // (W, H, K, D)
   const float inv = 1.f / fmaxf(l, 1e-20f);
 #pragma unroll
   for (int d = 0; d < D; ++d) out_row[d] = acc[d] * inv;
+  if (lse) lse[(size_t)wh * kk + row] = l > 0.f ? m + logf(l) : 0.f;
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int32_t* seg, float* out, int n_windows, int heads,
-                   int kk, float scale, cudaStream_t stream) {
+                   const int32_t* seg, float* out, float* lse, int n_windows,
+                   int heads, int kk, float scale, cudaStream_t stream) {
   const long long blocks = (long long)n_windows * heads * (kk / TILE);
   if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidConfiguration;
   window_attention_kernel<T, D><<<(unsigned)blocks, TILE, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), seg, out, heads, kk, scale);
+      static_cast<const T*>(v), seg, out, lse, heads, kk, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_dim(const void* q, const void* k, const void* v,
-                       const int32_t* seg, float* out, int n_windows,
-                       int heads, int kk, int d, float scale,
+                       const int32_t* seg, float* out, float* lse,
+                       int n_windows, int heads, int kk, int d, float scale,
                        cudaStream_t s) {
   switch (d) {
     case 8:
-      return launch<T, 8>(q, k, v, seg, out, n_windows, heads, kk, scale, s);
+      return launch<T, 8>(q, k, v, seg, out, lse, n_windows, heads, kk,
+                          scale, s);
     case 16:
-      return launch<T, 16>(q, k, v, seg, out, n_windows, heads, kk, scale, s);
+      return launch<T, 16>(q, k, v, seg, out, lse, n_windows, heads, kk,
+                           scale, s);
     case 32:
-      return launch<T, 32>(q, k, v, seg, out, n_windows, heads, kk, scale, s);
+      return launch<T, 32>(q, k, v, seg, out, lse, n_windows, heads, kk,
+                           scale, s);
     case 64:
-      return launch<T, 64>(q, k, v, seg, out, n_windows, heads, kk, scale, s);
+      return launch<T, 64>(q, k, v, seg, out, lse, n_windows, heads, kk,
+                           scale, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -195,12 +208,13 @@ extern "C" {
 
 // Launches the kernel on `stream`; returns the CUDA error code (0 = ok).
 // q, k, v are (n_windows, heads, kk, d), f32 or (inputs_bf16) bf16; seg is
-// (n_windows, kk) int32; out is (n_windows, heads, kk, d) f32. d must be
-// 8, 16, 32 or 64 and kk a positive multiple of 64.
+// (n_windows, kk) int32; out is (n_windows, heads, kk, d) f32; lse is null
+// or (n_windows, heads, kk) f32. d must be 8, 16, 32 or 64 and kk a
+// positive multiple of 64.
 int window_attention_launch(const void* q, const void* k, const void* v,
                             const void* seg, int inputs_bf16, void* out,
-                            int n_windows, int heads, int kk, int d,
-                            float scale, void* stream) {
+                            void* lse, int n_windows, int heads, int kk,
+                            int d, float scale, void* stream) {
   if (n_windows < 0 || heads < 1 || kk < TILE || kk % TILE != 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -208,12 +222,13 @@ int window_attention_launch(const void* q, const void* k, const void* v,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* sg = static_cast<const int32_t*>(seg);
   auto* o = static_cast<float*>(out);
+  auto* l = static_cast<float*>(lse);
   const cudaError_t err =
       inputs_bf16
-          ? launch_dim<__nv_bfloat16>(q, k, v, sg, o, n_windows, heads, kk, d,
-                                      scale, s)
-          : launch_dim<float>(q, k, v, sg, o, n_windows, heads, kk, d, scale,
-                              s);
+          ? launch_dim<__nv_bfloat16>(q, k, v, sg, o, l, n_windows, heads, kk,
+                                      d, scale, s)
+          : launch_dim<float>(q, k, v, sg, o, l, n_windows, heads, kk, d,
+                              scale, s);
   return (int)err;
 }
 

@@ -15,7 +15,10 @@ cotangent embedded in the 216 cells, whose halo is zero, so the wrapped
 terms vanish there.
 
 On the card :func:`brick_conv_cells` launches ``csrc/brick_conv.cu`` (both
-variants); on the CPU it takes its plain version. :class:`_BrickConvCore`
+variants: an implicit GEMM on the TF32 tensor cores in three passes, which
+writes zeros for a brick whose whole input is zero and skips its products);
+on the CPU it takes its plain version, whose products on an all-zero brick
+are exact zeros too. :class:`_BrickConvCore`
 is the ``torch.autograd.Function`` of the JAX package's custom VJP:
 ``d_h`` is the full variant on the embedded cotangent with the
 offset-flipped, channel-transposed kernel, ``d_w`` 27 slab products in
@@ -93,10 +96,14 @@ def brick_conv_cells(h: torch.Tensor, weights: torch.Tensor,
     lib = _library()
     out = torch.empty((b, 64 if core_only else CELLS6, cout),
                       dtype=torch.float32, device=h.device)
+    # the split weights and the live-brick list
+    workspace = torch.empty(lib.brick_conv_workspace_bytes(b, cin, cout),
+                            dtype=torch.uint8, device=h.device)
     with torch.cuda.device(h.device):
         rc = lib.brick_conv_launch(
-            h.data_ptr(), weights.data_ptr(), out.data_ptr(), b, cin, cout,
-            int(core_only), stream_handle(h.device),
+            h.data_ptr(), weights.data_ptr(), out.data_ptr(),
+            workspace.data_ptr(), b, cin, cout, int(core_only),
+            stream_handle(h.device),
         )
     check_launch("brick_conv", rc)
     LAUNCHES["brick_conv"] += 1
@@ -107,8 +114,10 @@ def _library():
     lib = load_library("brick_conv")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.brick_conv_launch.argtypes = [p, p, p, i, i, i, i, p]
+        lib.brick_conv_launch.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.brick_conv_launch.restype = ctypes.c_int
+        lib.brick_conv_workspace_bytes.argtypes = [i, i, i]
+        lib.brick_conv_workspace_bytes.restype = ctypes.c_size_t
         lib._typed = True
     return lib
 
