@@ -13,7 +13,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. Kernel against plain: ``band_conv_padded`` against its plain PyTorch
    version on the card, bf16 and f32, at the level shapes of the e2e cloud
    (level 0 ~P/2 rows: 7->32, 32->32, 64->32; level 1: 64->64, 128->64;
-   level 2: 96->96), with CUDA-event times and the bound for each.
+   level 2: 96->96), with CUDA-event times, the bound at the f32 rate and
+   the bound at the kernel's tensor-core passes (which term sets each),
+   and the time of the SIMT kernel this one replaced (``SIMT_MS``).
 3. Stage 1 on the card against the CPU: the same model and weights on a
    ~20k-point cut of the e2e cloud; offsets and noise argmax must agree.
 4. End to end at full width: the pipeline's TreeLearn (channels 32, three
@@ -27,8 +29,10 @@ reference's training batch, written to a temporary directory):
 5. Backward kernel against plain: ``band_conv_bwd_padded`` against its plain
    version on the card, bf16 and f32, at the level shapes of the first
    30-tree batch (every (level, Cin, Cout) of the 20 convs that take it),
-   with CUDA-event times and the bound; the forward kernel is timed at the
-   same shapes.
+   with CUDA-event times of the call and of its two launches apart
+   (``d_feats``: the forward kernel; ``d_w``: ``band_conv_dw_padded``),
+   both bounds and the SIMT kernels' times; the forward kernel is timed at
+   the same shapes.
 6. Training on the card: each band conv of a full-width f32 train step
    differentiated alone through autograd against the gather engine's
    backward, with the step's own cotangents and with random ones; one
@@ -37,7 +41,8 @@ reference's training batch, written to a temporary directory):
    against CPU (bf16); then the training CLI at full width (one CV fold,
    3 epochs of 2 steps, band engine, bf16), counting the kernels'
    launches; then a timed step split into forward, backward and
-   optimizer.
+   optimizer, and one more step under ``torch.profiler`` (device busy
+   share, top operators and kernels).
 
 PTv3 serving (the pipeline's ``pointtransformerv3`` family at full width,
 seeded weights, f32, on the e2e cloud given seeded per-point features):
@@ -140,6 +145,64 @@ BF16_FLOPS = 989e12
 #: the TF32 tensor-core rate, which the brick conv and the attention
 #: backward run on (in three passes for f32 operands, 3xTF32)
 TF32_FLOPS = 495e12
+#: the band kernels' arithmetic on the tensor cores: (rate, passes) per
+#: feature type. Forward and d_feats: bf16 features by three bf16 weight
+#: pieces, or 3xTF32; d_w: bf16 by bf16 in one pass, or 3xTF32
+BAND_TC = {"torch.bfloat16": (BF16_FLOPS, 3), "torch.float32": (TF32_FLOPS, 3)}
+DW_TC = {"torch.bfloat16": (BF16_FLOPS, 1), "torch.float32": (TF32_FLOPS, 3)}
+#: ms per call of the SIMT f32 band kernels these kernels replaced (commit
+#: ddf01be), at each (part, level, Cin, Cout, type): "fwd" the forward on
+#: the e2e plot's levels (phase 2), "train_fwd", "bwd" (the whole
+#: band_conv_bwd_padded) and "bwd_d_feats" (its forward launch) on the
+#: training batch's (phase 5); the mean of two runs of
+#: treemorph_tpu_torch/scripts/time_band_kernels.py on a checkout of that
+#: commit, in one call on one NVIDIA H100 80GB HBM3 at 700 W
+SIMT_MS: dict = {
+    ('fwd', 0, 7, 32, 'torch.bfloat16'): 0.2522,
+    ('fwd', 0, 7, 32, 'torch.float32'): 0.2600,
+    ('fwd', 0, 32, 32, 'torch.bfloat16'): 0.5458,
+    ('fwd', 0, 32, 32, 'torch.float32'): 0.5400,
+    ('fwd', 0, 64, 32, 'torch.bfloat16'): 0.9457,
+    ('fwd', 0, 64, 32, 'torch.float32'): 0.9527,
+    ('fwd', 1, 64, 64, 'torch.bfloat16'): 0.5655,
+    ('fwd', 1, 64, 64, 'torch.float32'): 0.5532,
+    ('fwd', 1, 128, 64, 'torch.bfloat16'): 1.0703,
+    ('fwd', 1, 128, 64, 'torch.float32'): 1.0517,
+    ('fwd', 2, 96, 96, 'torch.bfloat16'): 0.8635,
+    ('fwd', 2, 96, 96, 'torch.float32'): 0.8589,
+    ('train_fwd', 0, 7, 32, 'torch.bfloat16'): 0.6106,
+    ('train_fwd', 0, 7, 32, 'torch.float32'): 0.6225,
+    ('train_fwd', 0, 32, 32, 'torch.bfloat16'): 1.9630,
+    ('bwd', 0, 32, 32, 'torch.bfloat16'): 3.4578,
+    ('bwd_d_feats', 0, 32, 32, 'torch.bfloat16'): 1.9410,
+    ('train_fwd', 0, 32, 32, 'torch.float32'): 1.9333,
+    ('bwd', 0, 32, 32, 'torch.float32'): 3.4711,
+    ('bwd_d_feats', 0, 32, 32, 'torch.float32'): 1.9250,
+    ('train_fwd', 0, 64, 32, 'torch.bfloat16'): 3.7582,
+    ('bwd', 0, 64, 32, 'torch.bfloat16'): 5.7071,
+    ('bwd_d_feats', 0, 64, 32, 'torch.bfloat16'): 2.8672,
+    ('train_fwd', 0, 64, 32, 'torch.float32'): 3.7288,
+    ('bwd', 0, 64, 32, 'torch.float32'): 5.8060,
+    ('bwd_d_feats', 0, 64, 32, 'torch.float32'): 2.8577,
+    ('train_fwd', 1, 64, 64, 'torch.bfloat16'): 2.3591,
+    ('bwd', 1, 64, 64, 'torch.bfloat16'): 5.0109,
+    ('bwd_d_feats', 1, 64, 64, 'torch.bfloat16'): 2.3578,
+    ('train_fwd', 1, 64, 64, 'torch.float32'): 2.3131,
+    ('bwd', 1, 64, 64, 'torch.float32'): 5.0560,
+    ('bwd_d_feats', 1, 64, 64, 'torch.float32'): 2.3621,
+    ('train_fwd', 1, 128, 64, 'torch.bfloat16'): 4.6167,
+    ('bwd', 1, 128, 64, 'torch.bfloat16'): 9.8312,
+    ('bwd_d_feats', 1, 128, 64, 'torch.bfloat16'): 4.5845,
+    ('train_fwd', 1, 128, 64, 'torch.float32'): 4.5173,
+    ('bwd', 1, 128, 64, 'torch.float32'): 10.0322,
+    ('bwd_d_feats', 1, 128, 64, 'torch.float32'): 4.5078,
+    ('train_fwd', 2, 96, 96, 'torch.bfloat16'): 2.8066,
+    ('bwd', 2, 96, 96, 'torch.bfloat16'): 5.4367,
+    ('bwd_d_feats', 2, 96, 96, 'torch.bfloat16'): 2.7875,
+    ('train_fwd', 2, 96, 96, 'torch.float32'): 2.7579,
+    ('bwd', 2, 96, 96, 'torch.float32'): 5.5856,
+    ('bwd_d_feats', 2, 96, 96, 'torch.float32'): 2.7628,
+}
 
 #: (level, Cin, Cout, launches per forward) of every band conv of the
 #: pipeline's TreeLearn (channels 32, num_blocks 3): level 0 has the input
@@ -453,7 +516,8 @@ def phase_kernel_vs_plain(points, device):
     gen = torch.Generator(device=device).manual_seed(0)
     rows, worst = [], 0.0
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-              "bytes": 0.0, "flops": 0.0}
+              "bytes": 0.0, "flops": 0.0, "bound_tc_ms": 0.0,
+              "simt_ms": 0.0}
     for level, cin, cout, count in LEVEL_CONVS:
         plan = plans[level]
         m = plan.rulebook.shape[0]
@@ -489,16 +553,21 @@ def phase_kernel_vs_plain(points, device):
                                  flops / F32_FLOPS)
             row = dict(level=level, cin=cin, cout=cout, dtype=str(dtype),
                        m=m, nnz=nnz, launches_per_forward=count,
-                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms,
+                       max_abs_err=err, err_over_scale=err / scale, ms=ms,
+                       simt_ms=SIMT_MS.get(("fwd", level, cin, cout,
+                                            str(dtype))),
+                       plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by="bytes" if nbytes / HBM_BYTES_PER_S
-                       > flops / F32_FLOPS else "operations")
+                       > flops / F32_FLOPS else "operations",
+                       **tc_bound(nbytes, flops, BAND_TC[str(dtype)]))
             rows.append(row)
             log("kernel " + json.dumps(row))
             if dtype == torch.bfloat16:
                 for key, val in (("ms", ms), ("plain_ms", plain_ms),
                                  ("bound_ms", bound_ms), ("bytes", nbytes),
-                                 ("flops", flops)):
+                                 ("flops", flops),
+                                 ("bound_tc_ms", row["bound_tc_ms"]),
+                                 ("simt_ms", row["simt_ms"] or 0.0)):
                     totals[key] += count * val
     shape = "; ".join(
         f"L{level} ({plans[level].rb_tiles.shape[0] * TILE}, {cin})->"
@@ -518,12 +587,27 @@ def phase_kernel_vs_plain(points, device):
         "bound_by": "bytes" if totals["bytes"] / HBM_BYTES_PER_S
         > totals["flops"] / F32_FLOPS else "operations",
         "library_ms": None,
+        "bound_tc_ms": totals["bound_tc_ms"],
+        "simt_ms": totals["simt_ms"] or None,
+        "max_err_over_scale": max(r["err_over_scale"] for r in rows),
     }
     log(f"phase 2 ok: band_conv within {KERNEL_RTOL} x scale of plain at "
         f"{len(rows)} shape/type cases; one forward's 21 launches (bf16): "
-        f"kernel {totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, "
-        f"bound {totals['bound_ms']:.3f} ms")
+        f"kernel {totals['ms']:.3f} ms (SIMT kernel "
+        f"{totals['simt_ms']:.3f} ms), plain {totals['plain_ms']:.3f} ms, "
+        f"bound {totals['bound_ms']:.3f} ms at the f32 rate, "
+        f"{totals['bound_tc_ms']:.3f} ms in the kernel's passes")
     return record, rows
+
+
+def tc_bound(nbytes: float, flops: float, rate_passes) -> dict:
+    """The bound at the tensor-core arithmetic a kernel uses: the bytes at
+    the HBM rate against ``passes`` times the multiply-adds at ``rate``,
+    and which of the two sets it."""
+    rate, passes = rate_passes
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, passes * flops / rate
+    return {"bound_tc_ms": 1e3 * max(bytes_s, ops_s),
+            "bound_tc_by": "bytes" if bytes_s > ops_s else "operations"}
 
 
 def phase_stage1_card_vs_cpu(points, device):
@@ -744,6 +828,7 @@ def phase_bwd_kernel_vs_plain(batch, capacity, device):
         TILE,
         band_conv_bwd_padded,
         band_conv_bwd_padded_plain,
+        band_conv_dw_padded,
         band_conv_padded,
     )
     from treemorph_tpu_torch.train.families import _flatten_padded
@@ -771,7 +856,9 @@ def phase_bwd_kernel_vs_plain(batch, capacity, device):
 
     rows, worst, worst_rel = [], 0.0, 0.0
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_s": 0.0,
-              "ops_s": 0.0, "fwd_ms": 0.0, "fwd_bound_ms": 0.0}
+              "ops_s": 0.0, "fwd_ms": 0.0, "fwd_bound_ms": 0.0,
+              "d_feats_ms": 0.0, "d_w_ms": 0.0, "bound_tc_ms": 0.0,
+              "simt_ms": 0.0, "simt_fwd_ms": 0.0, "fwd_bound_tc_ms": 0.0}
     for level, cin, cout, count in LEVEL_CONVS:
         plan = plans[level]
         m = plan.rulebook.shape[0]
@@ -784,14 +871,18 @@ def phase_bwd_kernel_vs_plain(batch, capacity, device):
             feats = rows_of(plan, cin, dtype)
             fwd_ms = cuda_ms(lambda: band_conv_padded(
                 plan.rb_tiles, plan.starts, feats, w, m, plan.win), 20)
-            fwd_bound_ms = 1e3 * max(
-                (mp * 27 * 4 + mp * cin * feats.element_size()
-                 + 27 * cin * cout * 4 + mp * cout * 4) / HBM_BYTES_PER_S,
-                2.0 * nnz * cin * cout / F32_FLOPS,
-            )
+            fwd_bytes = (mp * 27 * 4 + mp * cin * feats.element_size()
+                         + 27 * cin * cout * 4 + mp * cout * 4)
+            fwd_flops = 2.0 * nnz * cin * cout
+            fwd_bound_ms = 1e3 * max(fwd_bytes / HBM_BYTES_PER_S,
+                                     fwd_flops / F32_FLOPS)
+            fwd_tc = tc_bound(fwd_bytes, fwd_flops, BAND_TC[str(dtype)])
             if dtype == torch.bfloat16:
                 totals["fwd_ms"] += count * fwd_ms
                 totals["fwd_bound_ms"] += count * fwd_bound_ms
+                totals["fwd_bound_tc_ms"] += count * fwd_tc["bound_tc_ms"]
+                totals["simt_fwd_ms"] += count * SIMT_MS.get(
+                    ("train_fwd", level, cin, cout, str(dtype)), 0.0)
             if cin == 7:  # the stem takes the gather formulation backward
                 continue
             grad = rows_of(plan, cout, dtype)
@@ -815,6 +906,10 @@ def phase_bwd_kernel_vs_plain(batch, capacity, device):
                     )
             worst = max(worst, *errs.values())
             ms = cuda_ms(lambda: band_conv_bwd_padded(*args), 20)
+            d_feats_ms = cuda_ms(lambda: band_conv_padded(
+                plan.rb_tiles, plan.starts, grad, w_bwd, m, plan.win), 20)
+            d_w_ms = cuda_ms(lambda: band_conv_dw_padded(
+                plan.rb_tiles, plan.starts, grad, feats, m, plan.win), 20)
             plain_ms = cuda_ms(lambda: band_conv_bwd_padded_plain(*args), 3)
             # each input read once (rulebook, anchors, gradient, features,
             # filters), each output written once (d_feats, d_w)
@@ -831,19 +926,34 @@ def phase_bwd_kernel_vs_plain(batch, capacity, device):
             ops_s = flops / F32_FLOPS + flops / dw_rate
             bytes_s = nbytes / HBM_BYTES_PER_S
             bound_ms = 1e3 * max(bytes_s, ops_s)
+            # at the kernels' own arithmetic: d_feats in the forward's
+            # passes, d_w in its own
+            (f_rate, f_passes), (w_rate, w_passes) = (BAND_TC[str(dtype)],
+                                                      DW_TC[str(dtype)])
+            tc = tc_bound(nbytes, flops, (1.0, f_passes / f_rate
+                                          + w_passes / w_rate))
+            key = (level, cin, cout, str(dtype))
             row = dict(level=level, cin=cin, cout=cout, dtype=str(dtype),
                        m=m, nnz=nnz, launches_per_step=count,
                        err_d_feats=errs["d_feats"], err_d_w=errs["d_w"],
-                       ms=ms, fwd_ms=fwd_ms, fwd_bound_ms=fwd_bound_ms,
+                       ms=ms, d_feats_ms=d_feats_ms, d_w_ms=d_w_ms,
+                       simt_ms=SIMT_MS.get(("bwd",) + key),
+                       simt_d_feats_ms=SIMT_MS.get(("bwd_d_feats",) + key),
+                       simt_fwd_ms=SIMT_MS.get(("train_fwd",) + key),
+                       fwd_ms=fwd_ms, fwd_bound_ms=fwd_bound_ms,
+                       fwd_bound_tc_ms=fwd_tc["bound_tc_ms"],
                        plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by="bytes" if bytes_s > ops_s
-                       else "operations")
+                       else "operations", **tc)
             rows.append(row)
             log("kernel " + json.dumps(row))
             if dtype == torch.bfloat16:
                 for key, val in (("ms", ms), ("plain_ms", plain_ms),
                                  ("bound_ms", bound_ms), ("bytes_s", bytes_s),
-                                 ("ops_s", ops_s)):
+                                 ("ops_s", ops_s), ("d_feats_ms", d_feats_ms),
+                                 ("d_w_ms", d_w_ms),
+                                 ("bound_tc_ms", tc["bound_tc_ms"]),
+                                 ("simt_ms", row["simt_ms"] or 0.0)):
                     totals[key] += count * val
     shape = "; ".join(
         f"L{level} ({plans[level].rb_tiles.shape[0] * TILE}, {cout}) grad, "
@@ -864,16 +974,32 @@ def phase_bwd_kernel_vs_plain(batch, capacity, device):
         "bound_by": "bytes" if totals["bytes_s"] > totals["ops_s"]
         else "operations",
         "library_ms": None,
+        "bound_tc_ms": totals["bound_tc_ms"],
+        "simt_ms": totals["simt_ms"] or None,
+        "d_feats_ms": totals["d_feats_ms"],
+        "d_w_ms": totals["d_w_ms"],
     }
     per_step = {"band_forward_ms_per_step": totals["fwd_ms"],
                 "band_forward_bound_ms_per_step": totals["fwd_bound_ms"],
-                "band_backward_ms_per_step": totals["ms"]}
+                "band_forward_bound_tc_ms_per_step":
+                    totals["fwd_bound_tc_ms"],
+                "band_backward_ms_per_step": totals["ms"],
+                "band_backward_d_feats_ms_per_step": totals["d_feats_ms"],
+                "band_backward_d_w_ms_per_step": totals["d_w_ms"],
+                "simt_forward_ms_per_step": totals["simt_fwd_ms"],
+                "simt_backward_ms_per_step": totals["simt_ms"]}
     log(f"phase 5 ok: band_conv_bwd within {KERNEL_RTOL} x scale of plain "
-        f"at {len(rows)} shape/type cases; one step's {BWD_PER_STEP} "
-        f"launches (bf16): kernel {totals['ms']:.3f} ms, plain "
-        f"{totals['plain_ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms; "
-        f"the step's 21 forward launches {totals['fwd_ms']:.3f} ms, bound "
-        f"{totals['fwd_bound_ms']:.3f} ms")
+        f"at {len(rows)} shape/type cases (worst {worst_rel:.2e} of scale); "
+        f"one step's {BWD_PER_STEP} calls (bf16): {totals['ms']:.3f} ms "
+        f"(d_feats {totals['d_feats_ms']:.3f} ms, d_w "
+        f"{totals['d_w_ms']:.3f} ms; SIMT kernels {totals['simt_ms']:.3f} "
+        f"ms), plain {totals['plain_ms']:.3f} ms, bound "
+        f"{totals['bound_ms']:.3f} ms at the f32 rate, "
+        f"{totals['bound_tc_ms']:.3f} ms in the kernels' passes; the step's "
+        f"21 forward launches {totals['fwd_ms']:.3f} ms (SIMT kernel "
+        f"{totals['simt_fwd_ms']:.3f} ms), bound "
+        f"{totals['fwd_bound_ms']:.3f} ms at the f32 rate, "
+        f"{totals['fwd_bound_tc_ms']:.3f} ms in the kernel's passes")
     return record, per_step
 
 
@@ -1026,6 +1152,15 @@ def compare_engine_steps(band, gather, ref):
         log(f"  {band_err[name] / scale[name]:.2e} / "
             f"{gather_err[name] / scale[name]:.2e} {name} "
             f"(scale {scale[name]:.3e})")
+    tails = [n for n in rows if "tail" in n]
+    if tails:
+        band_tail = max(tails, key=lambda n: band_err[n] / scale[n])
+        gather_tail = max(tails, key=lambda n: gather_err[n] / scale[n])
+        log(f"  tail convs against float64, worst over the leaf's own "
+            f"scale: band {band_err[band_tail] / scale[band_tail]:.2e} "
+            f"({band_tail}), gather "
+            f"{gather_err[gather_tail] / scale[gather_tail]:.2e} "
+            f"({gather_tail})")
     if not (loss_rel <= ENGINE_LOSS_RTOL and worst <= ENGINE_RTOL):
         raise AssertionError("band and gather train steps disagree")
 
@@ -1110,7 +1245,8 @@ def phase_training_cli(root, device):
 def phase_step_split(batch, capacity, device, reps=3):
     """Seconds of a full-width training step, split into forward (with the
     loss), backward and optimizer, host clock around synchronized work;
-    median of ``reps`` steps after one warm-up step."""
+    median of ``reps`` steps after one warm-up step; then one more step
+    under ``torch.profiler``."""
     import torch
 
     from treemorph_tpu_torch.ops.cuda import LAUNCHES, reset_launches
@@ -1120,10 +1256,8 @@ def phase_step_split(batch, capacity, device, reps=3):
     forward_fn, loss_fn = families.treelearn_family()
     opt = harness.make_optimizer(model)
     torch.cuda.reset_peak_memory_stats(device)
-    splits = []
-    for _ in range(reps + 1):
-        torch.cuda.synchronize()
-        reset_launches()
+
+    def step(times=None):
         t0 = time.perf_counter()
         out = forward_fn(model, batch, True)
         loss, _ = loss_fn(out, batch)
@@ -1135,10 +1269,16 @@ def phase_step_split(batch, capacity, device, reps=3):
         t2 = time.perf_counter()
         harness.optimizer_step(opt, 1e-2)
         torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        splits.append((t1 - t0, t2 - t1, t3 - t2))
+        if times is not None:
+            times.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
         if not torch.isfinite(loss):
             raise AssertionError("non-finite loss in the timed steps")
+
+    splits = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        reset_launches()
+        step(splits)
     fwd, bwd, optim = (statistics.median(x) for x in zip(*splits[1:]))
     record = {
         "train_step_seconds": fwd + bwd + optim,
@@ -1150,6 +1290,7 @@ def phase_step_split(batch, capacity, device, reps=3):
         "launches_per_step": dict(LAUNCHES),
     }
     log(json.dumps(record))
+    record["train_step_profile"] = profile_device(step, "TreeLearn train step")
     log("phase 6c ok")
     return record
 

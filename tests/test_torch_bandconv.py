@@ -135,3 +135,124 @@ def test_gate_admits_every_pipeline_conv_shape():
         for dtype in (torch.bfloat16, torch.float32):
             assert tband.band_viable(27, cin, cout, dtype)
     assert not tband.band_viable(125, 4, 32, torch.float32)
+
+
+def bf16_round(x):
+    """x rounded to bf16 as ``__float2bfloat16_rn`` rounds it: to nearest,
+    ties to even."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    bits = (bits + np.uint32(0x7FFF) + ((bits >> np.uint32(16)) & 1)) & \
+        np.uint32(0xFFFF0000)
+    return bits.view(np.float32)
+
+
+def bf16_pieces(w):
+    """The forward kernel's split of f32 weights into three bf16 pieces:
+    w1 = bf16(w), w2 = bf16(w - w1), w3 = bf16(w - w1 - w2)."""
+    w = np.asarray(w, np.float32)
+    w1 = bf16_round(w)
+    w2 = bf16_round(w - w1)
+    return w1, w2, bf16_round(w - w1 - w2)
+
+
+def one_tile(seed, cin, cout, bf16):
+    """One 128-row tile whose window holds every row: a random tiled
+    rulebook (about a third of the entries missing), features (bf16 values
+    in bf16 mode) and weights."""
+    rng = np.random.default_rng(seed)
+    m = 128
+    rb = rng.integers(0, m, size=(1, 27, m))
+    rb[rng.random(rb.shape) < 0.35] = m
+    feats = rng.normal(size=(m, cin)).astype(np.float32)
+    if bf16:
+        feats = bf16_round(feats)
+    w = (rng.normal(size=(27, cin, cout)) / np.sqrt(27 * cin)).astype(
+        np.float32)
+    return rb, feats, w
+
+
+def gathered(rb, x, k):
+    """Rows rb[0, k] of x, zero where not found (rb == m)."""
+    m = x.shape[0]
+    pad = np.concatenate([x, np.zeros((1, x.shape[1]), x.dtype)])
+    return pad[np.minimum(rb[0, k], m)]
+
+
+def forward_terms(a, w, scheme):
+    """The (A, B) operand pairs of one k-step's mma passes, in the order
+    the forward kernel issues them."""
+    from test_torch_bricks import split_tf32, tf32
+
+    if scheme == "bf16 pieces":
+        w1, w2, w3 = bf16_pieces(w)
+        return [(a, w3), (a, w2), (a, w1)]
+    if scheme == "bf16 weights":
+        return [(a, bf16_round(w))]
+    if scheme == "one tf32 pass":
+        return [(tf32(a), tf32(w))]
+    a_hi, a_lo = split_tf32(a)
+    w_hi, w_lo = split_tf32(w)
+    return [(a_lo, w_hi), (a_hi, w_lo), (a_hi, w_hi)]  # 3xTF32
+
+
+def emulate_band_forward(rb, feats, w, scheme):
+    """``csrc/band_conv.cu``'s arithmetic in numpy for one tile: per offset
+    and 64-byte channel chunk (two k-steps of 16 bf16 or 8 f32 channels,
+    zero-padded past Cin), the k-steps' passes summed one mma at a time
+    into a fresh f32 fragment (each product exact, each sum rounded to
+    f32), which is then added to the f32 accumulator."""
+    step = 16 if scheme in ("bf16 pieces", "bf16 weights") else 8
+    cin = feats.shape[1]
+    pad = -(-cin // (2 * step)) * 2 * step - cin
+    f = np.pad(feats, ((0, 0), (0, pad)))
+    wp = np.pad(w, ((0, 0), (0, pad), (0, 0)))
+    acc = np.zeros((feats.shape[0], w.shape[-1]), np.float32)
+    for k in range(27):
+        a = gathered(rb, f, k)
+        for c0 in range(0, f.shape[1], 2 * step):
+            part = np.zeros_like(acc)
+            for ks in (c0, c0 + step):
+                for x, y in forward_terms(a[:, ks:ks + step],
+                                          wp[k, ks:ks + step], scheme):
+                    part = (part + x.astype(np.float64)
+                            @ y.astype(np.float64)).astype(np.float32)
+            acc = acc + part
+    return acc
+
+
+@pytest.mark.parametrize("cin", [7, 32])
+@pytest.mark.parametrize("mode", ["bf16", "f32"])
+def test_forward_kernel_precision(cin, mode):
+    """The forward kernel's precision decision, at level 0's widths (7 ->
+    32, 32 -> 32) on one tile: bf16 features by three bf16 weight pieces
+    (bf16 mode) and 3xTF32 (f32 mode) land within 1e-6 of the output scale
+    of float64; a single TF32 pass, or weights rounded to bf16, misses
+    1e-5."""
+    rb, feats, w = one_tile(cin, cin, 32, mode == "bf16")
+    ref = sum(gathered(rb, feats.astype(np.float64), k)
+              @ w[k].astype(np.float64) for k in range(27))
+    scale = np.abs(ref).max()
+    schemes = (["bf16 pieces", "bf16 weights", "one tf32 pass"]
+               if mode == "bf16" else ["3xTF32", "one tf32 pass"])
+    errs = {s: np.abs(emulate_band_forward(rb, feats, w, s) - ref).max()
+            for s in schemes}
+    assert errs[schemes[0]] <= 1e-6 * scale
+    for s in schemes[1:]:
+        assert errs[s] > 1e-5 * scale, s
+    # the three pieces carry the whole f32 mantissa
+    w1, w2, w3 = bf16_pieces(w)
+    np.testing.assert_array_equal(
+        (w1.astype(np.float64) + w2 + w3).astype(np.float32), w)
+
+
+def test_kernel_shared_memory_fits_every_width():
+    """The forward kernel's blocks hold at most 128 columns (wider outputs
+    take several slices of equal width), so their shared memory fits at
+    any width in both types; the weight-gradient kernel's is fixed."""
+    assert [tband._slice_cols(c) for c in (7, 32, 64, 96, 128, 160, 192,
+                                           256)] == [32, 32, 64, 96, 128, 96,
+                                                     96, 128]
+    for cout in range(1, 400, 7):
+        for dtype in (torch.bfloat16, torch.float32):
+            assert tband.band_smem_bytes(cout, dtype) <= tband.SMEM_LIMIT
+    assert tband.band_bwd_smem_bytes() <= tband.SMEM_LIMIT

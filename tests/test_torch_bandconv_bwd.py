@@ -21,7 +21,7 @@ from treemorph_tpu.ops import sparse as jsp
 from treemorph_tpu_torch.ops import bandconv as tband
 from treemorph_tpu_torch.ops import sparse as tsp
 
-from test_torch_bandconv import level
+from test_torch_bandconv import bf16_round, gathered, level, one_tile
 from test_torch_ops import (  # noqa: F401
     fresh_jax_caches, one_torch_thread, t,
 )
@@ -199,3 +199,65 @@ def test_backward_wrapper_raises_on_devices_it_cannot_launch_for():
             torch.empty((9, 1), dtype=torch.int32, device="meta"),
             meta, meta, torch.empty((27, 8, 8), device="meta"), 100, 64,
         )
+
+
+def emulate_band_dw(rb, feats, grad, mode, passes=3):
+    """``csrc/band_conv_bwd.cu``'s arithmetic in numpy for one tile and a
+    32 x 32 slice: for offset k, ``F^T G_k`` over the tile's rows in k-steps
+    of 16 (bf16: one pass) or 8 (f32: lo*hi + hi*lo + hi*hi, or hi*hi
+    alone with ``passes=1``) rows, summed one mma at a time into a fresh
+    f32 fragment per stage (the tile's 128 rows in bf16 mode, 64 in f32
+    mode), each stage's fragment Kahan-added to the running sums.
+    Returns d_w (27, Cin, Cout) in the weights' offset order."""
+    from test_torch_bricks import split_tf32
+
+    step, stage = (16, 128) if mode == "bf16" else (8, 64)
+    d_w = np.zeros((27, feats.shape[1], grad.shape[1]), np.float32)
+    for k in range(27):
+        g_k = gathered(rb, grad, k)
+        total = np.zeros(d_w.shape[1:], np.float32)
+        comp = np.zeros_like(total)
+        for r0 in range(0, feats.shape[0], stage):
+            part = np.zeros_like(total)
+            for r in range(r0, r0 + stage, step):
+                f, g = feats[r:r + step].T, g_k[r:r + step]
+                if mode == "bf16":
+                    terms = [(f, g)]
+                else:
+                    f_hi, f_lo = split_tf32(f)
+                    g_hi, g_lo = split_tf32(g)
+                    terms = ([(f_lo, g_hi), (f_hi, g_lo), (f_hi, g_hi)]
+                             if passes == 3 else [(f_hi, g_hi)])
+                for x, y in terms:
+                    part = (part + x.astype(np.float64)
+                            @ y.astype(np.float64)).astype(np.float32)
+            y = part - comp
+            t_ = total + y
+            comp = (t_ - total) - y
+            total = t_
+        d_w[26 - k] = total - comp
+    return d_w
+
+
+@pytest.mark.parametrize("mode", ["bf16", "f32"])
+def test_weight_gradient_kernel_precision(mode):
+    """The weight-gradient kernel's precision decision at 32 -> 32 on one
+    tile, with a gradient whose terms cancel (zero mean over the rows, as a
+    BatchNorm's backward leaves it): bf16 x bf16 in one pass (exact
+    products) and 3xTF32 in f32 mode land within 1e-6 of the scale of
+    float64; one TF32 pass of f32 operands misses 1e-5."""
+    rb, feats, _ = one_tile(11, 32, 32, mode == "bf16")
+    rng = np.random.default_rng(12)
+    grad = rng.normal(size=(128, 32)).astype(np.float32)
+    grad -= grad.mean(axis=0)
+    if mode == "bf16":
+        grad = bf16_round(grad)
+    ref = np.stack([feats.astype(np.float64).T
+                    @ gathered(rb, grad.astype(np.float64), 26 - k)
+                    for k in range(27)])
+    scale = np.abs(ref).max()
+    assert np.abs(emulate_band_dw(rb, feats, grad, mode) - ref).max() \
+        <= 1e-6 * scale
+    if mode == "f32":
+        one = emulate_band_dw(rb, feats, grad, mode, passes=1)
+        assert np.abs(one - ref).max() > 1e-5 * scale

@@ -1,4 +1,5 @@
-// Band submanifold conv backward, weight gradient, for Hopper (sm_90a).
+// Band submanifold conv backward, weight gradient, for Hopper (sm_90a), on
+// the tensor cores.
 //
 // Replaces treemorph_tpu/ops/bandconv.py::_band_bwd_kernel (the Pallas TPU
 // kernel behind _band_bwd_padded) together with the forward kernel of
@@ -16,26 +17,51 @@
 // this is the forward entry (e, 26 - k) contribution to dW, counted once
 // from the side of the row that owns it, as build_band_plan counts entries;
 // the found entries outside their window are added by the caller's residual
-// repair. Products of bf16 (or f32) values are summed in f32.
+// repair.
 //
-// What bounds it on an H100: per in-window entry it does Cin * Cout FMAs
-// (f32, no tensor cores) and reads a share of the gradient windows, so at
-// TreeLearn's widths (Cin, Cout 32..128) it is bound by operations. Design:
-// block (x, g, z) owns group g's three filters for a 32 x 32 (Cin, Cout)
-// slice z and walks a contiguous run of tiles x. For each tile it stages the
-// group's gradient window (win x 32 floats), the tile's own 128 feature rows
-// (128 x 32 floats) and the rows' in-window indices in shared memory; each of
-// the 256 threads keeps 3 x 4 f32 accumulators (one input channel, four
-// output channels, three dz offsets) in registers. Each tile's rows are
-// summed on their own and then added to the block's running sums with Kahan
-// compensation: a block's sums run over thousands of entries whose terms
-// largely cancel (a BatchNorm's backward leaves gradients of zero mean), and
-// one sequential f32 chain over them would lose far more of the result than
-// a blocked matmul's sums do. A warp shares one row and four output columns,
-// so its window reads are broadcasts. Tiles whose rows reach nothing in the
-// group stage nothing. Each block writes its own partial sums and the
-// wrapper adds the partials up (no float atomics, so runs repeat bit for
-// bit). wgmma, TMA and fusing the d_feats pass are left for a later change.
+// What bounds it on an H100: per in-window entry it does Cin * Cout
+// multiply-adds and reads a gradient row, so at TreeLearn's widths (Cin,
+// Cout 32..128) it is bound by arithmetic, and without tensor cores by FP32
+// FMA issue. The design:
+//
+// - For each tile and offset k, dw[26 - k] += F_t^T (Cin x 128) . G_k (128 x
+//   Cout), a GEMM whose k dimension is the tile's rows: F_t is the tile's
+//   own 128 contiguous feature rows, G_k its 128 rulebook rows of the
+//   gradient, gathered from L2 with cp.async (rows not found, or outside
+//   their window, are zero-filled without a read).
+// - Block (x, plane, slice) owns the 9 offsets of one dx plane (three (dx,
+//   dy) groups) for a 32 x 32 (Cin, Cout) slice and walks a run of tiles x;
+//   each of its 9 warps owns one offset's 32 x 32 sums. Per tile the block
+//   stages the slice of F_t once for all 9 offsets (three times per tile in
+//   all, where the grid of one group per block read it nine times) and
+//   each warp gathers its own G_k. Why a plane and not all 27 offsets: a
+//   warp's running sums and their Kahan compensation take 64 registers a
+//   lane and the tile's fresh fragment 32 more, so 27 warps (864 threads)
+//   would have to live on 75 registers each; and the stage (F plus 9
+//   gathered G, 10 KB each) is double-buffered in 200 KB of shared memory,
+//   which a block of 27 offsets could not double-buffer.
+// - Rows sit at an 80-byte pitch (bf16) or a 40-float pitch (f32), so
+//   ldmatrix.trans (bf16) and the lanes' scalar loads (f32) hit 32 distinct
+//   banks. Stages are double-buffered with cp.async: a tile's rows load
+//   while the previous tile's products run, and each lane loads the next
+//   stage's rulebook entries one stage ahead.
+// - Precision: bf16 mode multiplies bf16 features by bf16 gradients, so one
+//   mma.sync.m16n8k16 bf16 pass gives exact products (A = F_t^T and B = G_k
+//   read with ldmatrix.trans, 8 k-steps of 16 rows per tile). f32 mode runs
+//   3xTF32 on mma.sync.m16n8k8 (hi = x rounded to TF32 to nearest, lo = the
+//   rest rounded the same way; lo*hi + hi*lo + hi*hi), 64 rows per stage.
+//   The products of a stage (one tile in bf16 mode, half of one in f32 mode)
+//   go into a fresh fragment (the tensor cores round each mma's sum toward
+//   zero), which is added to the warp's running sums with Kahan
+//   compensation: a block's sums run over thousands of entries whose terms
+//   largely cancel (a BatchNorm's backward leaves gradients of zero mean).
+//   tests/test_torch_bandconv_bwd.py emulates both modes against float64.
+// - Warps whose offset no row of the stage reaches gather nothing and skip
+//   their products. Each block writes its own partial sums and the wrapper
+//   adds the partials up (no float atomics, so runs repeat bit for bit).
+// - d_feats stays a launch of the forward kernel: it sums over offsets per
+//   row, this kernel over rows per offset, so a fused pass would need all
+//   27 offsets' weight slices and sums in one block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,19 +69,83 @@
 
 namespace {
 
-constexpr int TILE = 128;   // rows per tile
-constexpr int ALIGN = 64;   // window anchors are in units of 64 rows
-constexpr int KSIZE = 3;    // kernel edge; K = 27 offsets, dz fastest
+constexpr int TILE = 128;     // rows per tile
+constexpr int ALIGN = 64;     // window anchors are in units of 64 rows
+constexpr int KSIZE = 3;      // kernel edge; K = 27 offsets, dz fastest
 constexpr int K = 27;
-constexpr int CI = 32;      // input channels per block
-constexpr int CO = 32;      // output channels per block
-constexpr int COLS = 4;     // output channels per thread
-constexpr int THREADS = CI * CO / COLS;  // 256
+constexpr int PLANE = 9;      // offsets per block, one warp each
+constexpr int THREADS = PLANE * 32;
+constexpr int CS = 32;        // channels of a slice, input and output
+constexpr int BUF_BYTES = 10240;  // one staged operand (F or one G_k)
+constexpr int STAGE_BYTES = (PLANE + 1) * BUF_BYTES;
+constexpr uint32_t TF32_MASK = 0xffffe000u;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
+// per mode: rows per stage, staged row pitch in bytes, 16-byte segments of
+// a slice row, rows a lane gathers per stage
+template <bool BF16>
+struct Mode {
+  static constexpr int ELEM = BF16 ? 2 : 4;
+  static constexpr int ROWS = BF16 ? 128 : 64;
+  static constexpr int PITCH = BF16 ? 80 : 160;
+  static constexpr int SEGS = CS * ELEM / 16;
+  static constexpr int LANE_ROWS = ROWS / 32;
+  static constexpr int STAGES_PER_TILE = TILE / ROWS;
+  static_assert(ROWS * PITCH == BUF_BYTES, "a staged operand fills a buffer");
+};
 
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+__device__ __forceinline__ uint32_t round_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & TF32_MASK;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = round_tf32(x);
+  lo = round_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes global -> shared; src_bytes 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // sum += x with Kahan compensation: comp carries the low-order part the
@@ -67,129 +157,249 @@ __device__ __forceinline__ void kahan_add(float& sum, float& comp, float x) {
   sum = t;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-band_conv_bwd_kernel(const int32_t* __restrict__ rb_tiles,  // (n_tiles, 27, 128)
-                     const int32_t* __restrict__ starts,    // (9, n_tiles)
-                     const T* __restrict__ grad,            // (Mp, cout)
-                     const T* __restrict__ feats,           // (Mp, cin)
-                     float* __restrict__ partial,  // (gridDim.x, 27, cin, cout)
-                     int n_tiles, int tiles_per_block, int cin, int cout,
-                     int m, int win) {
-  extern __shared__ __align__(16) float smem[];
-  float* g_s = smem;                   // [win][CO] gradient window
-  float* f_s = smem + win * CO;        // [TILE][CI] the tile's feature rows
-  int* loc_s = reinterpret_cast<int*>(f_s + TILE * CI);  // [KSIZE][TILE]
-
-  const int g = blockIdx.y;
-  const int n_co = (cout + CO - 1) / CO;
-  const int ci0 = (blockIdx.z / n_co) * CI;
-  const int co0 = (blockIdx.z % n_co) * CO;
-  const int ciw = min(CI, cin - ci0);
-  const int cow = min(CO, cout - co0);
-  const int ci = threadIdx.x % CI;
-  const int cq = (threadIdx.x / CI) * COLS;  // uniform within a warp
-
-  float acc[KSIZE][COLS], comp[KSIZE][COLS];  // running sums, compensation
-#pragma unroll
-  for (int dz = 0; dz < KSIZE; ++dz) {
-#pragma unroll
-    for (int j = 0; j < COLS; ++j) acc[dz][j] = comp[dz][j] = 0.f;
-  }
-
-  const int t_begin = blockIdx.x * tiles_per_block;
-  const int t_end = min(t_begin + tiles_per_block, n_tiles);
-  for (int t = t_begin; t < t_end; ++t) {
-    const int base = starts[g * n_tiles + t] * ALIGN;
-    bool any = false;
-    if (threadIdx.x < TILE) {
-#pragma unroll
-      for (int dz = 0; dz < KSIZE; ++dz) {
-        const int idx =
-            rb_tiles[((size_t)t * K + g * KSIZE + dz) * TILE + threadIdx.x];
-        const int local = idx - base;
-        const bool ok = idx < m && local >= 0 && local < win;
-        loc_s[dz * TILE + threadIdx.x] = ok ? local : -1;
-        any |= ok;
-      }
-    }
-    // barrier: loc_s is written; a tile no row of which reaches the group
-    // stages nothing
-    if (!__syncthreads_or(any)) continue;
-    for (int e = threadIdx.x; e < win * CO; e += THREADS) {
-      const int r = e / CO;
-      const int c = e - r * CO;
-      g_s[e] = c < cow ? to_f32(grad[(size_t)(base + r) * cout + co0 + c])
-                       : 0.f;
-    }
-    for (int e = threadIdx.x; e < TILE * CI; e += THREADS) {
-      const int r = e / CI;
-      const int c = e - r * CI;
-      f_s[e] = c < ciw
-                   ? to_f32(feats[(size_t)(t * TILE + r) * cin + ci0 + c])
-                   : 0.f;
-    }
-    __syncthreads();
-    float part[KSIZE][COLS];  // this tile's sums
-#pragma unroll
-    for (int dz = 0; dz < KSIZE; ++dz) {
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) part[dz][j] = 0.f;
-    }
-    for (int r = 0; r < TILE; ++r) {
-      const float f = f_s[r * CI + ci];
-#pragma unroll
-      for (int dz = 0; dz < KSIZE; ++dz) {
-        const int l = loc_s[dz * TILE + r];  // uniform within the block
-        if (l < 0) continue;
-        const float4 gv = *reinterpret_cast<const float4*>(g_s + l * CO + cq);
-        part[dz][0] = fmaf(f, gv.x, part[dz][0]);
-        part[dz][1] = fmaf(f, gv.y, part[dz][1]);
-        part[dz][2] = fmaf(f, gv.z, part[dz][2]);
-        part[dz][3] = fmaf(f, gv.w, part[dz][3]);
-      }
-    }
-#pragma unroll
-    for (int dz = 0; dz < KSIZE; ++dz) {
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) {
-        kahan_add(acc[dz][j], comp[dz][j], part[dz][j]);
-      }
-    }
-    __syncthreads();  // staged operands and loc_s done before the next tile
-  }
-
-  if (ci >= ciw) return;
-#pragma unroll
-  for (int dz = 0; dz < KSIZE; ++dz) {
-    const int kk = K - 1 - (g * KSIZE + dz);
-    float* row = partial + (((size_t)blockIdx.x * K + kk) * cin + ci0 + ci) *
-                               cout + co0 + cq;
-#pragma unroll
-    for (int j = 0; j < COLS; ++j) {
-      if (cq + j < cow) row[j] = acc[dz][j] - comp[dz][j];
+// `n` channels from `src` (element type of ELEM bytes) into a staged row,
+// zero past `n`, for widths that are not a multiple of 16 bytes
+template <int ELEM>
+__device__ __forceinline__ void copy_elems(unsigned char* dst,
+                                           const char* src, int n) {
+  for (int c = 0; c < CS; ++c) {
+    if (ELEM == 2) {
+      reinterpret_cast<unsigned short*>(dst)[c] =
+          c < n ? reinterpret_cast<const unsigned short*>(src)[c]
+                : (unsigned short)0;
+    } else {
+      reinterpret_cast<float*>(dst)[c] =
+          c < n ? reinterpret_cast<const float*>(src)[c] : 0.f;
     }
   }
 }
 
-template <typename T>
+template <bool BF16>
+__global__ void __launch_bounds__(THREADS, 1)
+band_conv_bwd_kernel(const int32_t* __restrict__ rb_tiles,  // (n_tiles, 27, 128)
+                     const int32_t* __restrict__ starts,    // (9, n_tiles)
+                     const char* __restrict__ grad,         // (Mp, cout)
+                     const char* __restrict__ feats,        // (Mp, cin)
+                     float* __restrict__ partial,  // (gridDim.x, 27, cin, cout)
+                     int n_tiles, int tiles_per_block, int cin, int cout,
+                     int m, int win, int vec_f, int vec_g) {
+  using M = Mode<BF16>;
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int k = blockIdx.y * PLANE + warp;  // this warp's offset
+  const int n_co = (cout + CS - 1) / CS;
+  const int ci0 = (blockIdx.z / n_co) * CS;
+  const int co0 = (blockIdx.z % n_co) * CS;
+  const int f_bytes = cin * M::ELEM, g_bytes = cout * M::ELEM;
+
+  const int t_begin = blockIdx.x * tiles_per_block;
+  const int t_end = min(t_begin + tiles_per_block, n_tiles);
+  const int n_stages = max(t_end - t_begin, 0) * M::STAGES_PER_TILE;
+
+  // this lane's rulebook entries of stage s (rows lane + 32 j of it) and
+  // the window anchor, loaded a stage ahead of their use
+  int rb_next[M::LANE_ROWS], base_next = 0;
+  auto load_rows = [&](int s) {
+    if (s >= n_stages) return;
+    const int t = t_begin + s / M::STAGES_PER_TILE;
+    const int r0 = (s % M::STAGES_PER_TILE) * M::ROWS;
+#pragma unroll
+    for (int j = 0; j < M::LANE_ROWS; ++j) {
+      rb_next[j] = rb_tiles[((size_t)t * K + k) * TILE + r0 + lane + 32 * j];
+    }
+    base_next = starts[(k / KSIZE) * n_tiles + t] * ALIGN;
+  };
+
+  // stage s into buffer buf: F's slice rows (all threads), then this warp's
+  // G_k rows; returns whether any of the warp's rows is in its window
+  auto issue = [&](int s, int buf) -> bool {
+    unsigned char* stage = smem + buf * STAGE_BYTES;
+    const int t = t_begin + s / M::STAGES_PER_TILE;
+    const size_t row0 =
+        (size_t)t * TILE + (s % M::STAGES_PER_TILE) * M::ROWS;
+    for (int e = threadIdx.x; e < M::ROWS * M::SEGS; e += THREADS) {
+      const int r = e / M::SEGS, sg = e % M::SEGS;
+      const int byte = ci0 * M::ELEM + sg * 16;
+      const char* src = feats + (row0 + r) * f_bytes + byte;
+      unsigned char* dst = stage + r * M::PITCH + sg * 16;
+      if (vec_f) {
+        cp_async16(dst, byte < f_bytes ? src : feats,
+                   byte < f_bytes ? 16 : 0);
+      } else if (sg == 0) {
+        copy_elems<M::ELEM>(dst, src, cin - ci0);
+      }
+    }
+    unsigned char* g_buf = stage + (1 + warp) * BUF_BYTES;
+    int idx[M::LANE_ROWS];
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < M::LANE_ROWS; ++j) {
+      const int local = rb_next[j] - base_next;
+      const bool ok = rb_next[j] < m && local >= 0 && local < win;
+      idx[j] = ok ? rb_next[j] : -1;
+      any |= ok;
+    }
+    if (!__any_sync(0xffffffffu, any)) return false;
+#pragma unroll
+    for (int j = 0; j < M::LANE_ROWS; ++j) {
+      const int r = lane + 32 * j;
+      const char* src = grad + (size_t)max(idx[j], 0) * g_bytes +
+                        co0 * M::ELEM;
+      unsigned char* dst = g_buf + r * M::PITCH;
+      if (vec_g) {
+#pragma unroll
+        for (int sg = 0; sg < M::SEGS; ++sg) {
+          const bool ok = idx[j] >= 0 && co0 * M::ELEM + sg * 16 < g_bytes;
+          cp_async16(dst + sg * 16, ok ? src + sg * 16 : grad, ok ? 16 : 0);
+        }
+      } else {
+        copy_elems<M::ELEM>(dst, src, idx[j] >= 0 ? cout - co0 : 0);
+      }
+    }
+    return true;
+  };
+
+  float sum[2][4][4], comp[2][4][4];  // [ci m-tile][co n-tile][fragment]
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum[mi][nt][e] = comp[mi][nt][e] = 0.f;
+
+  const int g = lane >> 2, tq = lane & 3;
+  auto compute = [&](int buf) {
+    const unsigned char* stage = smem + buf * STAGE_BYTES;
+    const unsigned char* g_buf = stage + (1 + warp) * BUF_BYTES;
+    float part[2][4][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[mi][nt][e] = 0.f;
+    if (BF16) {
+      // ldmatrix.trans lane addresses, matrix j = lane / 8: A (F^T) takes
+      // rows 8 (j >> 1) and channels 8 (j & 1) of a 16 x 16 block; B (G_k)
+      // rows 8 (j & 1) and columns 8 (j >> 1)
+      const int j = lane >> 3, r = lane & 7;
+      const uint32_t f_addr =
+          smem_u32(stage) + (r + 8 * (j >> 1)) * M::PITCH + 16 * (j & 1);
+      const uint32_t g_addr =
+          smem_u32(g_buf) + (r + 8 * (j & 1)) * M::PITCH + 16 * (j >> 1);
+#pragma unroll
+      for (int ks = 0; ks < M::ROWS / 16; ++ks) {
+        uint32_t a[2][4], b[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          ldmatrix_x4_trans(a[mi], f_addr + ks * 16 * M::PITCH + mi * 32);
+#pragma unroll
+        for (int np = 0; np < 2; ++np)
+          ldmatrix_x4_trans(b[np], g_addr + ks * 16 * M::PITCH + np * 32);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            mma_bf16(part[mi][nt], a[mi], b[nt >> 1][2 * (nt & 1)],
+                     b[nt >> 1][2 * (nt & 1) + 1]);
+      }
+    } else {
+      const float* f_s = reinterpret_cast<const float*>(stage);
+      const float* g_s = reinterpret_cast<const float*>(g_buf);
+      constexpr int P = M::PITCH / 4;
+#pragma unroll 2
+      for (int ks = 0; ks < M::ROWS / 8; ++ks) {
+        const float* f0 = f_s + (8 * ks + tq) * P + g;
+        const float* g0 = g_s + (8 * ks + tq) * P + g;
+        uint32_t ahi[2][4], alo[2][4], bhi[4][2], blo[4][2];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          // a0 = A[g][t] = F[t][g], a1 = F[t][g + 8], a2 = F[t + 4][g],
+          // a3 = F[t + 4][g + 8] (channels of m-tile mi)
+          split_tf32(f0[16 * mi], ahi[mi][0], alo[mi][0]);
+          split_tf32(f0[16 * mi + 8], ahi[mi][1], alo[mi][1]);
+          split_tf32(f0[4 * P + 16 * mi], ahi[mi][2], alo[mi][2]);
+          split_tf32(f0[4 * P + 16 * mi + 8], ahi[mi][3], alo[mi][3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          split_tf32(g0[8 * nt], bhi[nt][0], blo[nt][0]);
+          split_tf32(g0[4 * P + 8 * nt], bhi[nt][1], blo[nt][1]);
+        }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            mma_tf32(part[mi][nt], alo[mi], bhi[nt][0], bhi[nt][1]);
+            mma_tf32(part[mi][nt], ahi[mi], blo[nt][0], blo[nt][1]);
+            mma_tf32(part[mi][nt], ahi[mi], bhi[nt][0], bhi[nt][1]);
+          }
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          kahan_add(sum[mi][nt][e], comp[mi][nt][e], part[mi][nt][e]);
+  };
+
+  bool live[2] = {false, false};
+  load_rows(0);
+  if (n_stages > 0) live[0] = issue(0, 0);
+  cp_async_commit();
+  load_rows(1);
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // stage s landed; every warp is done with stage s - 1
+    const bool cur = (s & 1) ? live[1] : live[0];
+    if (s + 1 < n_stages) {
+      const bool nxt = issue(s + 1, (s + 1) & 1);
+      if (s & 1) live[0] = nxt; else live[1] = nxt;
+    }
+    cp_async_commit();
+    load_rows(s + 2);
+    if (cur) compute(s & 1);
+  }
+
+  float* dst = partial + ((size_t)blockIdx.x * K + (K - 1 - k)) * cin * cout;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ci = ci0 + 16 * mi + g + 8 * (e >> 1);
+        const int co = co0 + 8 * nt + 2 * tq + (e & 1);
+        if (ci < cin && co < cout) {
+          dst[(size_t)ci * cout + co] = sum[mi][nt][e] - comp[mi][nt][e];
+        }
+      }
+}
+
+template <bool BF16>
 cudaError_t launch(const int32_t* rb_tiles, const int32_t* starts,
                    const void* grad, const void* feats, float* partial,
                    int n_blocks, int n_tiles, int tiles_per_block, int cin,
                    int cout, int m, int win, cudaStream_t stream) {
-  const int slices = ((cin + CI - 1) / CI) * ((cout + CO - 1) / CO);
-  const dim3 grid(n_blocks, K / KSIZE, slices);
-  const size_t smem =
-      ((size_t)win * CO + (size_t)TILE * CI) * sizeof(float) +
-      (size_t)KSIZE * TILE * sizeof(int);
+  constexpr int ELEM = BF16 ? 2 : 4;
+  const int slices = ((cin + CS - 1) / CS) * ((cout + CS - 1) / CS);
+  const dim3 grid(n_blocks, K / PLANE, slices);
+  const size_t smem = 2 * (size_t)STAGE_BYTES;
+  auto kernel = band_conv_bwd_kernel<BF16>;
   cudaError_t err = cudaFuncSetAttribute(
-      band_conv_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  band_conv_bwd_kernel<T><<<grid, THREADS, smem, stream>>>(
-      rb_tiles, starts, static_cast<const T*>(grad),
-      static_cast<const T*>(feats), partial, n_tiles, tiles_per_block, cin,
-      cout, m, win);
+  const int vec_f = (cin * ELEM) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(feats) % 16 == 0;
+  const int vec_g = (cout * ELEM) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(grad) % 16 == 0;
+  kernel<<<grid, THREADS, smem, stream>>>(
+      rb_tiles, starts, static_cast<const char*>(grad),
+      static_cast<const char*>(feats), partial, n_tiles, tiles_per_block, cin,
+      cout, m, win, vec_f, vec_g);
   return cudaGetLastError();
 }
 
@@ -218,9 +428,9 @@ int band_conv_bwd_launch(const void* rb_tiles, const void* starts,
   const auto* st = static_cast<const int32_t*>(starts);
   auto* p = static_cast<float*>(partial);
   const cudaError_t err =
-      bf16 ? launch<__nv_bfloat16>(rb, st, grad, feats, p, n_blocks, n_tiles,
-                                   tiles_per_block, cin, cout, m, win, s)
-           : launch<float>(rb, st, grad, feats, p, n_blocks, n_tiles,
+      bf16 ? launch<true>(rb, st, grad, feats, p, n_blocks, n_tiles,
+                          tiles_per_block, cin, cout, m, win, s)
+           : launch<false>(rb, st, grad, feats, p, n_blocks, n_tiles,
                            tiles_per_block, cin, cout, m, win, s);
   return (int)err;
 }

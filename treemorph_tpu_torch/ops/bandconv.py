@@ -8,8 +8,9 @@ monotone over its found entries. For a tile of 128 consecutive output rows,
 all found neighbors of one (dx, dy) group (its 3 dz offsets) therefore lie in
 a narrow window of feature rows. :func:`build_band_plan` anchors one
 ``win``-row window per (tile, group); the kernel (``csrc/band_conv.cu``,
-through :func:`band_conv_padded`) stages each window on chip and applies the
-group's filters to the rows it finds there.
+through :func:`band_conv_padded`) applies each offset's filter to the rows
+of its window that the tile's rulebook finds, as a gathered GEMM on the
+tensor cores.
 
 Exactness: found neighbors that fall outside their window (the tail of the
 band-width distribution) are repaired by a mini gather pass
@@ -35,7 +36,9 @@ ksize z-neighbors into one row, so a (dx, dy) group is one row read and one
 :func:`.sparse.subm_conv_apply`, as
 ``python -m treemorph_tpu_torch.scripts.profile_zband`` does. Types, in
 both band engines: bf16 mode rounds the features to bf16, keeps the
-weights f32 and multiplies in f32; f32 mode reads f32 features. The JAX
+weights f32 and sums exact products in f32 (the band kernels split each
+weight into three bf16 pieces, or multiply bf16 by bf16 for the weight
+gradient); f32 mode reads f32 features (3xTF32 in the band kernels). The JAX
 package's kernels instead select f32 features as a bf16 hi/lo pair (about
 16 mantissa bits), so in f32 mode the port sits nearer the exact sum than
 the JAX package does, and is held to it at 1e-4 of the output's scale
@@ -56,9 +59,15 @@ TILE = 128  # output rows per kernel block
 WIN = 448  # feature-window rows per (dx, dy) group
 ALIGN = 64  # window anchors are stored in units of 64 rows
 
-#: the kernel's shared-memory layout (csrc/band_conv.cu): a win x 33-float
-#: window chunk plus 3 filters of 32 input channels x up to 64 columns
-_CHUNK, _PITCH, _COLS, _MAX_COL_GROUPS = 32, 33, 16, 4
+#: the forward kernel's shared-memory layout (csrc/band_conv.cu): a 3-deep
+#: ring of stages, each 128 gathered rows of 64 bytes at an 80-byte pitch
+#: beside the stage's weight fragments (column slices of at most 128), and
+#: the tile's 27 x 128 gather rows
+_STAGES, _A_BYTES, _MAX_NS = 3, TILE * 80, 128
+#: the weight-gradient kernel's (csrc/band_conv_bwd.cu): two stages of the
+#: tile's feature slice and 9 gathered gradient slices, 10,240 bytes each;
+#: its (Cin, Cout) slices are 32 x 32
+_BWD_SMEM, _BWD_SLICE = 2 * 10 * 10_240, 32
 #: shared memory one block may use on an H100
 SMEM_LIMIT = 232_448
 
@@ -194,31 +203,22 @@ def band_conv_padded(
     in-window rulebook entries of ``feats[rb[t, k, i]] @ W[k]`` (see
     :func:`band_conv_padded_plain`); (Mp, Cout) float32.
 
-    On a CUDA tensor this launches the kernel of ``csrc/band_conv.cu`` or
-    raises; a CPU tensor takes the plain version."""
+    On a CUDA tensor this launches the kernel of ``csrc/band_conv.cu`` (its
+    weight split, then its GEMM) or raises; a CPU tensor takes the plain
+    version."""
     if feats.device.type == "cpu":
         return band_conv_padded_plain(rb_tiles, starts, feats, weights, m, win)
     if feats.device.type != "cuda":
         raise ValueError(f"band_conv_padded: unsupported device {feats.device}")
-    n_tiles, k, tile = rb_tiles.shape
+    n_tiles, k, _ = rb_tiles.shape
     mp, cin = feats.shape
     kw, cin_w, cout = weights.shape
-    g = starts.shape[0]
-    if k != 27 or kw != 27 or g != 9:
+    if kw != 27 or cin_w != cin:
         raise ValueError(
-            f"band_conv_padded takes 3x3x3 kernels only (K={k}, {kw})"
+            f"band_conv_padded: shapes feats {tuple(feats.shape)}, weights "
+            f"{tuple(weights.shape)}"
         )
-    if tile != TILE or mp != n_tiles * TILE or cin_w != cin:
-        raise ValueError(
-            f"band_conv_padded: shapes rb_tiles {tuple(rb_tiles.shape)}, "
-            f"feats {tuple(feats.shape)}, weights {tuple(weights.shape)}"
-        )
-    if starts.shape != (g, n_tiles) or win % ALIGN or not 0 < win <= mp:
-        raise ValueError(
-            f"band_conv_padded: starts {tuple(starts.shape)}, win {win}"
-        )
-    if rb_tiles.dtype != torch.int32 or starts.dtype != torch.int32:
-        raise TypeError("band_conv_padded: rb_tiles and starts must be int32")
+    _check_plan_args("band_conv_padded", rb_tiles, starts, mp, win)
     if feats.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"band_conv_padded: feats dtype {feats.dtype}")
     if weights.dtype != torch.float32:
@@ -228,31 +228,80 @@ def band_conv_padded(
         raise ValueError("band_conv_padded: tensors on different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("band_conv_padded: tensors must be contiguous")
-    if band_smem_bytes(win, cout) > SMEM_LIMIT:
-        raise ValueError(f"band_conv_padded: window {win} exceeds shared memory")
 
     lib = _library()
+    bf16 = int(feats.dtype == torch.bfloat16)
     out = torch.empty((mp, cout), dtype=torch.float32, device=feats.device)
+    workspace = torch.empty(
+        lib.band_conv_workspace_bytes(cin, cout, bf16), dtype=torch.uint8,
+        device=feats.device,
+    )
     with torch.cuda.device(feats.device):
         rc = lib.band_conv_launch(
-            rb_tiles.data_ptr(), starts.data_ptr(), feats.data_ptr(),
-            int(feats.dtype == torch.bfloat16), weights.data_ptr(),
-            out.data_ptr(), n_tiles, k, cin, cout, m, win,
-            stream_handle(feats.device),
+            rb_tiles.data_ptr(), starts.data_ptr(), feats.data_ptr(), bf16,
+            weights.data_ptr(), out.data_ptr(), workspace.data_ptr(),
+            n_tiles, k, cin, cout, m, win, stream_handle(feats.device),
         )
     check_launch("band_conv", rc)
     LAUNCHES["band_conv"] += 1
     return out
 
 
+def _check_plan_args(name, rb_tiles, starts, mp, win):
+    """Raise unless the tiled rulebook and anchors are a 3x3x3 band plan's
+    (int32) over ``mp`` rows with a window the kernels take."""
+    n_tiles, k, tile = rb_tiles.shape
+    if k != 27 or starts.shape != (9, n_tiles):
+        raise ValueError(f"{name} takes 3x3x3 kernels only (rb_tiles "
+                         f"{tuple(rb_tiles.shape)}, starts "
+                         f"{tuple(starts.shape)})")
+    if tile != TILE or mp != n_tiles * TILE:
+        raise ValueError(f"{name}: rb_tiles {tuple(rb_tiles.shape)} over "
+                         f"{mp} rows")
+    if win % ALIGN or not 0 < win <= mp:
+        raise ValueError(f"{name}: window {win}")
+    if rb_tiles.dtype != torch.int32 or starts.dtype != torch.int32:
+        raise TypeError(f"{name}: rb_tiles and starts must be int32")
+
+
 def _library():
     lib = load_library("band_conv")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.band_conv_launch.argtypes = [p, p, p, i, p, p, i, i, i, i, i, i, p]
+        lib.band_conv_launch.argtypes = [
+            p, p, p, i, p, p, p, i, i, i, i, i, i, p,
+        ]
         lib.band_conv_launch.restype = ctypes.c_int
+        lib.band_conv_workspace_bytes.argtypes = [i, i, i]
+        lib.band_conv_workspace_bytes.restype = ctypes.c_size_t
         lib._typed = True
     return lib
+
+
+def band_conv_dw_padded_plain(
+    rb_tiles: torch.Tensor,  # (n_tiles, K, TILE) int32
+    starts: torch.Tensor,  # (G, n_tiles) int32, ALIGN units
+    grad: torch.Tensor,  # (Mp, Cout) bf16 or f32 output gradient
+    feats: torch.Tensor,  # (Mp, Cin) same dtype, the forward's features
+    m: int,
+    win: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`band_conv_dw_padded`:
+    ``d_w[K-1-k] = sum feats[row] (outer) grad[rb[row, k]]`` over the
+    in-window entries, as K masked gathers and matmuls in f32."""
+    k = rb_tiles.shape[1]
+    idx, ok = in_window(rb_tiles, starts, m, win)
+    g32, f32 = grad.float(), feats.float()
+    d_w = torch.empty(
+        (k, feats.shape[1], grad.shape[1]), dtype=torch.float32,
+        device=grad.device,
+    )
+    for j in range(k):
+        rows = idx[:, j, :].reshape(-1)
+        keep = ok[:, j, :].reshape(-1)
+        d_w[k - 1 - j] = f32.T @ (g32[torch.where(keep, rows, 0)]
+                                  * keep[:, None])
+    return d_w
 
 
 def band_conv_bwd_padded_plain(
@@ -265,23 +314,10 @@ def band_conv_bwd_padded_plain(
     win: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`band_conv_bwd_padded`:
-    ``d_feats`` is the band conv of ``grad`` with ``w_bwd``, and
-    ``d_w[K-1-k] = sum feats[row] (outer) grad[rb[row, k]]`` over the
-    in-window entries, as K masked gathers and matmuls in f32."""
-    k = rb_tiles.shape[1]
-    d_feats = band_conv_padded_plain(rb_tiles, starts, grad, w_bwd, m, win)
-    idx, ok = in_window(rb_tiles, starts, m, win)
-    g32, f32 = grad.float(), feats.float()
-    d_w = torch.empty(
-        (k, feats.shape[1], grad.shape[1]), dtype=torch.float32,
-        device=grad.device,
-    )
-    for j in range(k):
-        rows = idx[:, j, :].reshape(-1)
-        keep = ok[:, j, :].reshape(-1)
-        d_w[k - 1 - j] = f32.T @ (g32[torch.where(keep, rows, 0)]
-                                  * keep[:, None])
-    return d_feats, d_w
+    ``d_feats`` is the band conv of ``grad`` with ``w_bwd``, and ``d_w``
+    that of :func:`band_conv_dw_padded_plain`."""
+    return (band_conv_padded_plain(rb_tiles, starts, grad, w_bwd, m, win),
+            band_conv_dw_padded_plain(rb_tiles, starts, grad, feats, m, win))
 
 
 def band_conv_bwd_padded(
@@ -298,13 +334,39 @@ def band_conv_bwd_padded(
     d_w (K, Cin, Cout) f32)``, ``d_w`` in the weights' own offset order.
 
     On a CUDA tensor this runs the forward kernel on ``(grad, w_bwd)`` for
-    ``d_feats`` and launches ``csrc/band_conv_bwd.cu`` for ``d_w``, whose
-    per-block partial sums are added here; it raises on what the kernels
-    do not take. A CPU tensor takes the plain version."""
+    ``d_feats`` and :func:`band_conv_dw_padded` for ``d_w``; each raises on
+    what its kernel does not take. A CPU tensor takes the plain version."""
     if grad.device.type == "cpu":
         return band_conv_bwd_padded_plain(
             rb_tiles, starts, grad, feats, w_bwd, m, win
         )
+    k = rb_tiles.shape[1]
+    cout, cin = grad.shape[1], feats.shape[1]
+    if w_bwd.shape != (k, cout, cin):
+        raise ValueError(
+            f"band_conv_bwd_padded: shapes grad {tuple(grad.shape)}, feats "
+            f"{tuple(feats.shape)}, w_bwd {tuple(w_bwd.shape)}"
+        )
+    d_w = band_conv_dw_padded(rb_tiles, starts, grad, feats, m, win)
+    return band_conv_padded(rb_tiles, starts, grad, w_bwd, m, win), d_w
+
+
+def band_conv_dw_padded(
+    rb_tiles: torch.Tensor,
+    starts: torch.Tensor,
+    grad: torch.Tensor,
+    feats: torch.Tensor,
+    m: int,
+    win: int,
+) -> torch.Tensor:
+    """The weight gradient of the band conv's kernel part (see
+    :func:`band_conv_dw_padded_plain`), (K, Cin, Cout) f32.
+
+    On a CUDA tensor this launches ``csrc/band_conv_bwd.cu``, whose
+    per-block partial sums are added here, or raises; a CPU tensor takes
+    the plain version."""
+    if grad.device.type == "cpu":
+        return band_conv_dw_padded_plain(rb_tiles, starts, grad, feats, m, win)
     if grad.device.type != "cuda":
         raise ValueError(
             f"band_conv_bwd_padded: unsupported device {grad.device}"
@@ -312,21 +374,21 @@ def band_conv_bwd_padded(
     n_tiles, k, _ = rb_tiles.shape
     mp, cout = grad.shape
     cin = feats.shape[1]
-    if w_bwd.shape != (k, cout, cin) or feats.shape[0] != mp:
+    if feats.shape[0] != mp:
         raise ValueError(
             f"band_conv_bwd_padded: shapes grad {tuple(grad.shape)}, feats "
-            f"{tuple(feats.shape)}, w_bwd {tuple(w_bwd.shape)}"
+            f"{tuple(feats.shape)}"
         )
-    if feats.dtype != grad.dtype or feats.device != grad.device:
-        raise TypeError("band_conv_bwd_padded: grad and feats differ in "
-                        "dtype or device")
-    if not feats.is_contiguous():
-        raise ValueError("band_conv_bwd_padded: feats must be contiguous")
-    if band_bwd_smem_bytes(win) > SMEM_LIMIT:
-        raise ValueError(f"band_conv_bwd_padded: window {win} exceeds "
-                         "shared memory")
-    # d_feats: the forward kernel checks the remaining arguments
-    d_feats = band_conv_padded(rb_tiles, starts, grad, w_bwd, m, win)
+    _check_plan_args("band_conv_bwd_padded", rb_tiles, starts, mp, win)
+    if feats.dtype != grad.dtype or grad.dtype not in (torch.bfloat16,
+                                                       torch.float32):
+        raise TypeError("band_conv_bwd_padded: grad and feats must share "
+                        f"bf16 or f32 ({grad.dtype}, {feats.dtype})")
+    tensors = (rb_tiles, starts, grad, feats)
+    if any(t.device != grad.device for t in tensors):
+        raise ValueError("band_conv_bwd_padded: tensors on different devices")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("band_conv_bwd_padded: tensors must be contiguous")
 
     lib = _bwd_library()
     n_blocks, per_block = _bwd_grid(n_tiles, cin, cout)
@@ -342,19 +404,20 @@ def band_conv_bwd_padded(
         )
     check_launch("band_conv_bwd", rc)
     LAUNCHES["band_conv_bwd"] += 1
-    return d_feats, partial.sum(dim=0)
+    return partial.sum(dim=0)
 
 
-#: blocks the backward kernel aims for: two waves of three blocks (75 KB of
-#: shared memory each at the default window) on each of an H100's 132 SMs
-_BWD_TARGET_BLOCKS = 2 * 3 * 132
+#: blocks the weight-gradient kernel aims for: two waves of one block (200
+#: KB of shared memory) on each of an H100's 132 SMs
+_BWD_TARGET_BLOCKS = 2 * 132
 
 
 def _bwd_grid(n_tiles: int, cin: int, cout: int) -> tuple[int, int]:
-    """(blocks along the tiles, tiles per block) of the backward kernel,
-    whose grid is that times 9 groups times the 32 x 32 channel slices."""
-    slices = -(-cin // _CHUNK) * -(-cout // _CHUNK)
-    n_blocks = max(1, min(n_tiles, _BWD_TARGET_BLOCKS // (9 * slices)))
+    """(blocks along the tiles, tiles per block) of the weight-gradient
+    kernel, whose grid is that times 3 dx planes times the 32 x 32 channel
+    slices."""
+    slices = -(-cin // _BWD_SLICE) * -(-cout // _BWD_SLICE)
+    n_blocks = max(1, min(n_tiles, _BWD_TARGET_BLOCKS // (3 * slices)))
     per_block = -(-n_tiles // n_blocks)
     return -(-n_tiles // per_block), per_block
 
@@ -371,32 +434,42 @@ def _bwd_library():
     return lib
 
 
-def band_smem_bytes(win: int, cout: int) -> int:
-    """Shared memory one kernel block uses (csrc/band_conv.cu)."""
-    groups = min(-(-cout // _COLS), _MAX_COL_GROUPS)
-    return (win * _PITCH + 3 * _CHUNK * groups * _COLS) * 4
+def _slice_cols(cout: int) -> int:
+    """Columns of one forward block: Cout rounded up to 32, in as few
+    slices of at most 128 columns as hold it, each rounded up to 32."""
+    cols = -(-cout // 32) * 32
+    slices = -(-cols // _MAX_NS)
+    return -(-(-(-cols // slices)) // 32) * 32
 
 
-def band_bwd_smem_bytes(win: int) -> int:
-    """Shared memory one block of csrc/band_conv_bwd.cu uses: a win x 32
-    gradient window, 128 x 32 feature rows and 3 x 128 row indices."""
-    return (win * _CHUNK + TILE * _CHUNK + 3 * TILE) * 4
+def band_smem_bytes(cout: int, dtype) -> int:
+    """Shared memory one block of the forward kernel uses
+    (csrc/band_conv.cu): the stage ring, whose weight fragments take 192
+    bytes a column in bf16 mode (three bf16 pieces) and 128 in f32 mode
+    (TF32 hi and lo), and the gather rows."""
+    per_col = 192 if dtype == torch.bfloat16 else 128
+    return (_STAGES * (_A_BYTES + per_col * _slice_cols(cout))
+            + 27 * TILE * 4 + 16)
 
 
-def band_viable(k: int, cin: int, cout: int, dtype, win: int = WIN) -> bool:
-    """Whether the kernels take this conv shape: 3x3x3 kernels whose
-    windows fit a block's shared memory, forward and backward. The kernels
-    stage 32 channels at a time and split wide outputs over blocks, so
-    every channel count fits (the TPU gate was a VMEM budget that turned
-    deep wide levels away); only ``k`` and the window size decide."""
-    win = -(-win // ALIGN) * ALIGN
-    smem = max(band_smem_bytes(win, cout), band_smem_bytes(win, cin),
-               band_bwd_smem_bytes(win))
-    return (
-        k == 27
-        and dtype in (torch.bfloat16, torch.float32)
-        and smem <= SMEM_LIMIT
-    )
+def band_bwd_smem_bytes() -> int:
+    """Shared memory one block of csrc/band_conv_bwd.cu uses: two stages of
+    the tile's 32-channel feature slice and 9 gathered gradient slices."""
+    return _BWD_SMEM
+
+
+def band_viable(k: int, cin: int, cout: int, dtype) -> bool:
+    """Whether the kernels take this conv shape: 3x3x3 kernels in bf16 or
+    f32 whose blocks fit in shared memory. The kernels stage 64 bytes of a
+    row at a time, split outputs wider than 128 columns over blocks and
+    gather rows rather than staging windows, so they fit at every width
+    and window (the TPU gate was a VMEM budget that turned deep wide
+    levels away); only ``k`` and the type decide."""
+    if k != 27 or dtype not in (torch.bfloat16, torch.float32):
+        return False
+    smem = max(band_smem_bytes(cout, dtype), band_smem_bytes(cin, dtype),
+               band_bwd_smem_bytes())
+    return smem <= SMEM_LIMIT
 
 
 def _band_impl(feats, weights, plan: BandPlan, valid, dtype):
@@ -510,7 +583,7 @@ def band_subm_conv_apply(
     dtype = compute_dtype or feats.dtype
     k, cin, cout = weights.shape
     gather_dtype = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
-    viable = band_viable(k, cin, cout, dtype, plan.win)
+    viable = band_viable(k, cin, cout, dtype)
     if not viable or not bool(plan.ok):
         GATHER_ROUTES["shape" if not viable else "overflow"] += 1
         return _subm_conv(gather_dtype, feats, weights, plan.rulebook, valid)
@@ -528,7 +601,7 @@ def choose_band_plan(
     """Band plan for a level, or the rulebook unchanged (gather engine)
     when the kernel does not take the level's widest conv."""
     k = rulebook.shape[1]
-    if band_viable(k, cin, cout, dtype, window):
+    if band_viable(k, cin, cout, dtype):
         return build_band_plan(rulebook, valid, window)
     return rulebook
 
@@ -541,7 +614,7 @@ ZALIGN = 8  # z-band window anchors are stored in units of 8 rows
 #: the z-band kernel's shared memory (csrc/zband_conv.cu): 128 gathered
 #: rows of a 32-channel chunk, one chunk of the group filter and the tile's
 #: anchors
-_ZBAND_SMEM = (TILE * _PITCH + _CHUNK * _MAX_COL_GROUPS * _COLS + TILE) * 4
+_ZBAND_SMEM = (TILE * 33 + 32 * 4 * 16 + TILE) * 4
 
 
 class ZBandPlan(NamedTuple):
