@@ -15,7 +15,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    (level 0 ~P/2 rows: 7->32, 32->32, 64->32; level 1: 64->64, 128->64;
    level 2: 96->96), with CUDA-event times, the bound at the f32 rate and
    the bound at the kernel's tensor-core passes (which term sets each),
-   and the time of the SIMT kernel this one replaced (``SIMT_MS``).
+   and, in each row's log line only, the time of the SIMT kernel this one
+   replaced, a historical constant (``SIMT_HISTORICAL_MS``).
 3. Stage 1 on the card against the CPU: the same model and weights on a
    ~20k-point cut of the e2e cloud; offsets and noise argmax must agree.
 4. End to end at full width: the pipeline's TreeLearn (channels 32, three
@@ -31,8 +32,9 @@ reference's training batch, written to a temporary directory):
    30-tree batch (every (level, Cin, Cout) of the 20 convs that take it),
    with CUDA-event times of the call and of its two launches apart
    (``d_feats``: the forward kernel; ``d_w``: ``band_conv_dw_padded``),
-   both bounds and the SIMT kernels' times; the forward kernel is timed at
-   the same shapes.
+   both bounds and, in each row's log line only, the SIMT kernels' times
+   (``SIMT_HISTORICAL_MS``); the forward kernel is timed at the same
+   shapes.
 6. Training on the card: each band conv of a full-width f32 train step
    differentiated alone through autograd against the gather engine's
    backward, with the step's own cotangents and with random ones; one
@@ -150,14 +152,15 @@ TF32_FLOPS = 495e12
 #: pieces, or 3xTF32; d_w: bf16 by bf16 in one pass, or 3xTF32
 BAND_TC = {"torch.bfloat16": (BF16_FLOPS, 3), "torch.float32": (TF32_FLOPS, 3)}
 DW_TC = {"torch.bfloat16": (BF16_FLOPS, 1), "torch.float32": (TF32_FLOPS, 3)}
-#: ms per call of the SIMT f32 band kernels these kernels replaced (commit
-#: ddf01be), at each (part, level, Cin, Cout, type): "fwd" the forward on
-#: the e2e plot's levels (phase 2), "train_fwd", "bwd" (the whole
-#: band_conv_bwd_padded) and "bwd_d_feats" (its forward launch) on the
-#: training batch's (phase 5); the mean of two runs of
-#: treemorph_tpu_torch/scripts/time_band_kernels.py on a checkout of that
-#: commit, in one call on one NVIDIA H100 80GB HBM3 at 700 W
-SIMT_MS: dict = {
+#: historical, not measured by this script: ms per call of the SIMT f32
+#: band kernels these kernels replaced (commit ddf01be), at each (part,
+#: level, Cin, Cout, type): "fwd" the forward on the e2e plot's levels
+#: (phase 2), "train_fwd", "bwd" (the whole band_conv_bwd_padded) and
+#: "bwd_d_feats" (its forward launch) on the training batch's (phase 5);
+#: the mean of two runs of time_band_kernels.py on a checkout of that
+#: commit, in one call on one NVIDIA H100 80GB HBM3 at 700 W. Printed
+#: beside each row's own time as ``simt_historical_*``; never in a record
+SIMT_HISTORICAL_MS: dict = {
     ('fwd', 0, 7, 32, 'torch.bfloat16'): 0.2522,
     ('fwd', 0, 7, 32, 'torch.float32'): 0.2600,
     ('fwd', 0, 32, 32, 'torch.bfloat16'): 0.5458,
@@ -516,8 +519,7 @@ def phase_kernel_vs_plain(points, device):
     gen = torch.Generator(device=device).manual_seed(0)
     rows, worst = [], 0.0
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-              "bytes": 0.0, "flops": 0.0, "bound_tc_ms": 0.0,
-              "simt_ms": 0.0}
+              "bytes": 0.0, "flops": 0.0, "bound_tc_ms": 0.0}
     for level, cin, cout, count in LEVEL_CONVS:
         plan = plans[level]
         m = plan.rulebook.shape[0]
@@ -544,6 +546,7 @@ def phase_kernel_vs_plain(points, device):
                     f"{err:.3e} > {KERNEL_RTOL} x {scale:.3e}"
                 )
             worst = max(worst, err)
+            repeats = bool(torch.equal(out, band_conv_padded(*args)))
             ms = cuda_ms(lambda: band_conv_padded(*args), 20)
             plain_ms = cuda_ms(lambda: band_conv_padded_plain(*args), 5)
             nbytes = (mp * 27 * 4 + mp * cin * feats.element_size()
@@ -553,9 +556,10 @@ def phase_kernel_vs_plain(points, device):
                                  flops / F32_FLOPS)
             row = dict(level=level, cin=cin, cout=cout, dtype=str(dtype),
                        m=m, nnz=nnz, launches_per_forward=count,
-                       max_abs_err=err, err_over_scale=err / scale, ms=ms,
-                       simt_ms=SIMT_MS.get(("fwd", level, cin, cout,
-                                            str(dtype))),
+                       max_abs_err=err, err_over_scale=err / scale,
+                       repeats_bit_for_bit=repeats, ms=ms,
+                       simt_historical_ms=SIMT_HISTORICAL_MS.get(
+                           ("fwd", level, cin, cout, str(dtype))),
                        plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by="bytes" if nbytes / HBM_BYTES_PER_S
                        > flops / F32_FLOPS else "operations",
@@ -566,8 +570,7 @@ def phase_kernel_vs_plain(points, device):
                 for key, val in (("ms", ms), ("plain_ms", plain_ms),
                                  ("bound_ms", bound_ms), ("bytes", nbytes),
                                  ("flops", flops),
-                                 ("bound_tc_ms", row["bound_tc_ms"]),
-                                 ("simt_ms", row["simt_ms"] or 0.0)):
+                                 ("bound_tc_ms", row["bound_tc_ms"])):
                     totals[key] += count * val
     shape = "; ".join(
         f"L{level} ({plans[level].rb_tiles.shape[0] * TILE}, {cin})->"
@@ -588,13 +591,13 @@ def phase_kernel_vs_plain(points, device):
         > totals["flops"] / F32_FLOPS else "operations",
         "library_ms": None,
         "bound_tc_ms": totals["bound_tc_ms"],
-        "simt_ms": totals["simt_ms"] or None,
         "max_err_over_scale": max(r["err_over_scale"] for r in rows),
     }
     log(f"phase 2 ok: band_conv within {KERNEL_RTOL} x scale of plain at "
-        f"{len(rows)} shape/type cases; one forward's 21 launches (bf16): "
-        f"kernel {totals['ms']:.3f} ms (SIMT kernel "
-        f"{totals['simt_ms']:.3f} ms), plain {totals['plain_ms']:.3f} ms, "
+        f"{len(rows)} shape/type cases (a second call bit-identical in "
+        f"{sum(r['repeats_bit_for_bit'] for r in rows)}); one forward's "
+        f"21 launches (bf16): "
+        f"kernel {totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, "
         f"bound {totals['bound_ms']:.3f} ms at the f32 rate, "
         f"{totals['bound_tc_ms']:.3f} ms in the kernel's passes")
     return record, rows
@@ -858,7 +861,7 @@ def phase_bwd_kernel_vs_plain(batch, capacity, device):
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_s": 0.0,
               "ops_s": 0.0, "fwd_ms": 0.0, "fwd_bound_ms": 0.0,
               "d_feats_ms": 0.0, "d_w_ms": 0.0, "bound_tc_ms": 0.0,
-              "simt_ms": 0.0, "simt_fwd_ms": 0.0, "fwd_bound_tc_ms": 0.0}
+              "fwd_bound_tc_ms": 0.0}
     for level, cin, cout, count in LEVEL_CONVS:
         plan = plans[level]
         m = plan.rulebook.shape[0]
@@ -881,8 +884,6 @@ def phase_bwd_kernel_vs_plain(batch, capacity, device):
                 totals["fwd_ms"] += count * fwd_ms
                 totals["fwd_bound_ms"] += count * fwd_bound_ms
                 totals["fwd_bound_tc_ms"] += count * fwd_tc["bound_tc_ms"]
-                totals["simt_fwd_ms"] += count * SIMT_MS.get(
-                    ("train_fwd", level, cin, cout, str(dtype)), 0.0)
             if cin == 7:  # the stem takes the gather formulation backward
                 continue
             grad = rows_of(plan, cout, dtype)
@@ -905,6 +906,9 @@ def phase_bwd_kernel_vs_plain(batch, capacity, device):
                         f"{scale:.3e}"
                     )
             worst = max(worst, *errs.values())
+            again = band_conv_bwd_padded(*args)
+            repeats = bool(torch.equal(d_f, again[0])
+                           and torch.equal(d_w, again[1]))
             ms = cuda_ms(lambda: band_conv_bwd_padded(*args), 20)
             d_feats_ms = cuda_ms(lambda: band_conv_padded(
                 plan.rb_tiles, plan.starts, grad, w_bwd, m, plan.win), 20)
@@ -936,10 +940,14 @@ def phase_bwd_kernel_vs_plain(batch, capacity, device):
             row = dict(level=level, cin=cin, cout=cout, dtype=str(dtype),
                        m=m, nnz=nnz, launches_per_step=count,
                        err_d_feats=errs["d_feats"], err_d_w=errs["d_w"],
+                       repeats_bit_for_bit=repeats,
                        ms=ms, d_feats_ms=d_feats_ms, d_w_ms=d_w_ms,
-                       simt_ms=SIMT_MS.get(("bwd",) + key),
-                       simt_d_feats_ms=SIMT_MS.get(("bwd_d_feats",) + key),
-                       simt_fwd_ms=SIMT_MS.get(("train_fwd",) + key),
+                       simt_historical_ms=SIMT_HISTORICAL_MS.get(
+                           ("bwd",) + key),
+                       simt_historical_d_feats_ms=SIMT_HISTORICAL_MS.get(
+                           ("bwd_d_feats",) + key),
+                       simt_historical_fwd_ms=SIMT_HISTORICAL_MS.get(
+                           ("train_fwd",) + key),
                        fwd_ms=fwd_ms, fwd_bound_ms=fwd_bound_ms,
                        fwd_bound_tc_ms=fwd_tc["bound_tc_ms"],
                        plain_ms=plain_ms, bound_ms=bound_ms,
@@ -952,8 +960,7 @@ def phase_bwd_kernel_vs_plain(batch, capacity, device):
                                  ("bound_ms", bound_ms), ("bytes_s", bytes_s),
                                  ("ops_s", ops_s), ("d_feats_ms", d_feats_ms),
                                  ("d_w_ms", d_w_ms),
-                                 ("bound_tc_ms", tc["bound_tc_ms"]),
-                                 ("simt_ms", row["simt_ms"] or 0.0)):
+                                 ("bound_tc_ms", tc["bound_tc_ms"])):
                     totals[key] += count * val
     shape = "; ".join(
         f"L{level} ({plans[level].rb_tiles.shape[0] * TILE}, {cout}) grad, "
@@ -975,7 +982,6 @@ def phase_bwd_kernel_vs_plain(batch, capacity, device):
         else "operations",
         "library_ms": None,
         "bound_tc_ms": totals["bound_tc_ms"],
-        "simt_ms": totals["simt_ms"] or None,
         "d_feats_ms": totals["d_feats_ms"],
         "d_w_ms": totals["d_w_ms"],
     }
@@ -985,19 +991,18 @@ def phase_bwd_kernel_vs_plain(batch, capacity, device):
                     totals["fwd_bound_tc_ms"],
                 "band_backward_ms_per_step": totals["ms"],
                 "band_backward_d_feats_ms_per_step": totals["d_feats_ms"],
-                "band_backward_d_w_ms_per_step": totals["d_w_ms"],
-                "simt_forward_ms_per_step": totals["simt_fwd_ms"],
-                "simt_backward_ms_per_step": totals["simt_ms"]}
+                "band_backward_d_w_ms_per_step": totals["d_w_ms"]}
     log(f"phase 5 ok: band_conv_bwd within {KERNEL_RTOL} x scale of plain "
-        f"at {len(rows)} shape/type cases (worst {worst_rel:.2e} of scale); "
+        f"at {len(rows)} shape/type cases (worst {worst_rel:.2e} of scale; "
+        f"a second call bit-identical in "
+        f"{sum(r['repeats_bit_for_bit'] for r in rows)}); "
         f"one step's {BWD_PER_STEP} calls (bf16): {totals['ms']:.3f} ms "
         f"(d_feats {totals['d_feats_ms']:.3f} ms, d_w "
-        f"{totals['d_w_ms']:.3f} ms; SIMT kernels {totals['simt_ms']:.3f} "
-        f"ms), plain {totals['plain_ms']:.3f} ms, bound "
+        f"{totals['d_w_ms']:.3f} ms), plain {totals['plain_ms']:.3f} ms, "
+        f"bound "
         f"{totals['bound_ms']:.3f} ms at the f32 rate, "
         f"{totals['bound_tc_ms']:.3f} ms in the kernels' passes; the step's "
-        f"21 forward launches {totals['fwd_ms']:.3f} ms (SIMT kernel "
-        f"{totals['simt_fwd_ms']:.3f} ms), bound "
+        f"21 forward launches {totals['fwd_ms']:.3f} ms, bound "
         f"{totals['fwd_bound_ms']:.3f} ms at the f32 rate, "
         f"{totals['fwd_bound_tc_ms']:.3f} ms in the kernel's passes")
     return record, per_step
@@ -1165,6 +1170,86 @@ def compare_engine_steps(band, gather, ref):
         raise AssertionError("band and gather train steps disagree")
 
 
+def log_repeat(label, a, b) -> None:
+    """Log whether two runs of one seeded step gave bit-identical losses
+    and gradients, and if not, how many leaves differ and by how much of
+    their own scale."""
+    import torch
+
+    differ = sorted(
+        (float((a[1][n] - g).abs().max()) / max(float(g.abs().max()), 1e-30),
+         n) for n, g in b[1].items() if not torch.equal(a[1][n], g))
+    log(f"{label}: loss {a[0]!r} / {b[0]!r} "
+        f"({'equal' if a[0] == b[0] else 'differ'}); {len(differ)} of "
+        f"{len(b[1])} gradient leaves differ"
+        + (f", most {differ[-1][0]:.2e} of its scale ({differ[-1][1]})"
+           if differ else ": bit-identical"))
+
+
+def deterministic_only(prefix):
+    """A dispatch mode that runs the aten ops whose names start with
+    ``prefix`` (forward and backward) with deterministic algorithms on and
+    every other op as it is; ``.seen`` collects the ops it switched."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class DeterministicOnly(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not str(func).startswith(prefix):
+                return func(*args, **(kwargs or {}))
+            self.seen.add(str(func))
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            out = func(*args, **(kwargs or {}))
+            torch.use_deterministic_algorithms(False)
+            return out
+
+    return DeterministicOnly()
+
+
+def phase_step_repeats(cut, device):
+    """Not a gate: whether the f32 step repeats bit for bit on the card,
+    band and gather engines, as it runs and with
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``, which
+    takes the deterministic version of every op that has one and warns
+    once for each op that has none (those ops are logged); then the band
+    step with one family of the ops that sum with atomics made
+    deterministic at a time, to find the one that breaks repetition."""
+    import warnings
+
+    import torch
+
+    for engine in ("band", "gather"):
+        log_repeat(f"  repeat, {engine} engine f32 step, two runs",
+                   one_train_step(cut, engine, "float32", device),
+                   one_train_step(cut, engine, "float32", device))
+    # the deterministic mode also fills new tensors with NaN by default,
+    # which would change what is compared rather than the order of sums
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        runs = [one_train_step(cut, "band", "float32", device)
+                for _ in range(2)]
+    torch.use_deterministic_algorithms(False)
+    log_repeat("  repeat, band engine f32 step, deterministic algorithms",
+               *runs)
+    ops = sorted({str(w.message).split(" does not have")[0][:90]
+                  for w in caught if "deterministic" in str(w.message)})
+    log(f"  ops without a deterministic version in the step: {ops}")
+    for prefix in ("aten.index_add", "aten.index_put", "aten.scatter"):
+        runs = []
+        for _ in range(2):
+            with deterministic_only(prefix) as mode:
+                runs.append(one_train_step(cut, "band", "float32", device))
+        log_repeat(f"  repeat, band engine f32 step, only {prefix}* "
+                   f"deterministic ({sorted(mode.seen)})", *runs)
+    torch.utils.deterministic.fill_uninitialized_memory = True
+
+
 def phase_train_step_checks(batch, capacity, device):
     import torch
 
@@ -1173,6 +1258,7 @@ def phase_train_step_checks(batch, capacity, device):
     compare_engine_steps(one_train_step(cut, "band", "float32", device),
                          one_train_step(cut, "gather", "float32", device),
                          one_train_step(cut, "gather", "float64", "cpu"))
+    phase_step_repeats(cut, device)
     compare_steps("train step, card vs CPU, bf16 band engine",
                   one_train_step(cut, "band", "bfloat16", device),
                   one_train_step(cut, "band", "bfloat16", "cpu"),

@@ -172,10 +172,28 @@ def one_tile(seed, cin, cout, bf16):
 
 
 def gathered(rb, x, k):
-    """Rows rb[0, k] of x, zero where not found (rb == m)."""
+    """Rows rb[:, k] of x, tile after tile, zero where not found (rb ==
+    m)."""
     m = x.shape[0]
     pad = np.concatenate([x, np.zeros((1, x.shape[1]), x.dtype)])
-    return pad[np.minimum(rb[0, k], m)]
+    return pad[np.minimum(rb[:, k].reshape(-1), m)]
+
+
+def mma_sum(c, x, y):
+    """One mma's ``c + x @ y`` as the tensor cores give it: the products
+    and their sum exact (float64 here), the result rounded to f32 toward
+    zero."""
+    exact = c.astype(np.float64) + x.astype(np.float64) @ y.astype(np.float64)
+    out = exact.astype(np.float32)
+    over = np.abs(out.astype(np.float64)) > np.abs(exact)
+    out[over] = np.nextafter(out[over], np.float32(0))
+    return out
+
+
+def nearest_sum(c, x, y):
+    """``c + x @ y`` with the exact result rounded to nearest f32."""
+    return (c.astype(np.float64)
+            + x.astype(np.float64) @ y.astype(np.float64)).astype(np.float32)
 
 
 def forward_terms(a, w, scheme):
@@ -195,29 +213,33 @@ def forward_terms(a, w, scheme):
     return [(a_lo, w_hi), (a_hi, w_lo), (a_hi, w_hi)]  # 3xTF32
 
 
-def emulate_band_forward(rb, feats, w, scheme):
+def emulate_band_forward(rb, feats, w, scheme, fresh=True, add=mma_sum):
     """``csrc/band_conv.cu``'s arithmetic in numpy for one tile: per offset
     and 64-byte channel chunk (two k-steps of 16 bf16 or 8 f32 channels,
     zero-padded past Cin), the k-steps' passes summed one mma at a time
-    into a fresh f32 fragment (each product exact, each sum rounded to
-    f32), which is then added to the f32 accumulator."""
+    into a fresh f32 fragment (each product exact, each sum rounded toward
+    zero, :func:`mma_sum`), which is then added to the f32 accumulator
+    (rounded to nearest). ``fresh=False`` chains every mma of the tile into
+    one fragment instead; ``add`` is the mma's sum."""
     step = 16 if scheme in ("bf16 pieces", "bf16 weights") else 8
     cin = feats.shape[1]
     pad = -(-cin // (2 * step)) * 2 * step - cin
     f = np.pad(feats, ((0, 0), (0, pad)))
     wp = np.pad(w, ((0, 0), (0, pad), (0, 0)))
     acc = np.zeros((feats.shape[0], w.shape[-1]), np.float32)
+    part = np.zeros_like(acc)
     for k in range(27):
         a = gathered(rb, f, k)
         for c0 in range(0, f.shape[1], 2 * step):
-            part = np.zeros_like(acc)
+            if fresh:
+                part = np.zeros_like(acc)
             for ks in (c0, c0 + step):
                 for x, y in forward_terms(a[:, ks:ks + step],
                                           wp[k, ks:ks + step], scheme):
-                    part = (part + x.astype(np.float64)
-                            @ y.astype(np.float64)).astype(np.float32)
-            acc = acc + part
-    return acc
+                    part = add(part, x, y)
+            if fresh:
+                acc = acc + part
+    return acc if fresh else part
 
 
 @pytest.mark.parametrize("cin", [7, 32])
@@ -245,14 +267,24 @@ def test_forward_kernel_precision(cin, mode):
         (w1.astype(np.float64) + w2 + w3).astype(np.float32), w)
 
 
-def test_kernel_shared_memory_fits_every_width():
-    """The forward kernel's blocks hold at most 128 columns (wider outputs
-    take several slices of equal width), so their shared memory fits at
-    any width in both types; the weight-gradient kernel's is fixed."""
-    assert [tband._slice_cols(c) for c in (7, 32, 64, 96, 128, 160, 192,
-                                           256)] == [32, 32, 64, 96, 128, 96,
-                                                     96, 128]
-    for cout in range(1, 400, 7):
-        for dtype in (torch.bfloat16, torch.float32):
-            assert tband.band_smem_bytes(cout, dtype) <= tband.SMEM_LIMIT
-    assert tband.band_bwd_smem_bytes() <= tband.SMEM_LIMIT
+@pytest.mark.parametrize("cin", [7, 32])
+@pytest.mark.parametrize("mode", ["bf16", "f32"])
+def test_forward_fresh_fragments_are_needed(cin, mode):
+    """Why the forward kernel sums each (offset, channel chunk) into a
+    fresh fragment: chaining all of a tile's mmas into one fragment, whose
+    every sum the tensor cores round toward zero, drifts past 1e-6 of the
+    output scale (several times the fresh fragments' error), while the same
+    chain rounded to nearest would not."""
+    rb, feats, w = one_tile(cin, cin, 32, mode == "bf16")
+    ref = sum(gathered(rb, feats.astype(np.float64), k)
+              @ w[k].astype(np.float64) for k in range(27))
+    scale = np.abs(ref).max()
+    scheme = "bf16 pieces" if mode == "bf16" else "3xTF32"
+    fresh = np.abs(emulate_band_forward(rb, feats, w, scheme) - ref).max()
+    chain = np.abs(emulate_band_forward(rb, feats, w, scheme, fresh=False)
+                   - ref).max()
+    assert fresh <= 1e-6 * scale
+    assert chain > 1e-6 * scale and chain > 4 * fresh
+    nearest = np.abs(emulate_band_forward(rb, feats, w, scheme, False,
+                                          nearest_sum) - ref).max()
+    assert nearest <= 1e-6 * scale

@@ -21,7 +21,9 @@ from treemorph_tpu.ops import sparse as jsp
 from treemorph_tpu_torch.ops import bandconv as tband
 from treemorph_tpu_torch.ops import sparse as tsp
 
-from test_torch_bandconv import bf16_round, gathered, level, one_tile
+from test_torch_bandconv import (
+    bf16_round, gathered, level, mma_sum, one_tile,
+)
 from test_torch_ops import (  # noqa: F401
     fresh_jax_caches, one_torch_thread, t,
 )
@@ -201,14 +203,16 @@ def test_backward_wrapper_raises_on_devices_it_cannot_launch_for():
         )
 
 
-def emulate_band_dw(rb, feats, grad, mode, passes=3):
-    """``csrc/band_conv_bwd.cu``'s arithmetic in numpy for one tile and a
-    32 x 32 slice: for offset k, ``F^T G_k`` over the tile's rows in k-steps
-    of 16 (bf16: one pass) or 8 (f32: lo*hi + hi*lo + hi*hi, or hi*hi
-    alone with ``passes=1``) rows, summed one mma at a time into a fresh
-    f32 fragment per stage (the tile's 128 rows in bf16 mode, 64 in f32
-    mode), each stage's fragment Kahan-added to the running sums.
-    Returns d_w (27, Cin, Cout) in the weights' offset order."""
+def emulate_band_dw(rb, feats, grad, mode, passes=3, fresh=True):
+    """``csrc/band_conv_bwd.cu``'s arithmetic in numpy for a 32 x 32 slice
+    over the tiles of ``rb`` (T, 27, 128): for offset k, ``F^T G_k`` over
+    the rows in k-steps of 16 (bf16: one pass) or 8 (f32: lo*hi + hi*lo +
+    hi*hi, or hi*hi alone with ``passes=1``) rows, summed one mma at a time
+    (each sum rounded toward zero, ``mma_sum``) into a fresh f32 fragment
+    per stage (a tile's 128 rows in bf16 mode, 64 in f32 mode), each
+    stage's fragment Kahan-added to the running sums. ``fresh=False``
+    chains every mma of an offset into one fragment instead. Returns d_w
+    (27, Cin, Cout) in the weights' offset order."""
     from test_torch_bricks import split_tf32
 
     step, stage = (16, 128) if mode == "bf16" else (8, 64)
@@ -217,8 +221,10 @@ def emulate_band_dw(rb, feats, grad, mode, passes=3):
         g_k = gathered(rb, grad, k)
         total = np.zeros(d_w.shape[1:], np.float32)
         comp = np.zeros_like(total)
+        part = np.zeros_like(total)
         for r0 in range(0, feats.shape[0], stage):
-            part = np.zeros_like(total)
+            if fresh:
+                part = np.zeros_like(total)
             for r in range(r0, r0 + stage, step):
                 f, g = feats[r:r + step].T, g_k[r:r + step]
                 if mode == "bf16":
@@ -229,14 +235,33 @@ def emulate_band_dw(rb, feats, grad, mode, passes=3):
                     terms = ([(f_lo, g_hi), (f_hi, g_lo), (f_hi, g_hi)]
                              if passes == 3 else [(f_hi, g_hi)])
                 for x, y in terms:
-                    part = (part + x.astype(np.float64)
-                            @ y.astype(np.float64)).astype(np.float32)
-            y = part - comp
-            t_ = total + y
-            comp = (t_ - total) - y
-            total = t_
-        d_w[26 - k] = total - comp
+                    part = mma_sum(part, x, y)
+            if fresh:
+                y = part - comp
+                t_ = total + y
+                comp = (t_ - total) - y
+                total = t_
+        d_w[26 - k] = total - comp if fresh else part
     return d_w
+
+
+def cancelling_tiles(tiles, mode, seed):
+    """A rulebook of ``tiles`` 128-row tiles over all their rows (about a
+    third of the entries missing), 32-channel features and a gradient
+    whose terms cancel, bf16 values in bf16 mode; and float64 d_w."""
+    rng = np.random.default_rng(seed)
+    m = 128 * tiles
+    rb = rng.integers(0, m, size=(tiles, 27, 128))
+    rb[rng.random(rb.shape) < 0.35] = m
+    feats = rng.normal(size=(m, 32)).astype(np.float32)
+    grad = rng.normal(size=(m, 32)).astype(np.float32)
+    grad -= grad.mean(axis=0)
+    if mode == "bf16":
+        feats, grad = bf16_round(feats), bf16_round(grad)
+    ref = np.stack([feats.astype(np.float64).T
+                    @ gathered(rb, grad.astype(np.float64), 26 - k)
+                    for k in range(27)])
+    return rb, feats, grad, ref
 
 
 @pytest.mark.parametrize("mode", ["bf16", "f32"])
@@ -261,3 +286,21 @@ def test_weight_gradient_kernel_precision(mode):
     if mode == "f32":
         one = emulate_band_dw(rb, feats, grad, mode, passes=1)
         assert np.abs(one - ref).max() > 1e-5 * scale
+
+
+@pytest.mark.parametrize("mode", ["bf16", "f32"])
+def test_weight_gradient_fresh_fragments_are_needed(mode):
+    """Why the weight-gradient kernel sums each stage into a fresh fragment
+    and Kahan-adds it: over 16 tiles of a cancelling gradient the scheme
+    stays within 1e-6 of the scale of float64, while one mma chain per
+    offset, whose every sum the tensor cores round toward zero, drifts
+    past it (past 1e-5 in f32 mode's three passes)."""
+    rb, feats, grad, ref = cancelling_tiles(16, mode, 13)
+    scale = np.abs(ref).max()
+    fresh = np.abs(emulate_band_dw(rb, feats, grad, mode) - ref).max()
+    chain = np.abs(emulate_band_dw(rb, feats, grad, mode, fresh=False)
+                   - ref).max()
+    assert fresh <= 1e-6 * scale
+    assert chain > 1e-6 * scale and chain > 4 * fresh
+    if mode == "f32":
+        assert chain > 1e-5 * scale

@@ -37,6 +37,7 @@ def port_sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "time_band_kernels.py")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

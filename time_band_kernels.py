@@ -1,18 +1,19 @@
 """CUDA-event times of the band kernels of one checkout, at the level
 shapes that ``chip_smoke.py`` phases 2 and 5 use.
 
-    python3 treemorph_tpu_torch/scripts/time_band_kernels.py [ROOT]
+    python3 time_band_kernels.py [ROOT]
 
 ROOT (default: the checkout that holds this file) must hold
 ``chip_smoke.py`` and ``treemorph_tpu_torch/``; the kernels are built from
-its own ``csrc/``. Run on two checkouts in one command, it compares two
-versions of the kernels on one card (``chip_smoke.SIMT_MS`` holds the
-times of the SIMT kernels of commit ddf01be taken this way). Needs a CUDA
-card. Prints the card's name and power limit, then one line ``TIMES
-{json}`` of ms per call (median of 20) keyed by ``(part, level, Cin,
-Cout, type)``: ``fwd`` is the forward on the e2e plot's levels;
-``train_fwd`` the forward, ``bwd`` the whole ``band_conv_bwd_padded`` and
-``bwd_d_feats`` its forward launch on the training batch's levels.
+its own ``csrc/`` and the shapes come from its own ``chip_smoke.py``. Run
+on two checkouts in one command, it compares two versions of the kernels
+on one card (``chip_smoke.SIMT_HISTORICAL_MS`` holds the times of the
+SIMT kernels of commit ddf01be taken this way). Needs a CUDA card. Prints
+the card's name and power limit, then one line ``TIMES {json}`` of ms per
+call (median of 20) keyed by ``(part, level, Cin, Cout, type)``: ``fwd``
+is the forward on the e2e plot's levels; ``train_fwd`` the forward,
+``bwd`` the whole ``band_conv_bwd_padded`` and ``bwd_d_feats`` its
+forward launch on the training batch's levels.
 """
 
 from __future__ import annotations
@@ -96,5 +97,5 @@ def main(root: str) -> dict:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1] if len(sys.argv) > 1 else os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "..", ".."))
+    main(sys.argv[1] if len(sys.argv) > 1
+         else os.path.dirname(os.path.abspath(__file__)))

@@ -59,15 +59,8 @@ TILE = 128  # output rows per kernel block
 WIN = 448  # feature-window rows per (dx, dy) group
 ALIGN = 64  # window anchors are stored in units of 64 rows
 
-#: the forward kernel's shared-memory layout (csrc/band_conv.cu): a 3-deep
-#: ring of stages, each 128 gathered rows of 64 bytes at an 80-byte pitch
-#: beside the stage's weight fragments (column slices of at most 128), and
-#: the tile's 27 x 128 gather rows
-_STAGES, _A_BYTES, _MAX_NS = 3, TILE * 80, 128
-#: the weight-gradient kernel's (csrc/band_conv_bwd.cu): two stages of the
-#: tile's feature slice and 9 gathered gradient slices, 10,240 bytes each;
-#: its (Cin, Cout) slices are 32 x 32
-_BWD_SMEM, _BWD_SLICE = 2 * 10 * 10_240, 32
+#: the (Cin, Cout) channel slices of csrc/band_conv_bwd.cu
+_BWD_SLICE = 32
 #: shared memory one block may use on an H100
 SMEM_LIMIT = 232_448
 
@@ -434,42 +427,14 @@ def _bwd_library():
     return lib
 
 
-def _slice_cols(cout: int) -> int:
-    """Columns of one forward block: Cout rounded up to 32, in as few
-    slices of at most 128 columns as hold it, each rounded up to 32."""
-    cols = -(-cout // 32) * 32
-    slices = -(-cols // _MAX_NS)
-    return -(-(-(-cols // slices)) // 32) * 32
-
-
-def band_smem_bytes(cout: int, dtype) -> int:
-    """Shared memory one block of the forward kernel uses
-    (csrc/band_conv.cu): the stage ring, whose weight fragments take 192
-    bytes a column in bf16 mode (three bf16 pieces) and 128 in f32 mode
-    (TF32 hi and lo), and the gather rows."""
-    per_col = 192 if dtype == torch.bfloat16 else 128
-    return (_STAGES * (_A_BYTES + per_col * _slice_cols(cout))
-            + 27 * TILE * 4 + 16)
-
-
-def band_bwd_smem_bytes() -> int:
-    """Shared memory one block of csrc/band_conv_bwd.cu uses: two stages of
-    the tile's 32-channel feature slice and 9 gathered gradient slices."""
-    return _BWD_SMEM
-
-
 def band_viable(k: int, cin: int, cout: int, dtype) -> bool:
     """Whether the kernels take this conv shape: 3x3x3 kernels in bf16 or
-    f32 whose blocks fit in shared memory. The kernels stage 64 bytes of a
-    row at a time, split outputs wider than 128 columns over blocks and
-    gather rows rather than staging windows, so they fit at every width
-    and window (the TPU gate was a VMEM budget that turned deep wide
-    levels away); only ``k`` and the type decide."""
-    if k != 27 or dtype not in (torch.bfloat16, torch.float32):
-        return False
-    smem = max(band_smem_bytes(cout, dtype), band_smem_bytes(cin, dtype),
-               band_bwd_smem_bytes())
-    return smem <= SMEM_LIMIT
+    f32. The kernels stage 64 bytes of a row at a time, split outputs wider
+    than 128 columns over blocks and gather rows rather than staging
+    windows, so their shared memory is the same at every width and window
+    (the TPU gate was a VMEM budget that turned deep wide levels away);
+    only ``k`` and the type decide."""
+    return k == 27 and dtype in (torch.bfloat16, torch.float32)
 
 
 def _band_impl(feats, weights, plan: BandPlan, valid, dtype):
