@@ -52,17 +52,23 @@ seeded weights, f32, on the e2e cloud given seeded per-point features):
 7a. Window attention against plain: ``window_attention`` on the card at each
     distinct (W, H, 1024, 16) shape of the plot's forward, on the inputs the
     main path gives it (f32, and the same cast to bf16) and on random ones
-    with three segments and padding rows, against its plain version on a
-    spread of the windows; the training forward (``window_attention_fwd``)
-    gives the same output and a log-sum-exp within 1e-5 of scale of the
-    plain one's; CUDA-event times against the bound, the plain version and
-    ``scaled_dot_product_attention`` with the same mask.
+    with three segments and padding rows, and on random three-segment
+    inputs at each head dim of ``HEAD_DIMS`` (K = 1088), against its plain
+    version on a spread of the windows; the training forward
+    (``window_attention_fwd``) gives the same output and a log-sum-exp
+    within 1e-5 of scale of the plain one's; a second call of either gives
+    the same bits; CUDA-event times (f32, bf16) beside the windows that
+    hold rows, the bound at the f32 rate, the bound at the kernel's own
+    arithmetic (its TF32 passes, one exp per pair on the special function
+    units at the card's maximum SM clock, or the bytes: q, k and v of the
+    rows that hold a segment, the segment ids, the whole output), the plain
+    version and ``scaled_dot_product_attention`` with the same mask.
 7b. Stage 1 on the card against the CPU: the forward ``predict_single``
     runs, on the cloud's first 65,536 points.
 7c. End to end: ``run_pipeline`` with ``model_type: pointtransformerv3``
     (44 kernel launches: 22 blocks x 2 models), then stage by stage, then
     one forward under ``torch.profiler`` (device busy share, top operators
-    and kernels).
+    and kernels, and the port's own kernels).
 
 PTv3 training (the CLI's ``pointtransformerv3`` family at full width, f32,
 on the training plots above, at the reference's PTv3 batch of 4 trees x
@@ -152,14 +158,21 @@ TF32_FLOPS = 495e12
 #: pieces, or 3xTF32; d_w: bf16 by bf16 in one pass, or 3xTF32
 BAND_TC = {"torch.bfloat16": (BF16_FLOPS, 3), "torch.float32": (TF32_FLOPS, 3)}
 DW_TC = {"torch.bfloat16": (BF16_FLOPS, 1), "torch.float32": (TF32_FLOPS, 3)}
+#: the attention forward's TF32 passes per (scores, P V) product: 3xTF32
+#: for f32 inputs; bf16 q, k, v are exact in TF32, so one pass for the
+#: scores and two (P split hi/lo) for P V
+ATTN_FWD_PASSES = {"torch.float32": (3, 3), "torch.bfloat16": (1, 2)}
+#: exps per clock on one SM's special function units (ex2)
+SFU_PER_CLOCK = 16
 #: historical, not measured by this script: ms per call of the SIMT f32
 #: band kernels these kernels replaced (commit ddf01be), at each (part,
 #: level, Cin, Cout, type): "fwd" the forward on the e2e plot's levels
 #: (phase 2), "train_fwd", "bwd" (the whole band_conv_bwd_padded) and
 #: "bwd_d_feats" (its forward launch) on the training batch's (phase 5);
-#: the mean of two runs of time_band_kernels.py on a checkout of that
-#: commit, in one call on one NVIDIA H100 80GB HBM3 at 700 W. Printed
-#: beside each row's own time as ``simt_historical_*``; never in a record
+#: the mean of two runs of time_kernels.py (then time_band_kernels.py)
+#: on a checkout of that commit, in one call on one NVIDIA H100 80GB HBM3
+#: at 700 W. Printed beside each row's own time as ``simt_historical_*``;
+#: never in a record
 SIMT_HISTORICAL_MS: dict = {
     ('fwd', 0, 7, 32, 'torch.bfloat16'): 0.2522,
     ('fwd', 0, 7, 32, 'torch.float32'): 0.2600,
@@ -1477,6 +1490,15 @@ def allowed_pair_count(seg) -> int:
     return int((n_seg[:, 1:] ** 2).sum())
 
 
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (``nvidia-smi``), in Hz."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
 def phase_attention_vs_plain(cloud, device):
     """Returns the per-forward kernel record (f32, the main path's type)
     and the per-shape rows."""
@@ -1484,6 +1506,7 @@ def phase_attention_vs_plain(cloud, device):
     import torch.nn.functional as F
 
     from treemorph_tpu_torch.ops.attention import (
+        HEAD_DIMS,
         allowed_pairs,
         window_attention,
         window_attention_fwd,
@@ -1497,18 +1520,30 @@ def phase_attention_vs_plain(cloud, device):
         raise AssertionError(f"{n_calls} window_attention calls per forward, "
                              f"expected {PTV3_BLOCKS}")
     gen = torch.Generator(device=device).manual_seed(4)
+    clock = sm_clock_hz()
+    exps_per_s = (SFU_PER_CLOCK * clock
+                  * torch.cuda.get_device_properties(device)
+                  .multi_processor_count)
     rows, worst, worst_rel, worst_lse = [], 0.0, 0.0, 0.0
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-              "bound_ms": 0.0, "bytes_s": 0.0, "ops_s": 0.0}
+              "bound_ms": 0.0, "bound_tc_ms": 0.0, "bytes_s": 0.0,
+              "ops_s": 0.0, "bf16_ms": 0.0, "library_bf16_ms": 0.0,
+              "bound_tc_bf16_ms": 0.0}
 
     def check(label, args, subset):
-        """The inference kernel (no log-sum-exp) against plain; the
-        training forward gives the same output, and its log-sum-exp within
-        1e-5 of scale of the plain one's (padding rows 0)."""
+        """The inference kernel (no log-sum-exp) against plain, and a second
+        call bit for bit; the training forward gives the same output, and
+        its log-sum-exp (a second call bit for bit) within 1e-5 of scale of
+        the plain one's (padding rows 0)."""
         nonlocal worst_lse
         out = window_attention(*args)
         out_t, lse = window_attention_fwd(*args)
+        again = window_attention(*args)
+        _, lse_again = window_attention_fwd(*args)
         torch.cuda.synchronize()
+        if not (torch.equal(out, again) and torch.equal(lse, lse_again)):
+            raise AssertionError(f"window_attention {label}: a second call "
+                                 f"differs")
         ref, ref_lse = window_attention_reference(
             *(a[subset] for a in args), return_lse=True)
         got = out[subset]
@@ -1531,6 +1566,16 @@ def phase_attention_vs_plain(cloud, device):
         worst_lse = max(worst_lse, lse_err)
         return err, scale
 
+    # every compiled instantiation; K = 17 x 64, so at D <= 16 (128 rows a
+    # block) each window ends in a block of 64 rows
+    for d in HEAD_DIMS:
+        shape = (ATTN_CHECK_WINDOWS // 4, 2, 1088, d)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = tuple(x.to(dtype) if x.is_floating_point() else x for x in
+                         segmented_inputs(shape, device, gen))
+            err, scale = check(f"{shape} {dtype} random, 3 segments", args,
+                               slice(None))
+            worst, worst_rel = max(worst, err), max(worst_rel, err / scale)
     for shape, ((q, k, v, seg), count) in sorted(captured.items()):
         w, h, kk, d = shape
         subset = torch.linspace(0, w - 1, min(w, ATTN_CHECK_WINDOWS),
@@ -1550,7 +1595,11 @@ def phase_attention_vs_plain(cloud, device):
             plain_ms = cuda_ms(lambda: window_attention_reference(*args), 3)
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 *args[:3], attn_mask=mask), 5)
-            nbytes = (3 * w * h * kk * d * args[0].element_size()
+            # each input read once: q, k and v of the rows that hold a
+            # segment (no output depends on a padding row's), every segment
+            # id; the whole f32 output written once
+            live = int((seg >= 0).sum())
+            nbytes = (3 * live * h * d * args[0].element_size()
                       + w * kk * 4 + w * h * kk * d * 4)
             # 2 D multiply-adds per allowed pair and head for the scores and
             # 2 D for the values: bf16 x bf16 score products take the
@@ -1561,21 +1610,37 @@ def phase_attention_vs_plain(cloud, device):
             ops_s = half / qk_rate + half / F32_FLOPS
             bytes_s = nbytes / HBM_BYTES_PER_S
             bound_ms = 1e3 * max(bytes_s, ops_s)
+            # the kernel's own arithmetic: its TF32 passes of both products
+            # at the tensor cores' rate, one exp per allowed pair and head
+            # on the special function units at the maximum SM clock
+            mma_s = half * sum(ATTN_FWD_PASSES[str(dtype)]) / TF32_FLOPS
+            exp_s = h * pairs / exps_per_s
+            tc_terms = {"bytes": bytes_s, "mma passes": mma_s, "exps": exp_s}
+            bound_tc_ms = 1e3 * max(tc_terms.values())
             row = dict(shape=list(shape), dtype=str(dtype), calls=count,
+                       valid_rows=live,
+                       windows_with_rows=int((seg >= 0).any(1).sum()),
                        allowed_pairs=pairs, exps=h * pairs,
                        max_abs_err=err, output_scale=scale,
                        max_abs_err_random=err_rand, ms=ms,
                        plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=bound_ms,
-                       bound_by="bytes" if bytes_s > ops_s else "operations")
+                       bound_by="bytes" if bytes_s > ops_s else "operations",
+                       bound_tc_ms=bound_tc_ms,
+                       bound_tc_by=max(tc_terms, key=tc_terms.get))
             rows.append(row)
             log("kernel " + json.dumps(row))
             if dtype == torch.float32:
                 for key, val in (("ms", ms), ("plain_ms", plain_ms),
                                  ("library_ms", library_ms),
-                                 ("bound_ms", bound_ms), ("bytes_s", bytes_s),
-                                 ("ops_s", ops_s)):
+                                 ("bound_ms", bound_ms),
+                                 ("bound_tc_ms", bound_tc_ms),
+                                 ("bytes_s", bytes_s), ("ops_s", ops_s)):
                     totals[key] += count * val
+            else:
+                totals["bf16_ms"] += count * ms
+                totals["library_bf16_ms"] += count * library_ms
+                totals["bound_tc_bf16_ms"] += count * bound_tc_ms
     record = {
         "name": "window_attention",
         "route": "cuda",
@@ -1593,14 +1658,25 @@ def phase_attention_vs_plain(cloud, device):
         "bound_by": "bytes" if totals["bytes_s"] > totals["ops_s"]
         else "operations",
         "library_ms": totals["library_ms"],
+        "bound_tc_ms": totals["bound_tc_ms"],
+        "bf16_ms": totals["bf16_ms"],
+        "library_bf16_ms": totals["library_bf16_ms"],
+        "bound_tc_bf16_ms": totals["bound_tc_bf16_ms"],
+        "sm_clock_mhz": clock / 1e6,
     }
     log(f"phase 7a ok: window_attention within {KERNEL_RTOL} x scale of "
-        f"plain at {len(rows)} shape/type cases and on three-segment inputs, "
-        f"its log-sum-exp within {worst_lse:.2e} of scale; "
-        f"one forward's {PTV3_BLOCKS} launches (f32): kernel "
-        f"{totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, "
-        f"scaled_dot_product_attention {totals['library_ms']:.3f} ms, bound "
-        f"{totals['bound_ms']:.3f} ms; the capturing forward {fwd_s:.3f} s")
+        f"plain at {len(rows)} shape/type cases, on three-segment inputs and "
+        f"at D = {HEAD_DIMS}, its log-sum-exp within {worst_lse:.2e} of "
+        f"scale, every second call bit-identical; one forward's "
+        f"{PTV3_BLOCKS} launches: kernel f32 {totals['ms']:.3f} ms (bound "
+        f"{totals['bound_ms']:.3f} at the f32 rate, "
+        f"{totals['bound_tc_ms']:.3f} at its TF32 passes and exps, SM clock "
+        f"{clock / 1e6:.0f} MHz), bf16 {totals['bf16_ms']:.3f} ms (TC bound "
+        f"{totals['bound_tc_bf16_ms']:.3f}); plain (f32) "
+        f"{totals['plain_ms']:.3f} ms; scaled_dot_product_attention f32 "
+        f"{totals['library_ms']:.3f} ms, bf16 "
+        f"{totals['library_bf16_ms']:.3f} ms; the capturing forward "
+        f"{fwd_s:.3f} s")
     return record, rows
 
 
@@ -1666,9 +1742,13 @@ def profile_device(fn, label, top=10):
     clock, synchronized), the summed device time of the kernels (the
     device's busy share), and the operators and kernels that take the most
     device time."""
+    import re
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from treemorph_tpu_torch.ops.cuda import KERNEL_FUNCTIONS
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1688,10 +1768,15 @@ def profile_device(fn, label, top=10):
         return [(e.key[:90], e.count, e.self_device_time_total / 1e3)
                 for e in events]
 
+    # the port's own kernels, whatever their rank
+    names = {f for fns in KERNEL_FUNCTIONS.values() for f in fns}
+    hand = [e for e in kernels
+            if (m := re.search(r"::(\w+)[<(]", e.key)) and m.group(1) in names]
     record = {"seconds": wall_s, "device_busy_seconds": busy_s,
               "device_idle_share": 1.0 - busy_s / wall_s,
               "top_ops_device_ms": table(ops),
-              "top_kernels_device_ms": table(kernels)}
+              "top_kernels_device_ms": table(kernels),
+              "hand_kernels_device_ms": table(hand)}
     log(f"{label} profile: " + json.dumps(record))
     return record
 
@@ -1843,10 +1928,12 @@ def phase_attention_bwd_vs_plain(calls, device):
             plain_ms = cuda_ms(lambda: window_attention_bwd_reference(*args),
                                3)
             library_ms = sdpa_backward_ms(args, mask)
-            # each input read once (q, k, v, seg, the f32 cotangent), each
-            # output written once (dq, dk, dv in f32)
-            nbytes = (3 * w * h * kk * d * args[0].element_size()
-                      + w * kk * 4 + w * h * kk * d * 4
+            # each input read once (q, k, v and the f32 cotangent of the
+            # rows that hold a segment, every segment id), each output
+            # written once (dq, dk, dv in f32)
+            live = int((seg >= 0).sum())
+            nbytes = (3 * live * h * d * args[0].element_size()
+                      + w * kk * 4 + live * h * d * 4
                       + 3 * w * h * kk * d * 4)
             # 5 D multiply-adds per allowed pair and head (the scores, dp,
             # dv, dq, dk) in f32; the same on the TF32 tensor cores in the
@@ -1860,7 +1947,7 @@ def phase_attention_bwd_vs_plain(calls, device):
             bound_tf32_ms = 1e3 * max(
                 bytes_s, flops / 5 * passes / TF32_FLOPS)
             row = dict(shape=list(shape), dtype=str(dtype), calls=count,
-                       valid_rows=int((seg >= 0).sum()),
+                       valid_rows=live,
                        windows_with_rows=int((seg >= 0).any(1).sum()),
                        allowed_pairs=pairs,
                        err_over_scale={n: e / max(sc, 1e-30)

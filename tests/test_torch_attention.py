@@ -199,26 +199,46 @@ def tf32(x):
         np.float32)
 
 
-def mma_product(x, y, passes, group=1):
-    """x @ y as ``csrc/window_attention_bwd.cu`` computes it, each operand
-    split into TF32 hi and lo: per 8 terms of the sum the passes (``passes``
-    3: lo*hi + hi*lo + hi*hi, a pass dropped where that lo is zero; 1:
-    hi*hi alone) one mma at a time into a fresh f32 fragment (each product
-    exact, each sum rounded to f32), added to the f32 accumulator after
-    ``group`` such steps."""
+def mma_sum(c, x, y):
+    """One mma's ``c + x @ y`` as the tensor cores give it: the products
+    and their sum exact (float64 here), the result rounded to f32 toward
+    zero."""
+    exact = c.astype(np.float64) + x.astype(np.float64) @ y.astype(np.float64)
+    out = exact.astype(np.float32)
+    over = np.abs(out.astype(np.float64)) > np.abs(exact)
+    out[over] = np.nextafter(out[over], np.float32(0))
+    return out
+
+
+def tf32_terms(x, y, passes, x_lo_raw=False):
+    """The (A, B) operand pairs of one k-step's mma passes in the kernels'
+    order, each operand split into TF32 hi and lo: ``passes`` 3, lo*hi +
+    hi*lo + hi*hi, a pass dropped where that lo is zero; 1, hi*hi alone.
+    ``x_lo_raw``: x's remainder goes to the mma unrounded, which reads its
+    TF32 bits (the low 13 mantissa bits cleared)."""
     x_hi, y_hi = tf32(x), tf32(y)
     x_lo, y_lo = tf32(x - x_hi), tf32(y - y_hi)
+    if x_lo_raw:
+        x_lo = ((x - x_hi).view(np.uint32) & np.uint32(0xFFFFE000)).view(
+            np.float32)
     terms = [(x_hi, y_hi)]
     if passes == 3:
         terms = [(a, b) for a, b in ((x_lo, y_hi), (x_hi, y_lo))
                  if a.any() and b.any()] + terms
+    return terms
+
+
+def mma_product(x, y, passes, group=1):
+    """x @ y as ``csrc/window_attention_bwd.cu`` computes it: per 8 terms
+    of the sum the passes of :func:`tf32_terms` one mma at a time into a
+    fresh f32 fragment (:func:`mma_sum`), added to the f32 accumulator
+    after ``group`` such steps."""
     acc = np.zeros((x.shape[0], y.shape[1]), np.float32)
     for g0 in range(0, x.shape[1], 8 * group):
         part = np.zeros_like(acc)
         for k0 in range(g0, g0 + 8 * group, 8):
-            for a, b in terms:
-                part = (part + a[:, k0:k0 + 8].astype(np.float64)
-                        @ b[k0:k0 + 8].astype(np.float64)).astype(np.float32)
+            for a, b in tf32_terms(x[:, k0:k0 + 8], y[k0:k0 + 8], passes):
+                part = mma_sum(part, a, b)
         acc = acc + part
     return acc
 
@@ -262,3 +282,95 @@ def test_three_pass_tf32_backward_tile(dtype):
             assert all(np.all(x[pad] == 0) for x in got)
         else:
             assert max(errs) > 1e-5, errs
+
+
+def emulate_forward_tile(q, k, v, seg_q, seg_k, passes, fresh=True):
+    """(out, lse) of query rows q (R, D) against keys k, v (K, D) as
+    ``csrc/window_attention.cu`` computes them, in numpy: per staged tile of
+    64 keys the scores S = q K^T (the passes of up to two 8-wide k-steps
+    into a fresh fragment, :func:`mma_sum`, then a rounded add), the mask,
+    one row max and one rescale of l and O by alpha = 2^(mc_old - mc_new),
+    P = 2^(S c - m c) (c = D^-1/2 log2 e, one rounded FMA; ``np.exp2`` in f32
+    for ``ex2.approx``), then O += P V with the passes of each 32 keys in a
+    fresh fragment (``fresh=False``: every mma chained into O instead), P's
+    remainder handed to the mma unrounded (:func:`tf32_terms`). At
+    the end out = O / l and lse = m c ln 2 + log l, 0 for a row with no
+    allowed key. ``passes`` 3 splits both operands of both products into
+    TF32 hi and lo (passes with a zero lo dropped), 1 takes hi*hi alone."""
+    rows, d = q.shape
+    c = np.float32(np.float32(d ** -0.5) * np.float32(np.log2(np.e)))
+    m = np.full(rows, -np.inf, np.float32)
+    mc, l = np.zeros(rows, np.float32), np.zeros(rows, np.float32)
+    o = np.zeros((rows, d), np.float32)
+    for k0 in range(0, k.shape[0], 64):
+        kt, vt = k[k0:k0 + 64], v[k0:k0 + 64]
+        s = np.zeros((rows, 64), np.float32)
+        for g0 in range(0, d, 16):
+            part = np.zeros_like(s)
+            for ks in range(g0, min(g0 + 16, d), 8):
+                for a, b in tf32_terms(q[:, ks:ks + 8], kt[:, ks:ks + 8].T,
+                                       passes):
+                    part = mma_sum(part, a, b)
+            s = s + part
+        ok = (seg_q[:, None] == seg_k[None, k0:k0 + 64]) & (seg_q >= 0)[:, None]
+        s = np.where(ok, s, np.float32(-np.inf))
+        m_new = np.maximum(m, s.max(1))
+        live = np.isfinite(m_new)
+        mc_new = np.where(live, m_new * c, 0).astype(np.float32)
+        alpha = np.where(np.isfinite(m), np.exp2(mc - mc_new), 0).astype(
+            np.float32)
+        with np.errstate(invalid="ignore"):
+            arg = (s.astype(np.float64) * c - mc_new[:, None]).astype(
+                np.float32)
+        p = np.exp2(arg)
+        l = l * alpha + p.sum(1, dtype=np.float32)
+        o = o * alpha[:, None]
+        for j0 in range(0, 64, 32):
+            part = np.zeros_like(o) if fresh else o
+            for j in range(j0, j0 + 32, 8):
+                for a, b in tf32_terms(p[:, j:j + 8], vt[j:j + 8], passes,
+                                       x_lo_raw=True):
+                    part = mma_sum(part, a, b)
+            o = o + part if fresh else part
+        m, mc = np.where(live, m_new, m), np.where(live, mc_new, mc)
+    has = l > 0
+    out = o * np.where(has, np.float32(1) / np.where(has, l, 1), 0)[:, None]
+    lse = np.where(has, mc * np.float32(np.log(2)) + np.log(np.where(has, l, 1)),
+                   0)
+    return out.astype(np.float32), lse.astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_three_pass_tf32_forward_tile(dtype):
+    """The precision decision of the forward kernel on one 64-row query
+    tile at D = 16 against a window of 256 keys (four staged tiles, two
+    segments, padding rows), emulated in numpy: 3xTF32 products (bf16 q, k,
+    v have no TF32 remainder, so S takes one pass and P V two), each mma's
+    sum rounded toward zero into a fresh fragment, one rescale per staged
+    tile, give the output and the log-sum-exp within 1e-6 of their float64
+    scale, padding rows exactly 0. One TF32 pass misses 1e-5; chaining every
+    mma of P V into the output sums more than doubles the output's error
+    against fresh fragments."""
+    q, k, v, seg = inputs(12, w=1, h=1, k=256, d=16, n_segments=2,
+                          pad_frac=0.1)
+    if dtype == "bfloat16":
+        q, k, v = (t(x).to(torch.bfloat16).float().numpy()
+                   for x in (q, k, v))
+        assert not any((x - tf32(x)).any() for x in (q, k, v))
+    want, want_lse = (x.numpy()[0, 0, :64] for x in
+                      tatt.window_attention_reference(
+                          *(t(x).double() for x in (q, k, v)), t(seg),
+                          return_lse=True))
+    q1, k1, v1, s1 = q[0, 0], k[0, 0], v[0, 0], seg[0]
+    errs = {}
+    for label, passes, fresh in (("3 passes", 3, True), ("1 pass", 1, True),
+                                 ("chained", 3, False)):
+        out, lse = emulate_forward_tile(q1[:64], k1, v1, s1[:64], s1, passes,
+                                        fresh)
+        errs[label] = (np.abs(out - want).max() / np.abs(want).max(),
+                       np.abs(lse - want_lse).max() / np.abs(want_lse).max())
+        pad = s1[:64] < 0
+        assert pad.any() and np.all(out[pad] == 0) and np.all(lse[pad] == 0)
+    assert max(errs["3 passes"]) <= 1e-6, errs
+    assert errs["1 pass"][0] > 1e-5, errs
+    assert errs["chained"][0] > 2 * errs["3 passes"][0], errs

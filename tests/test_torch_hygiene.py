@@ -4,6 +4,7 @@ without one the default raises instead of quietly running on the CPU."""
 
 import ast
 import os
+import re
 
 import numpy as np
 import pytest
@@ -11,6 +12,7 @@ import torch
 
 import treemorph_tpu_torch
 from treemorph_tpu_torch.evaluation.model_loaders import Predictor, build_model
+from treemorph_tpu_torch.ops.cuda import CSRC_DIR, KERNEL_FUNCTIONS, kernel_names
 from treemorph_tpu_torch.pipeline.predict import predict_single
 from treemorph_tpu_torch.pipeline.run import run_pipeline
 from treemorph_tpu_torch.pipeline.upsample import upsample_device
@@ -37,7 +39,7 @@ def port_sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
-    yield os.path.join(REPO, "time_band_kernels.py")
+    yield os.path.join(REPO, "time_kernels.py")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -47,6 +49,19 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         for mod in imported_modules(path):
             root = mod.split(".")[0]
             assert root not in FORBIDDEN, f"{path} imports {mod}"
+
+
+def test_kernel_functions_name_every_global_function():
+    """``ops.cuda.KERNEL_FUNCTIONS`` lists each source's ``__global__``
+    functions; the chip script's profiles pick the port's kernels out by
+    these names."""
+    assert sorted(KERNEL_FUNCTIONS) == kernel_names()
+    for name, functions in KERNEL_FUNCTIONS.items():
+        with open(os.path.join(CSRC_DIR, f"{name}.cu")) as f:
+            src = f.read()
+        assert src.count("__global__") == len(functions), name
+        for function in functions:
+            assert re.search(rf"\b{function}\(", src), (name, function)
 
 
 @pytest.fixture

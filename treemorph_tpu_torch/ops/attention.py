@@ -28,7 +28,8 @@ import torch
 
 from .cuda import LAUNCHES, check_launch, load_library, stream_handle
 
-#: query rows per block, and keys staged per pass, in the CUDA kernel
+#: keys staged per pass in the CUDA kernels (the backward's rows per block
+#: too); the window K must be a multiple of it
 TILE = 64
 #: head dims the kernel is compiled for
 HEAD_DIMS = (8, 16, 32, 64)
@@ -157,6 +158,7 @@ def _window_attention_cuda(q, k, v, seg, with_lse=False):
     _check_inputs("window_attention", q, k, v, seg)
     w_count, h, kk, d = q.shape
     lib = _library("window_attention")
+    q, k, v, seg = (_aligned(x) for x in (q, k, v, seg))
     out = torch.empty((w_count, h, kk, d), dtype=torch.float32,
                       device=q.device)
     lse = (torch.empty((w_count, h, kk), dtype=torch.float32,

@@ -23,6 +23,18 @@ CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 #: kernel launches per wrapper name, counted where each wrapper launches
 LAUNCHES: Counter = Counter()
 
+#: the ``__global__`` functions of each ``csrc/{name}.cu``, by the names
+#: the profiler gives their launches
+KERNEL_FUNCTIONS: dict[str, tuple[str, ...]] = {
+    "band_conv": ("split_weights_kernel", "band_conv_kernel"),
+    "band_conv_bwd": ("band_conv_bwd_kernel",),
+    "brick_conv": ("split_weights_kernel", "live_bricks_kernel",
+                   "brick_gemm_kernel"),
+    "window_attention": ("window_attention_kernel",),
+    "window_attention_bwd": ("dq_kernel", "dk_dv_kernel"),
+    "zband_conv": ("zband_conv_kernel",),
+}
+
 _libs: dict[str, ctypes.CDLL] = {}
 
 
