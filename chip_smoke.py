@@ -124,6 +124,25 @@ The brick conv (the plot's levels 0-2 in 4^3 bricks, capped at M / 4):
 10c. ``brick_subm_conv`` (``F.conv3d`` and x-slab schedules) against the
      gather engine on the level-0 voxels.
 
+The bench PTv3 configuration (``PTV3_BENCH``: the JAX package's bench.py
+PTv3 forward, token dedup, the band stem at K = 125 and band xCPEs, bf16;
+full width, seeded weights), on the bench tree (bench.py:86-100's first
+tree, 131,072 points, seeded features):
+
+11a. ``band_conv_padded`` against its plain version at every (K, rows, Cin,
+     Cout) of one forward: the main path's own inputs (bf16) and random
+     f32 features of the same rows; every band plan's ``ok`` and residual
+     rows (the stem's K = 125 plan among them); CUDA-event times beside
+     the bounds (f32 rate; the kernel's passes) and the plain version.
+11b. The forward ``predict_single`` runs, card against CPU: offsets within
+     1e-2 of their scale, noise argmax agreement, no dedup or pool
+     overflow, band launches per forward by K (1 at K = 125, 22 at K = 27
+     where every plan is ``ok``); then ``predict_single`` with both
+     predictors on the card, launches counted.
+11c. The same configuration through ``run_pipeline`` on the PTv3 plot,
+     stage by stage; one forward's wall time (median of 3) and one forward
+     under ``torch.profiler``.
+
 The last two lines are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``. Float32 matmuls and convolutions run
 without TF32 (set below) so f32 comparisons are full precision.
@@ -299,6 +318,14 @@ BRICK_DIVISOR = 4
 BRICK_WIDTHS = (32, 64, 96)
 #: autograd and engine checks of phases 9b, 10b and 10c: f32, sum order
 AUTOGRAD_RTOL = 1e-5
+#: the JAX package's bench PTv3 configuration (bench.py:51-54, :745-750):
+#: one token per voxel, level-0 dedup cap P / 4, the band stem (K = 125)
+#: and band xCPEs (K = 27), bf16
+PTV3_BENCH = dict(pool_shrink=2, dedup_divisor=4, dedup_tokens=True,
+                  stem_engine="band", compute_dtype="bfloat16")
+#: card vs CPU in that configuration: bf16 roundings that flip under
+#: another f32 sum order (cuBLAS, atomic pooled sums) through 22 blocks
+PTV3_BENCH_OFFSET_RTOL = 1e-2
 
 
 def log(msg: str) -> None:
@@ -2708,6 +2735,421 @@ def phase_brick_engine(levels, device):
         f"{AUTOGRAD_RTOL})")
 
 
+def bench_tree_cloud():
+    """The bench tree of the JAX package's PTv3 measurement (bench.py:86-100,
+    its first tree: 131,072 points, ``profile_zband.bench_points``) in the
+    (N, 11) layout, with seeded features (numpy seed 19) in columns 7:11."""
+    import numpy as np
+
+    from treemorph_tpu_torch.scripts.profile_zband import bench_points
+
+    pts = bench_points()
+    cloud = np.zeros((len(pts), 11), np.float32)
+    cloud[:, :3] = pts
+    cloud[:, 7:11] = np.random.default_rng(19).normal(size=(len(pts), 4))
+    return cloud
+
+
+def ptv3_bench_models(device, **overrides):
+    """Offset and noise predictors of the pipeline's PTv3 in the bench
+    configuration (``PTV3_BENCH`` with ``overrides``, seeded weights, full
+    width); the noise model's semantic head prefers class 0 (keep), as
+    ``ptv3_models``'."""
+    import torch
+
+    from treemorph_tpu_torch.evaluation.model_loaders import (
+        Predictor,
+        build_model,
+    )
+
+    model = build_model("pointtransformerv3", device=device, seed=0,
+                        **dict(PTV3_BENCH, **overrides))
+    noise = model.clone()
+    with torch.no_grad():
+        noise.semantic_head.Dense_1.bias.copy_(torch.tensor([5.0, -5.0]))
+    return (
+        Predictor("pointtransformerv3", model, device),
+        Predictor("pointtransformerv3", noise, device),
+    )
+
+
+def capture_band_inputs(predictor, cloud):
+    """One forward of ``predictor`` on ``cloud`` as ``predict_single`` pads
+    it; returns, per distinct (K, rows, Cin, Cout) of ``band_conv_padded``,
+    the first call's arguments and the number of calls; every band plan the
+    model chose (K, rows, ok, residual rows, valid rows); and the forward's
+    seconds (host clock, synchronized)."""
+    import torch
+
+    from treemorph_tpu_torch.models import ptv3
+    from treemorph_tpu_torch.ops import bandconv
+    from treemorph_tpu_torch.pipeline.predict import _pad_flat
+
+    calls, plans = {}, []
+    kernel, choose = bandconv.band_conv_padded, ptv3.choose_band_plan
+
+    def recording(rb_tiles, starts, feats, weights, m, win):
+        key = (rb_tiles.shape[1], feats.shape[0], feats.shape[1],
+               weights.shape[2])
+        entry = calls.setdefault(
+            key, [(rb_tiles, starts, feats, weights.detach(), m, win), 0])
+        entry[1] += 1
+        return kernel(rb_tiles, starts, feats, weights, m, win)
+
+    def choosing(rulebook, valid, *args):
+        plan = choose(rulebook, valid, *args)
+        plans.append(dict(k=rulebook.shape[1], rows=rulebook.shape[0],
+                          valid_rows=int(valid.sum()), ok=bool(plan.ok),
+                          residual_rows=int(plan.res_valid.sum())))
+        return plan
+
+    coords, f, b, valid, _ = _pad_flat(cloud[:, :3], cloud[:, 7:11],
+                                       device=predictor.device)
+    bandconv.band_conv_padded, ptv3.choose_band_plan = recording, choosing
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = predictor.predict_flat(coords, f, b, valid)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        bandconv.band_conv_padded, ptv3.choose_band_plan = kernel, choose
+    log(f"bench PTv3 forward (capturing): {secs:.3f} s, dedup_overflow "
+        f"{int(res['dedup_overflow'])}, pool_overflow "
+        f"{int(res['pool_overflow'])}")
+    return calls, plans, secs
+
+
+def phase_bench_kernels(cloud, device):
+    """11a: ``band_conv_padded`` against its plain version at every
+    (K, rows, Cin, Cout) of the bench configuration's forward on the bench
+    tree: the main path's own inputs (bf16) and random features of the same
+    rows in f32; CUDA-event times, both bounds and the plain version.
+    Returns the K = 125 record, the K = 27 totals per forward and the
+    rows."""
+    import torch
+
+    from treemorph_tpu_torch.ops.bandconv import (
+        TILE,
+        band_conv_padded,
+        band_conv_padded_plain,
+        in_window,
+    )
+
+    offset_model, _ = ptv3_bench_models(device)
+    captured, plans, _ = capture_band_inputs(offset_model, cloud)
+    for plan in plans:
+        log("bench band plan " + json.dumps(plan))
+    stem = [p for p in plans if p["k"] == 125]
+    if len(stem) != 1:
+        raise AssertionError(f"11a: {len(stem)} K = 125 plans per forward")
+    gen = torch.Generator(device=device).manual_seed(11)
+    rows, worst_rel = [], 0.0
+    totals = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_tc_ms=0.0,
+                      bytes=0.0, flops=0.0, f32_ms=0.0, calls=0)
+              for k in (27, 125)}
+    for (k, mp, cin, cout), (args, count) in sorted(captured.items()):
+        rb_tiles, starts, feats, w, m, win = args
+        _, ok = in_window(rb_tiles, starts, m, win)
+        nnz = int(ok.sum())
+        live = (torch.arange(mp, device=device) < m)[:, None]
+        random_f32 = torch.randn((mp, cin), device=device,
+                                 generator=gen) * live
+        for dtype, f in ((torch.bfloat16, feats), (torch.float32,
+                                                   random_f32)):
+            call = (rb_tiles, starts, f.to(dtype).contiguous(), w, m, win)
+            out = band_conv_padded(*call)
+            torch.cuda.synchronize()
+            err, scale = within_scale(
+                f"11a band_conv K={k} ({mp}, {cin})->({mp}, {cout}) {dtype}",
+                out, band_conv_padded_plain(*call), KERNEL_RTOL)
+            worst_rel = max(worst_rel, err / max(scale, 1e-30))
+            repeats = bool(torch.equal(out, band_conv_padded(*call)))
+            ms = cuda_ms(lambda: band_conv_padded(*call), 20)
+            plain_ms = cuda_ms(lambda: band_conv_padded_plain(*call), 5)
+            # each input read once (the tiled rulebook, the anchors, the
+            # features, the weights), the f32 output written once; the
+            # in-window entries' multiply-adds
+            nbytes = (rb_tiles.numel() * 4 + starts.numel() * 4
+                      + mp * cin * call[2].element_size()
+                      + k * cin * cout * 4 + mp * cout * 4)
+            flops = 2.0 * nnz * cin * cout
+            bound_ms, bound_by = bound(nbytes, flops)
+            row = dict(k=k, rows=mp, m=m, cin=cin, cout=cout,
+                       dtype=str(dtype), inputs="main path" if dtype ==
+                       torch.bfloat16 else "random", calls_per_forward=count,
+                       in_window_entries=nnz, max_abs_err=err,
+                       output_scale=scale, repeats_bit_for_bit=repeats,
+                       ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by,
+                       **tc_bound(nbytes, flops, BAND_TC[str(dtype)]))
+            rows.append(row)
+            log("kernel " + json.dumps(row))
+            t = totals[k]
+            if dtype == torch.bfloat16:
+                t["calls"] += count
+                for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                                 ("bound_ms", bound_ms), ("bytes", nbytes),
+                                 ("flops", flops),
+                                 ("bound_tc_ms", row["bound_tc_ms"])):
+                    t[key] += count * val
+            else:
+                t["f32_ms"] += count * ms
+    if totals[125]["calls"] != 1 or totals[27]["calls"] != PTV3_BLOCKS:
+        raise AssertionError(
+            f"11a: band_conv calls per forward K=125 {totals[125]['calls']}, "
+            f"K=27 {totals[27]['calls']}; expected 1 and {PTV3_BLOCKS}")
+    records = {}
+    for k, t in totals.items():
+        records[k] = {
+            "shape": "; ".join(
+                f"({mp}, {cin})->({mp}, {cout}) x{count}"
+                for (kk, mp, cin, cout), (_, count) in sorted(
+                    captured.items()) if kk == k),
+            "ms": t["ms"], "f32_ms": t["f32_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": bound(t["bytes"], t["flops"])[1],
+            "bound_tc_ms": t["bound_tc_ms"],
+            "max_abs_err": max(r["max_abs_err"] for r in rows
+                               if r["k"] == k),
+            "max_err_over_scale": max(r["max_abs_err"] / r["output_scale"]
+                                      for r in rows if r["k"] == k),
+            "library_ms": None,
+        }
+    stem_plan = stem[0]
+    records[125].update(plan_ok=stem_plan["ok"],
+                        residual_rows=stem_plan["residual_rows"],
+                        valid_rows=stem_plan["valid_rows"])
+    log(f"phase 11a ok: band_conv within {KERNEL_RTOL} x scale of plain at "
+        f"{len(rows)} shape/type cases of the bench PTv3 forward (worst "
+        f"{worst_rel:.2e} of scale); stem plan ok {stem_plan['ok']}, "
+        f"{stem_plan['residual_rows']} residual rows of "
+        f"{stem_plan['valid_rows']}; per forward (bf16): K=125 "
+        f"{totals[125]['ms']:.4f} ms (bound {totals[125]['bound_ms']:.4f}, "
+        f"plain {totals[125]['plain_ms']:.3f}), K=27 x{PTV3_BLOCKS} "
+        f"{totals[27]['ms']:.3f} ms (bound {totals[27]['bound_ms']:.3f}, "
+        f"TC {totals[27]['bound_tc_ms']:.3f}, plain "
+        f"{totals[27]['plain_ms']:.3f})")
+    return records, rows
+
+
+def bench_forward(cloud, device, perturb=0.0, **overrides):
+    """The offset model's forward (the one ``predict_single`` runs) in the
+    bench configuration on ``device``: its offsets and logits on the cloud's
+    points, seconds, overflow counts and band launches by K. ``perturb``
+    moves every weight by that share of itself (seeded), to read how far
+    the outputs move under a change below any rounding of the inputs."""
+    import torch
+
+    from treemorph_tpu_torch.ops import bandconv
+    from treemorph_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from treemorph_tpu_torch.pipeline.predict import _pad_flat
+
+    offset_model, _ = ptv3_bench_models(device, **overrides)
+    if perturb:
+        gen = torch.Generator(device=device).manual_seed(12)
+        with torch.no_grad():
+            for p in offset_model.model.parameters():
+                p.mul_(1 + perturb * torch.randn(p.shape, device=device,
+                                                 generator=gen))
+    coords, f, b, v, n = _pad_flat(cloud[:, :3], cloud[:, 7:11],
+                                   device=device)
+    bandconv.GATHER_ROUTES.clear()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = offset_model.predict_flat(coords, f, b, v)
+    out = {k: res[k][:n].float().cpu().numpy()
+           for k in ("offset_predictions", "semantic_prediction_logits")}
+    out.update(seconds=time.perf_counter() - t0,
+               dedup_overflow=int(res["dedup_overflow"]),
+               pool_overflow=int(res["pool_overflow"]),
+               k125=LAUNCHES["band_conv_k125"], k27=LAUNCHES["band_conv_k27"],
+               routes=dict(bandconv.GATHER_ROUTES))
+    log(f"  bench PTv3 forward on {device} ({overrides or 'bf16'}"
+        f"{f', weights moved by {perturb}' if perturb else ''}): "
+        f"{out['seconds']:.2f} s, dedup_overflow {out['dedup_overflow']}, "
+        f"pool_overflow {out['pool_overflow']}, band_conv launches K=125 "
+        f"{out['k125']}, K=27 {out['k27']}, GATHER_ROUTES {out['routes']}")
+    return out
+
+
+def compare_forwards(label, a, b):
+    """Offsets' max |a - b| over b's scale, and the agreement of the
+    semantic argmax as the head gives it and at the median margin of b
+    (half the points on each side)."""
+    import numpy as np
+
+    err = float(np.abs(a["offset_predictions"]
+                       - b["offset_predictions"]).max())
+    scale = float(np.abs(b["offset_predictions"]).max())
+    ma, mb = (o["semantic_prediction_logits"] @ np.array([-1.0, 1.0])
+              for o in (a, b))
+    median = float(np.median(mb))
+    row = {"offset_err_over_scale": err / scale, "offset_scale": scale,
+           "argmax_agreement": float(((ma > 0) == (mb > 0)).mean()),
+           "class1_share": float((mb > 0).mean()),
+           "median_margin_agreement": float(((ma > median)
+                                             == (mb > median)).mean()),
+           "finite": bool(all(np.isfinite(o[k]).all() for o in (a, b)
+                              for k in ("offset_predictions",
+                                        "semantic_prediction_logits")))}
+    log(f"{label}: " + json.dumps(row))
+    return row
+
+
+def phase_bench_card_vs_cpu(cloud, device):
+    """11b: the bench configuration's forward on the card and on the CPU,
+    the same seeded weights, on the bench tree. bf16 (the configuration):
+    offsets within PTV3_BENCH_OFFSET_RTOL of their scale, the keep decision
+    of ``predict_single``'s noise model agreeing on >= 99.9 % of points (its
+    ``predict_single`` run below); the
+    offset head's own argmax is logged beside the card against itself with
+    every weight moved by 1e-6 of its value (how far bf16 roundings move
+    under any change of sum order). The same configuration in f32: offsets
+    within PTV3_OFFSET_RTOL and the argmax, as given and at the median
+    margin, on >= 99.9 %. No dedup or pool overflow; band launches per
+    forward by K. Then ``predict_single`` with both predictors on the card
+    and on the CPU (the same kept points within the agreement above, their
+    refined positions within the offset limit), launches counted. Returns
+    the K = 125 and K = 27 launches of the card's call."""
+    import numpy as np
+    import torch
+
+    from treemorph_tpu_torch.ops import bandconv
+    from treemorph_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from treemorph_tpu_torch.pipeline.predict import predict_single
+
+    card, cpu = bench_forward(cloud, device), bench_forward(cloud, "cpu")
+    bf16 = compare_forwards("bench PTv3 bf16, card vs cpu", card, cpu)
+    floor = compare_forwards(
+        "bench PTv3 bf16, card vs card with every weight moved by 1e-6",
+        bench_forward(cloud, device, perturb=1e-6), card)
+    f32_card = bench_forward(cloud, device, compute_dtype="float32")
+    f32 = compare_forwards("bench PTv3 f32, card vs cpu", f32_card,
+                           bench_forward(cloud, "cpu",
+                                         compute_dtype="float32"))
+
+    refined, keep, launches, retries = {}, {}, None, _RetryCounter()
+    predict_log = logging.getLogger("treemorph_tpu_torch.pipeline.predict")
+    for dev in (device, "cpu"):
+        offset, noise = ptv3_bench_models(dev)
+        if dev == device:
+            offset_model = offset
+        noise_forward = noise.predict_flat
+
+        def recording(*args, dev=dev, forward=noise_forward):
+            # the noise model's logits: predict_single keeps class 0
+            res = forward(*args)
+            logits = res["semantic_prediction_logits"][:len(cloud)]
+            keep[dev] = logits.float().cpu().numpy().argmax(1) == 0
+            return res
+
+        noise.predict_flat = recording
+        predict_log.addHandler(retries)
+        if dev == device:
+            torch.cuda.synchronize()
+        reset_launches()
+        bandconv.GATHER_ROUTES.clear()
+        t0 = time.perf_counter()
+        refined[dev] = predict_single(cloud, offset, noise, device=dev)
+        if dev == device:
+            torch.cuda.synchronize()
+            launches = {125: LAUNCHES["band_conv_k125"],
+                        27: LAUNCHES["band_conv_k27"]}
+            single_routes = sum(bandconv.GATHER_ROUTES.values())
+        predict_log.removeHandler(retries)
+        log(f"bench PTv3 predict_single on {dev}: "
+            f"{time.perf_counter() - t0:.2f} s, {len(refined[dev])} of "
+            f"{len(cloud)} points kept, routed to the gather engine "
+            f"{dict(bandconv.GATHER_ROUTES)}, retries so far "
+            f"{retries.retries}, all launches {dict(LAUNCHES)}")
+    walls = forward_walls(offset_model, cloud)
+    keep_agreement = float((keep[device] == keep["cpu"]).mean())
+    both = keep[device] & keep["cpu"]
+    rows = {dev: np.cumsum(k)[both] - 1 for dev, k in keep.items()}
+    limit = PTV3_BENCH_OFFSET_RTOL * bf16["offset_scale"]
+    moved = float(np.abs(refined[device][rows[device]]
+                         - refined["cpu"][rows["cpu"]]).max())
+    log(f"bench PTv3 predict_single card vs cpu: keep decisions agree on "
+        f"{keep_agreement:.5f} of the points, {int(both.sum())} kept by "
+        f"both, refined positions max |diff| {moved:.3e} (limit "
+        f"{limit:.3e}); "
+        f"band_conv launches on the card K=125 {launches[125]}, K=27 "
+        f"{launches[27]}")
+    routed = sum(card["routes"].values())
+    checks = {
+        "finite": bf16["finite"] and f32["finite"],
+        f"bf16 offsets within {PTV3_BENCH_OFFSET_RTOL} x scale":
+            bf16["offset_err_over_scale"] <= PTV3_BENCH_OFFSET_RTOL,
+        f"f32 offsets within {PTV3_OFFSET_RTOL} x scale":
+            f32["offset_err_over_scale"] <= PTV3_OFFSET_RTOL,
+        "f32 argmax agreement": min(f32["argmax_agreement"],
+                                    f32["median_margin_agreement"])
+        >= STAGE1_ARGMAX_AGREEMENT,
+        "no dedup or pool overflow": all(
+            o[k] == 0 for o in (card, cpu, f32_card)
+            for k in ("dedup_overflow", "pool_overflow")),
+        "band launches per forward": card["k125"] + card["k27"] + routed
+        == PTV3_BLOCKS + 1 and card["k27"] > 0,
+        "band launches in predict_single": launches[125] + launches[27]
+        + single_routes == 2 * (PTV3_BLOCKS + 1) and launches[27] > 0
+        and retries.retries == 0,
+        "predict_single keeps the points its noise model says":
+            all(len(refined[d]) == int(keep[d].sum()) > 0 for d in keep),
+        "predict_single keep decisions agree":
+            keep_agreement >= STAGE1_ARGMAX_AGREEMENT,
+        "predict_single refined positions within the offset limit":
+            moved <= limit,
+    }
+    for name, ok in checks.items():
+        log(f"  {'ok ' if ok else 'FAIL'} {name}")
+    if not all(checks.values()):
+        raise AssertionError("11b: the bench PTv3 configuration failed")
+    log(f"phase 11b ok (the offset head's argmax, bf16: card vs cpu "
+        f"{bf16['argmax_agreement']:.5f}, card vs itself with weights moved "
+        f"by 1e-6 {floor['argmax_agreement']:.5f}); one forward on the card "
+        f"{statistics.median(walls):.4f} s (median of {len(walls)}: {walls})")
+    return launches
+
+
+def forward_walls(predictor, cloud, reps=3) -> list:
+    """Wall seconds of ``reps`` forwards of ``predictor`` on ``cloud`` as
+    ``predict_single`` pads it (host clock around synchronized work)."""
+    import torch
+
+    from treemorph_tpu_torch.pipeline.predict import _pad_flat
+
+    args = _pad_flat(cloud[:, :3], cloud[:, 7:11],
+                     device=predictor.device)[:4]
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predictor.predict_flat(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def phase_bench_end_to_end(cloud, device, reps=3):
+    """11c: the bench configuration through ``run_pipeline`` on the PTv3
+    plot (band launches counted), stage by stage; the wall time of one
+    forward (host clock around synchronized work, median of ``reps``); one
+    forward under ``torch.profiler``."""
+    from treemorph_tpu_torch.ops import bandconv
+
+    models = ptv3_bench_models(device)
+    plot_end_to_end(cloud, "pointtransformerv3", models, device, "band_conv",
+                    PTV3_BLOCKS + 1, bandconv.GATHER_ROUTES)
+    walls = forward_walls(models[0], cloud, reps)
+    log(f"bench PTv3 forward on the plot ({len(cloud)} points): wall "
+        f"{statistics.median(walls):.4f} s (median of {reps}: {walls})")
+    profile_forward(models[0], cloud)
+    log("phase 11c ok")
+
+
 def pipeline_config(input_dir: str, output_dir: str,
                     model_type: str = "treelearn") -> dict:
     """``configs/pipeline_config.yaml`` as a dict (no YAML parser needed),
@@ -2810,6 +3252,18 @@ def main() -> int:
     brick_record, _ = phase_brick_vs_plain(levels, device)
     brick_launches = phase_brick_autograd(levels, device)
     phase_brick_engine(levels, device)
+    bench_cloud = bench_tree_cloud()
+    bench_records, _ = phase_bench_kernels(bench_cloud, device)
+    bench_launches = phase_bench_card_vs_cpu(bench_cloud, device)
+    del bench_cloud
+    phase_bench_end_to_end(ptv3_cloud(points), device)
+    path = "ptv3 bench serving (predict_single on the bench tree)"
+    fwd_record["k125"] = {
+        **bench_records[125], "launches": bench_launches[125],
+        "launches_counted_on": path}
+    fwd_record["ptv3_bench_k27"] = {
+        **bench_records[27], "launches": bench_launches[27],
+        "launches_counted_on": path}
     log(f"total {time.perf_counter() - t0:.1f} s")
     head = ("name", "route", "source", "replaces")
     kernels = []

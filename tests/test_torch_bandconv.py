@@ -23,13 +23,14 @@ from test_torch_ops import (  # noqa: F401
 )
 
 
-def level(seed=0, n=1500):
-    """``test_torch_ops.voxel_level``'s voxel level and its rulebook, as
-    numpy, built by the port: its voxelize and rulebook equal the JAX
-    package's exactly (test_torch_ops.py), and cost no JAX compile."""
+def level(seed=0, n=1500, kernel_size=3):
+    """``test_torch_ops.voxel_level``'s voxel level (lex-sorted) and its
+    rulebook, as numpy, built by the port: its voxelize and rulebook equal
+    the JAX package's exactly (test_torch_ops.py), and cost no JAX
+    compile."""
     c, f, b, v = padded_inputs(seed, n, pad=64)
     vox = tvox.voxelize(t(c), t(f), t(b), t(v), 0.02, 1)
-    rb = tsp.build_rulebook(vox.voxel_coords, vox.voxel_valid, 3)
+    rb = tsp.build_rulebook(vox.voxel_coords, vox.voxel_valid, kernel_size)
     return rb.numpy(), vox.voxel_valid.numpy()
 
 
@@ -43,12 +44,15 @@ def assert_plans_equal(pt, pj):
     assert pt.win == pj.wmark.shape[0]
 
 
-@pytest.mark.parametrize("window", [tband.WIN, 64])
-def test_band_plan_matches_jax(window):
-    rb, valid = level(0)
+@pytest.mark.parametrize("kernel_size,window",
+                         [(3, tband.WIN), (3, 64), (5, tband.WIN)])
+def test_band_plan_matches_jax(kernel_size, window):
+    """At 3x3x3 and at PTv3's 5x5x5 stem (25 groups of 5 dz offsets)."""
+    rb, valid = level(0, kernel_size=kernel_size)
     pj = jband.build_band_plan(jnp.asarray(rb), jnp.asarray(valid), window)
     pt = tband.build_band_plan(t(rb), t(valid), window)
     assert_plans_equal(pt, pj)
+    assert pt.starts.shape[0] == kernel_size ** 2
     n_res = int(pt.res_valid.sum())
     # the default window leaves few residual rows, the small one many
     assert (n_res < len(rb) // 50) if window == tband.WIN else n_res > 50
@@ -83,6 +87,54 @@ def test_plain_band_kernel_matches_pallas_kernel(cin, dtype):
     tol = 1e-5 if dtype == "bfloat16" else 2e-4
     np.testing.assert_allclose(out_t.numpy(), out_j, rtol=tol, atol=tol)
     assert np.abs(out_j[:m]).mean() > 0.1  # real work, not zeros
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_plain_band_kernel_matches_pallas_kernel_k5(dtype):
+    """PTv3's stem shape, K = 125 (4 -> 32), on a lex-sorted voxel set:
+    the plan and the plain version against the Pallas kernel at ksize 5,
+    with the tolerances of the 3x3x3 case (bf16 1e-5; f32 2e-4, JAX's bf16
+    hi/lo features)."""
+    rb, valid = level(4, n=900, kernel_size=5)
+    m = len(rb)
+    rng = np.random.default_rng(125)
+    w = (rng.normal(size=(125, 4, 32)) / np.sqrt(125 * 4)).astype(np.float32)
+    pj = jband.build_band_plan(jnp.asarray(rb), jnp.asarray(valid))
+    pt = tband.build_band_plan(t(rb), t(valid))
+    assert_plans_equal(pt, pj)
+    mp = pj.rb_tiles.shape[0] * tband.TILE
+    feats = np.zeros((mp, 4), np.float32)
+    feats[:m] = rng.normal(size=(m, 4)) * valid[:, None]
+    nsplit = 1 if dtype == "bfloat16" else 2
+    out_j = np.asarray(jband._band_conv_padded(
+        pj.rb_tiles, pj.starts, jband._split_bf16(jnp.asarray(feats), nsplit),
+        jnp.asarray(w), m, nsplit, pj.wmark.shape[0],
+    ))
+    args = (pt.rb_tiles, pt.starts, t(feats).to(getattr(torch, dtype)),
+            t(w), m, pt.win)
+    out_t = tband.band_conv_padded_plain(*args)
+    tol = 1e-5 if dtype == "bfloat16" else 2e-4
+    np.testing.assert_allclose(out_t.numpy(), out_j, rtol=tol, atol=tol)
+    assert np.abs(out_j[:m]).mean() > 0.1  # real work, not zeros
+    # the wrapper takes the plain version for a CPU tensor, at K = 125 too
+    np.testing.assert_array_equal(tband.band_conv_padded(*args).numpy(),
+                                  out_t.numpy())
+
+
+def test_backward_wrappers_refuse_k5():
+    """No backward kernel takes K = 125 (PTv3's stem needs no feature
+    gradient): both wrappers refuse it on any device, with the reason."""
+    rb, valid = level(4, n=600, kernel_size=5)
+    plan = tband.build_band_plan(t(rb), t(valid))
+    mp = plan.rb_tiles.shape[0] * tband.TILE
+    feats, grad = torch.zeros((mp, 4)), torch.zeros((mp, 32))
+    w_bwd = torch.zeros((125, 32, 4))
+    with pytest.raises(ValueError, match="K = 27.*not K = 125"):
+        tband.band_conv_bwd_padded(plan.rb_tiles, plan.starts, grad, feats,
+                                   w_bwd, len(rb), plan.win)
+    with pytest.raises(ValueError, match="K = 27.*not K = 125"):
+        tband.band_conv_dw_padded(plan.rb_tiles, plan.starts, grad, feats,
+                                  len(rb), plan.win)
 
 
 def test_band_subm_conv_matches_jax():
@@ -128,13 +180,18 @@ def test_overflowed_plan_takes_the_gather_route():
 
 def test_gate_admits_every_pipeline_conv_shape():
     """The pipeline's TreeLearn (channels 32, 3 levels, 7 input features)
-    convolves Cin 7..192 into Cout 32..96; the gather route may then be
-    taken only for an overflowed plan."""
-    for cin, cout in [(7, 32), (32, 32), (64, 32), (64, 64), (128, 64),
-                      (96, 96), (192, 96)]:
+    convolves Cin 7..192 into Cout 32..96, PTv3's xCPEs 32..512 channels
+    and its stem 4 -> 32 at K = 125; the gather route may then be taken
+    only for an overflowed plan. Other kernel sizes and types are not the
+    kernel's."""
+    shapes = [(27, 7, 32), (27, 32, 32), (27, 64, 32), (27, 64, 64),
+              (27, 128, 64), (27, 96, 96), (27, 192, 96), (125, 4, 32)]
+    shapes += [(27, c, c) for c in (32, 64, 128, 256, 512)]
+    for k, cin, cout in shapes:
         for dtype in (torch.bfloat16, torch.float32):
-            assert tband.band_viable(27, cin, cout, dtype)
-    assert not tband.band_viable(125, 4, 32, torch.float32)
+            assert tband.band_viable(k, cin, cout, dtype)
+    assert not tband.band_viable(343, 4, 32, torch.float32)
+    assert not tband.band_viable(27, 32, 32, torch.float64)
 
 
 def bf16_round(x):
@@ -155,18 +212,18 @@ def bf16_pieces(w):
     return w1, w2, bf16_round(w - w1 - w2)
 
 
-def one_tile(seed, cin, cout, bf16):
+def one_tile(seed, cin, cout, bf16, k=27):
     """One 128-row tile whose window holds every row: a random tiled
-    rulebook (about a third of the entries missing), features (bf16 values
-    in bf16 mode) and weights."""
+    rulebook of ``k`` offsets (about a third of the entries missing),
+    features (bf16 values in bf16 mode) and weights."""
     rng = np.random.default_rng(seed)
     m = 128
-    rb = rng.integers(0, m, size=(1, 27, m))
+    rb = rng.integers(0, m, size=(1, k, m))
     rb[rng.random(rb.shape) < 0.35] = m
     feats = rng.normal(size=(m, cin)).astype(np.float32)
     if bf16:
         feats = bf16_round(feats)
-    w = (rng.normal(size=(27, cin, cout)) / np.sqrt(27 * cin)).astype(
+    w = (rng.normal(size=(k, cin, cout)) / np.sqrt(k * cin)).astype(
         np.float32)
     return rb, feats, w
 
@@ -228,7 +285,7 @@ def emulate_band_forward(rb, feats, w, scheme, fresh=True, add=mma_sum):
     wp = np.pad(w, ((0, 0), (0, pad), (0, 0)))
     acc = np.zeros((feats.shape[0], w.shape[-1]), np.float32)
     part = np.zeros_like(acc)
-    for k in range(27):
+    for k in range(rb.shape[1]):
         a = gathered(rb, f, k)
         for c0 in range(0, f.shape[1], 2 * step):
             if fresh:
@@ -242,17 +299,18 @@ def emulate_band_forward(rb, feats, w, scheme, fresh=True, add=mma_sum):
     return acc if fresh else part
 
 
-@pytest.mark.parametrize("cin", [7, 32])
+@pytest.mark.parametrize("cin,k", [(7, 27), (32, 27), (4, 125)])
 @pytest.mark.parametrize("mode", ["bf16", "f32"])
-def test_forward_kernel_precision(cin, mode):
-    """The forward kernel's precision decision, at level 0's widths (7 ->
-    32, 32 -> 32) on one tile: bf16 features by three bf16 weight pieces
-    (bf16 mode) and 3xTF32 (f32 mode) land within 1e-6 of the output scale
-    of float64; a single TF32 pass, or weights rounded to bf16, misses
-    1e-5."""
-    rb, feats, w = one_tile(cin, cin, 32, mode == "bf16")
-    ref = sum(gathered(rb, feats.astype(np.float64), k)
-              @ w[k].astype(np.float64) for k in range(27))
+def test_forward_kernel_precision(cin, k, mode):
+    """The forward kernel's precision decision, at TreeLearn's level-0
+    widths (7 -> 32, 32 -> 32) and PTv3's stem (4 -> 32 over 125 offsets,
+    one stage of 4 real channels per offset) on one tile: bf16 features by
+    three bf16 weight pieces (bf16 mode) and 3xTF32 (f32 mode) land within
+    1e-6 of the output scale of float64; a single TF32 pass, or weights
+    rounded to bf16, misses 1e-5."""
+    rb, feats, w = one_tile(cin, cin, 32, mode == "bf16", k)
+    ref = sum(gathered(rb, feats.astype(np.float64), j)
+              @ w[j].astype(np.float64) for j in range(k))
     scale = np.abs(ref).max()
     schemes = (["bf16 pieces", "bf16 weights", "one tf32 pass"]
                if mode == "bf16" else ["3xTF32", "one tf32 pass"])

@@ -282,10 +282,11 @@ def flax_layout():
     )
 
 
-def flax_values(seed=0):
-    """Variables in flax's layout drawn from numpy: fan-in normals for conv
-    and Dense kernels, the heads' final kernels at 0.5 (O(1) outputs), and
-    every bias, norm parameter and statistic perturbed."""
+def flax_values(seed=0, layout=None):
+    """Variables in flax's layout (``layout``: the tiny model's by default)
+    drawn from numpy: fan-in normals for conv and Dense kernels, the heads'
+    final kernels at 0.5 (O(1) outputs), and every bias, norm parameter and
+    statistic perturbed."""
     rng = np.random.default_rng(seed)
 
     def leaf(path, spec):
@@ -307,7 +308,7 @@ def flax_values(seed=0):
             for k, v in tree.items()
         }
 
-    return walk(flax_layout())
+    return walk(layout if layout is not None else flax_layout())
 
 
 def port_model(variables):
@@ -393,8 +394,9 @@ def test_predict_single_matches_jax(models):
 
 def test_build_model_and_options_off_the_path():
     """``build_model`` gives the pipeline's PTv3 (the family defaults and
-    the JAX package's widths) with seeded weights; options off the
-    serving path raise, naming their ROADMAP item."""
+    the JAX package's widths) with seeded weights; the options still to be
+    ported raise, naming their ROADMAP item (the dedup options and the
+    band stem are ported: ``test_torch_ptv3_bench.py``)."""
     model = build_model("pointtransformerv3", device="cpu", seed=0, **TINY)
     again = build_model("pointtransformerv3", device="cpu", seed=0, **TINY)
     assert not model.training
@@ -404,11 +406,19 @@ def test_build_model_and_options_off_the_path():
         assert torch.equal(a, b), name
     kernel = model.backbone.embedding.kernel
     assert abs(float(kernel.detach().std()) * np.sqrt(125 * 4) - 1) < 0.1
-    for option in (dict(dedup_divisor=4), dict(dedup_tokens=True),
-                   dict(stem_engine="band"), dict(enable_rpe=True),
-                   dict(pad_per_element=True), dict(pdnorm=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for option, item in ((dict(stem_engine="zpack"), "queue 1 item 17"),
+                         (dict(enable_rpe=True), "queue 1 item 11d"),
+                         (dict(pad_per_element=True), "queue 1 item 11d"),
+                         (dict(pdnorm=object()), "queue 1 item 11d")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
             tptv3.PointTransformerWithHeads(**option)
+    with pytest.raises(ValueError, match="dedup_tokens needs"):
+        tptv3.PointTransformerWithHeads(dedup_tokens=True)
+    for option in (dict(dedup_divisor=4), dict(stem_engine="band"),
+                   dict(dedup_divisor=4, dedup_tokens=True,
+                        stem_engine="band")):
+        config = tptv3.PointTransformerWithHeads(**option, **TINY).config
+        assert all(config[k] == v for k, v in option.items())
 
 
 def test_bfloat16_block_matches_jax(models):

@@ -7,32 +7,39 @@
 //   out[t*128 + i] = sum_k  feats[rb[t, k, i]] @ W[k]
 //
 // over the found rulebook entries (rb < m) whose row lies in the window
-// [64 * starts[g(k), t], + win) of the entry's (dx, dy) group g(k) = k / 3.
-// Found entries outside the window are left out; the caller adds them back
-// (_residual_repair). The TPU kernel's one-hot MXU select and its bf16 hi/lo
-// split of f32 features are TPU workarounds and are not carried over.
+// [64 * starts[g(k), t], + win) of the entry's (dx, dy) group g(k) =
+// k / ksize. Found entries outside the window are left out; the caller adds
+// them back (_residual_repair). K = ksize^3 is 27 (every xCPE and TreeLearn
+// conv) or 125 (PTv3's stem). The TPU kernel's one-hot MXU select and its
+// bf16 hi/lo split of f32 features are TPU workarounds and are not carried
+// over.
 //
-// What bounds it on an H100: per output row the kernel does 27 * Cin * Cout
-// multiply-adds (the in-window share of them is real work) and reads 108
-// bytes of rulebook plus the rows it gathers, so at TreeLearn's widths (Cin
-// 7..192, Cout 32..192) it is bound by arithmetic, and without tensor cores
-// by FP32 FMA issue and the shared-memory loads that feed it. The design:
+// What bounds it on an H100: per output row the kernel does K * Cin * Cout
+// multiply-adds (the in-window share of them is real work) and reads 4 K
+// bytes of rulebook plus the rows it gathers, so at TreeLearn's and PTv3's
+// xCPE widths (Cin 7..512, Cout 32..512) it is bound by arithmetic, and
+// without tensor cores by FP32 FMA issue and the shared-memory loads that
+// feed it; PTv3's stem (4 -> 32 at K = 125) is bound by its rulebook's
+// bytes. The design:
 //
 // - A gathered implicit GEMM with mma.sync: M is one 128-row tile, N is a
 //   column slice of Cout (all of it up to 128 columns, so nothing is staged
-//   twice for the last columns), K is the 27 offsets x Cin. A block has 8
+//   twice for the last columns), K is the K offsets x Cin. A block has 8
 //   warps, 4 along the rows (32 each) x 2 along the columns, and keeps its
-//   128 x N f32 sums in registers across all 27 offsets.
+//   128 x N f32 sums in registers across all K offsets.
 // - The A operand of offset k is the tile's 128 rulebook rows, gathered
 //   straight from L2 into shared memory with cp.async, 64 bytes of each row
 //   per stage (32 bf16 or 16 f32 channels); rows that were not found, or lie
 //   outside their window, are zero-filled without a read. The plan's
-//   windows are not staged: 27 x 128 gathered rows are fewer than 9 windows
-//   of win rows, and only the found ones are read. Rows sit at an 80-byte
-//   pitch, so the 8 row addresses of an ldmatrix hit 32 distinct banks.
-//   Stages (offset, 64-byte channel chunk) run through a 3-deep cp.async
-//   ring; an offset that no row of the tile reaches is not staged, and a
-//   tile that reaches nothing writes zeros.
+//   windows are not staged: K x 128 gathered rows are fewer than ksize^2
+//   windows of win rows, and only the found ones are read. Rows sit at an
+//   80-byte pitch, so the 8 row addresses of an ldmatrix hit 32 distinct
+//   banks. Stages (offset, 64-byte channel chunk) run through a 3-deep
+//   cp.async ring; a prologue marks the offsets some row of the tile
+//   reaches (a mask of 32-bit words, one ballot per offset), only those
+//   are staged, and a tile that reaches nothing writes zeros. K is a
+//   template parameter, so the K = 27 instances keep their constant
+//   offsets and one mask word.
 // - B is W[k], split once per call by split_weights_kernel into fragment
 //   order, so a stage's B is one contiguous block copied with cp.async and
 //   read by each lane as 16-byte loads without bank conflicts.
@@ -52,7 +59,10 @@
 //   staged element by element, all of a stage's loads issued before its
 //   stores, and zero-padded in shared memory up to the stage's 64 bytes;
 //   that path is an instantiation of its own (VEC false), so the cp.async
-//   path keeps its registers and its blocks per SM.
+//   path keeps its registers and its blocks per SM. PTv3's bf16 stem (4
+//   channels, 8 bytes a row) takes it too: each stage holds 4 real channels
+//   of 32, the price of a simple kernel for a conv that is a small share of
+//   the forward.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,8 +74,7 @@ namespace {
 
 constexpr int TILE = 128;        // output rows per block
 constexpr int ALIGN = 64;        // window anchors are in units of 64 rows
-constexpr int KSIZE = 3;         // kernel edge; K = 27 offsets, dz fastest
-constexpr int K = 27;
+constexpr int MAX_K = 125;       // offsets: ksize^3, dz fastest, ksize 3 or 5
 constexpr int THREADS = 256;     // 8 warps: 4 along the rows x 2 along N
 constexpr int CHUNK_BYTES = 64;  // bytes of a row per stage (two k-steps)
 constexpr int A_PITCH = CHUNK_BYTES + 16;  // staged row pitch in bytes
@@ -83,8 +92,9 @@ __host__ __device__ constexpr int b_bytes(bool bf16, int ns) {
 __host__ __device__ constexpr int stage_bytes(bool bf16, int ns) {
   return A_BYTES + b_bytes(bf16, ns);
 }
-constexpr size_t smem_bytes(bool bf16, int ns) {
-  return (size_t)STAGES * stage_bytes(bf16, ns) + K * TILE * sizeof(int) +
+// the ring, the tile's gather rows [k][128] and the mask of live offsets
+constexpr size_t smem_bytes(bool bf16, int ns, int k) {
+  return (size_t)STAGES * stage_bytes(bf16, ns) + k * TILE * sizeof(int) +
          16;
 }
 
@@ -158,7 +168,7 @@ __device__ __forceinline__ uint32_t bf16_piece(float w, int p) {
   return bf16_bits(r1 - w2);
 }
 
-// W (27, cin, cout) f32 -> the B fragments of every stage, in the order the
+// W (k, cin, cout) f32 -> the B fragments of every stage, in the order the
 // GEMM reads them: [slice][k][chunk] blocks of b_bytes(bf16, ns).
 // bf16: uint4 [ks][piece][n-tile pair][lane] = (b0, b1 of n-tile 2p, b0, b1
 // of n-tile 2p + 1), b0 = W[c][n], W[c + 1][n] and b1 = W[c + 8][n],
@@ -167,9 +177,9 @@ __device__ __forceinline__ uint32_t bf16_piece(float w, int p) {
 // hi b1, lo b0, lo b1), b0 = W[c][n], b1 = W[c + 4][n], c = chunk*16 +
 // ks*8 + lane % 4. Zero past cin or cout.
 __global__ void split_weights_kernel(const float* __restrict__ w,
-                                     uint4* __restrict__ wf, int cin,
-                                     int cout, int n_chunks, int ns, int bf16,
-                                     int total) {
+                                     uint4* __restrict__ wf, int kk,
+                                     int cin, int cout, int n_chunks, int ns,
+                                     int bf16, int total) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   const int lane = i & 31;
@@ -188,8 +198,8 @@ __global__ void split_weights_kernel(const float* __restrict__ w,
     r /= 2;
     const int chunk = r % n_chunks;
     r /= n_chunks;
-    const int k = r % K;
-    const int slice = r / K;
+    const int k = r % kk;
+    const int slice = r / kk;
     w += (size_t)k * cin * cout;
     const int c = chunk * 32 + ks * 16 + 2 * tq;
     uint32_t word[4];
@@ -210,8 +220,8 @@ __global__ void split_weights_kernel(const float* __restrict__ w,
     r /= 2;
     const int chunk = r % n_chunks;
     r /= n_chunks;
-    const int k = r % K;
-    const int slice = r / K;
+    const int k = r % kk;
+    const int slice = r / kk;
     w += (size_t)k * cin * cout;
     const int c = chunk * 16 + ks * 8 + tq;
     const int n = slice * ns + nt * 8 + g;
@@ -222,22 +232,25 @@ __global__ void split_weights_kernel(const float* __restrict__ w,
   }
 }
 
-template <bool BF16, int NS, bool VEC>
+template <int K, bool BF16, int NS, bool VEC>
 __global__ void __launch_bounds__(THREADS, NS <= 96 ? 2 : 1)
-band_conv_kernel(const int32_t* __restrict__ rb_tiles,  // (n_tiles, 27, 128)
-                 const int32_t* __restrict__ starts,    // (9, n_tiles)
+band_conv_kernel(const int32_t* __restrict__ rb_tiles,  // (n_tiles, K, 128)
+                 const int32_t* __restrict__ starts,    // (ksize^2, n_tiles)
                  const char* __restrict__ feats,        // (Mp, cin)
                  const uint4* __restrict__ wf,          // split weights
                  float* __restrict__ out,               // (Mp, cout)
                  int n_tiles, int cin, int cout, int m, int win,
                  int n_chunks) {
+  constexpr int KSIZE = K == 27 ? 3 : 5;  // kernel edge
+  constexpr int WORDS = (K + 31) / 32;    // words of the live-offset mask
+  static_assert(WORDS * 4 <= 16, "the mask has 16 bytes of shared memory");
   constexpr int ELEM = BF16 ? 2 : 4;
   constexpr int KC = CHUNK_BYTES / ELEM;  // channels per stage
   constexpr int B_BYTES = b_bytes(BF16, NS);
   constexpr int STAGE = stage_bytes(BF16, NS);
   constexpr int NTW = NS / 16;            // n-tiles of 8 per warp
   extern __shared__ __align__(16) unsigned char smem[];
-  int* idx_s = reinterpret_cast<int*>(smem + STAGES * STAGE);  // [27][128]
+  int* idx_s = reinterpret_cast<int*>(smem + STAGES * STAGE);  // [K][128]
   unsigned* live_s = reinterpret_cast<unsigned*>(idx_s + K * TILE);
 
   const int t = blockIdx.x;
@@ -248,25 +261,36 @@ band_conv_kernel(const int32_t* __restrict__ rb_tiles,  // (n_tiles, 27, 128)
 
   // the tile's gather rows (-1: not found or outside the window) and the
   // mask of offsets any row reaches
-  if (tid == 0) *live_s = 0u;
+  if (tid < WORDS) live_s[tid] = 0u;
   __syncthreads();
   {
+    // threads 0-127 take the first half of the offsets, 128-255 the rest;
+    // every warp lies in one half, so the vote below is warp-uniform
     const int i = tid & (TILE - 1);
-    const int k0 = tid < TILE ? 0 : 14, k1 = tid < TILE ? 14 : K;
-    unsigned mask = 0u;
+    constexpr int HALF = (K + 1) / 2;
+    const int k0 = tid < TILE ? 0 : HALF, k1 = tid < TILE ? HALF : K;
+    unsigned mask = 0u;  // K <= 32: this thread's bits, reduced once
     for (int k = k0; k < k1; ++k) {
       const int idx = rb_tiles[((size_t)t * K + k) * TILE + i];
       const int local = idx - starts[(k / KSIZE) * n_tiles + t] * ALIGN;
       const bool ok = idx < m && local >= 0 && local < win;
       idx_s[k * TILE + i] = ok ? idx : -1;
-      mask |= (unsigned)ok << k;
+      if constexpr (WORDS == 1) {
+        mask |= (unsigned)ok << k;
+      } else if (__any_sync(0xffffffffu, ok) && lane == 0) {
+        atomicOr(live_s + (k >> 5), 1u << (k & 31));
+      }
     }
-    mask = __reduce_or_sync(0xffffffffu, mask);
-    if (lane == 0 && mask) atomicOr(live_s, mask);
+    if constexpr (WORDS == 1) {
+      mask = __reduce_or_sync(0xffffffffu, mask);
+      if (lane == 0 && mask) atomicOr(live_s, mask);
+    }
   }
   __syncthreads();
-  const unsigned live = *live_s;
-  const int n_stages = __popc(live) * n_chunks;
+  int n_live = 0;
+#pragma unroll
+  for (int w = 0; w < WORDS; ++w) n_live += __popc(live_s[w]);
+  const int n_stages = n_live * n_chunks;
 
   // stage (k, c) into ring buffer buf: the gathered A rows and W's piece
   auto issue = [&](int k, int c, int buf) {
@@ -393,16 +417,22 @@ band_conv_kernel(const int32_t* __restrict__ rb_tiles,  // (n_tiles, 27, 128)
     }
   };
 
-  // stages in order: offsets in `live` ascending, chunks within each
-  unsigned rest = live;
-  int ik = rest ? __ffs(rest) - 1 : 0, ic = 0, issued = 0;
+  // stages in order: offsets in the mask ascending (word w, its bits
+  // left in `rest`), chunks within each
+  int w = 0;
+  unsigned rest = live_s[0];
+  auto next_offset = [&]() {
+    while (rest == 0u && w + 1 < WORDS) rest = live_s[++w];
+    return rest ? 32 * w + __ffs(rest) - 1 : 0;
+  };
+  int ik = next_offset(), ic = 0, issued = 0;
   auto issue_next = [&]() {
     if (issued < n_stages) {
       issue(ik, ic, issued % STAGES);
       if (++ic == n_chunks) {
         ic = 0;
         rest &= rest - 1;
-        ik = rest ? __ffs(rest) - 1 : 0;
+        ik = next_offset();
       }
       ++issued;
     }
@@ -458,18 +488,19 @@ int n_chunks(int cin, int bf16) {
   return (cin * (bf16 ? 2 : 4) + CHUNK_BYTES - 1) / CHUNK_BYTES;
 }
 
-size_t workspace_bytes(int cin, int cout, int bf16) {
-  return (size_t)n_slices(cout) * K * n_chunks(cin, bf16) *
+size_t workspace_bytes(int k, int cin, int cout, int bf16) {
+  return (size_t)n_slices(cout) * k * n_chunks(cin, bf16) *
          b_bytes(bf16 != 0, slice_cols(cout));
 }
 
 template <bool BF16, int NS, bool VEC>
 cudaError_t launch_gemm(const int32_t* rb_tiles, const int32_t* starts,
                         const char* feats, const uint4* wf, float* out,
-                        int n_tiles, int cin, int cout, int m, int win,
+                        int n_tiles, int k, int cin, int cout, int m, int win,
                         cudaStream_t stream) {
-  auto kernel = band_conv_kernel<BF16, NS, VEC>;
-  const size_t smem = smem_bytes(BF16, NS);
+  auto kernel = k == 27 ? &band_conv_kernel<27, BF16, NS, VEC>
+                        : &band_conv_kernel<MAX_K, BF16, NS, VEC>;
+  const size_t smem = smem_bytes(BF16, NS, k);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -485,31 +516,32 @@ cudaError_t launch_gemm(const int32_t* rb_tiles, const int32_t* starts,
 // for element staging
 template <bool BF16, int NS>
 cudaError_t launch_vec(const int32_t* rb, const int32_t* st, const char* f,
-                       const uint4* wf, float* o, int n_tiles, int cin,
-                       int cout, int m, int win, int vec, cudaStream_t s) {
-  return vec ? launch_gemm<BF16, NS, true>(rb, st, f, wf, o, n_tiles, cin,
+                       const uint4* wf, float* o, int n_tiles, int k,
+                       int cin, int cout, int m, int win, int vec,
+                       cudaStream_t s) {
+  return vec ? launch_gemm<BF16, NS, true>(rb, st, f, wf, o, n_tiles, k, cin,
                                            cout, m, win, s)
-             : launch_gemm<BF16, NS, false>(rb, st, f, wf, o, n_tiles, cin,
-                                            cout, m, win, s);
+             : launch_gemm<BF16, NS, false>(rb, st, f, wf, o, n_tiles, k,
+                                            cin, cout, m, win, s);
 }
 
 template <bool BF16>
 cudaError_t launch_ns(const int32_t* rb, const int32_t* st, const char* f,
-                      const uint4* wf, float* o, int n_tiles, int cin,
+                      const uint4* wf, float* o, int n_tiles, int k, int cin,
                       int cout, int m, int win, int vec, cudaStream_t s) {
   switch (slice_cols(cout)) {
     case 32:
-      return launch_vec<BF16, 32>(rb, st, f, wf, o, n_tiles, cin, cout, m,
-                                  win, vec, s);
+      return launch_vec<BF16, 32>(rb, st, f, wf, o, n_tiles, k, cin, cout,
+                                  m, win, vec, s);
     case 64:
-      return launch_vec<BF16, 64>(rb, st, f, wf, o, n_tiles, cin, cout, m,
-                                  win, vec, s);
+      return launch_vec<BF16, 64>(rb, st, f, wf, o, n_tiles, k, cin, cout,
+                                  m, win, vec, s);
     case 96:
-      return launch_vec<BF16, 96>(rb, st, f, wf, o, n_tiles, cin, cout, m,
-                                  win, vec, s);
+      return launch_vec<BF16, 96>(rb, st, f, wf, o, n_tiles, k, cin, cout,
+                                  m, win, vec, s);
     default:
-      return launch_vec<BF16, MAX_NS>(rb, st, f, wf, o, n_tiles, cin, cout,
-                                      m, win, vec, s);
+      return launch_vec<BF16, MAX_NS>(rb, st, f, wf, o, n_tiles, k, cin,
+                                      cout, m, win, vec, s);
   }
 }
 
@@ -518,12 +550,12 @@ cudaError_t launch_ns(const int32_t* rb, const int32_t* st, const char* f,
 extern "C" {
 
 // Bytes of the workspace band_conv_launch needs for the split weights.
-size_t band_conv_workspace_bytes(int cin, int cout, int feats_bf16) {
-  return workspace_bytes(cin, cout, feats_bf16);
+size_t band_conv_workspace_bytes(int k, int cin, int cout, int feats_bf16) {
+  return workspace_bytes(k, cin, cout, feats_bf16);
 }
 
 // Launches the weight split and the GEMM on `stream`; returns the CUDA
-// error code (0 = ok). Takes K = 27 only; `win` must be a multiple of 64
+// error code (0 = ok). Takes K = 27 or 125; `win` must be a multiple of 64
 // and every window [64 * starts, + win) must lie inside the n_tiles * 128
 // feature rows, which build_band_plan guarantees. `workspace` holds
 // band_conv_workspace_bytes and is 16-byte aligned.
@@ -531,8 +563,9 @@ int band_conv_launch(const void* rb_tiles, const void* starts,
                      const void* feats, int feats_bf16, const void* weights,
                      void* out, void* workspace, int n_tiles, int k, int cin,
                      int cout, int m, int win, void* stream) {
-  if (k != K || cin < 1 || cout < 1 || win < 1 || win % ALIGN != 0 ||
-      n_tiles < 1 || reinterpret_cast<uintptr_t>(workspace) % 16 != 0) {
+  if ((k != 27 && k != MAX_K) || cin < 1 || cout < 1 || win < 1 ||
+      win % ALIGN != 0 || n_tiles < 1 ||
+      reinterpret_cast<uintptr_t>(workspace) % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -544,17 +577,17 @@ int band_conv_launch(const void* rb_tiles, const void* starts,
   const int row_bytes = cin * (feats_bf16 ? 2 : 4);
   const int vec =
       row_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(feats) % 16 == 0;
-  const int total = (int)(workspace_bytes(cin, cout, feats_bf16) / 16);
+  const int total = (int)(workspace_bytes(k, cin, cout, feats_bf16) / 16);
   split_weights_kernel<<<(total + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(weights), wf, cin, cout,
+      static_cast<const float*>(weights), wf, k, cin, cout,
       n_chunks(cin, feats_bf16), slice_cols(cout), feats_bf16, total);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = feats_bf16
-            ? launch_ns<true>(rb, st, f, wf, o, n_tiles, cin, cout, m, win,
-                              vec, s)
-            : launch_ns<false>(rb, st, f, wf, o, n_tiles, cin, cout, m, win,
-                               vec, s);
+            ? launch_ns<true>(rb, st, f, wf, o, n_tiles, k, cin, cout, m,
+                              win, vec, s)
+            : launch_ns<false>(rb, st, f, wf, o, n_tiles, k, cin, cout, m,
+                               win, vec, s);
   return (int)err;
 }
 

@@ -13,10 +13,28 @@ As in the JAX package, attention packs windows of ``patch`` consecutive
 rows of the sorted order across batch elements and masks pairs of
 different elements (:func:`treemorph_tpu_torch.ops.attention.window_attention`,
 the CUDA kernel on the card, the plain version on the CPU); every level's
-row count is a static capacity rounded up to the patch. Convs take the
-gather engine over exact rulebooks, built once per level and shared by its
-xCPEs; level 0 holds points, not voxels, so points of one voxel share
-neighbors (the largest row index among them, as the JAX lookup returns).
+row count is a static capacity rounded up to the patch. Convs run over exact
+rulebooks, built once per level and shared by its xCPEs; level 0 holds
+points, not voxels, so points of one voxel share neighbors (the largest row
+index among them, as the JAX lookup returns).
+
+The options of the JAX package's fast configuration (``bench.py``'s PTv3):
+
+- ``dedup_tokens`` (with ``dedup_divisor``): the whole backbone runs on one
+  token per occupied voxel (its first point by row), quantized against the
+  full cloud's minimum; predictions go back to points through
+  ``token_v2u`` at the end.
+- ``dedup_divisor`` alone: level 0 stays points, but its convs (stem and
+  xCPEs) run once per unique voxel (:class:`~..ops.sparse.DedupMap`) and
+  broadcast to the voxel's points.
+- ``stem_engine="band"``: the convs over lex-sorted rows take the band
+  engine (:mod:`treemorph_tpu_torch.ops.bandconv`, the CUDA kernel on the
+  card): the k=5 stem and level 0's xCPEs over unique voxels or tokens, and
+  every pooled level, which is re-stored in lex order for it
+  (:func:`_lex_permute_level`). Level 0 over plain points keeps the gather
+  engine. The port's own ``band_viable`` routes each conv: it admits every
+  width, where the JAX package sends deep wide levels to the gather engine
+  by its VMEM budget; both engines compute the same function.
 
 Module and parameter names follow the flax tree (``backbone.enc0_block0.
 attn.qkv``, ``cpe.LayerNorm_0``, ``enc1_down.norm``, ...), so
@@ -30,9 +48,8 @@ JAX model takes rngs: one permutation of the four orders per stage
 level is serialized, and a ``torch.Generator`` on the model's device for
 the blocks' stochastic depth (:class:`DropPath`).
 
-Not ported (``NotImplementedError``, naming the ROADMAP item): token /
-level-0 dedup and the band and z-pack stems, RPE, per-element window
-padding and PDNorm.
+Not ported (``NotImplementedError``, naming the ROADMAP item): the z-pack
+stem, RPE, per-element window padding and PDNorm.
 """
 
 from __future__ import annotations
@@ -45,9 +62,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import attention
+from ..ops.bandconv import choose_band_plan
 from ..ops.serialization import encode
 from ..ops.sparse import (
+    build_dedup,
     build_rulebook,
+    dedup_sort_perm,
     rulebook_subset_columns,
     subm_conv_apply,
 )
@@ -62,10 +82,11 @@ CODE_BITS = 3 * DEPTH
 #: hidden width of the blocks' MLPs over their channels
 MLP_RATIO = 4
 
+#: conv engines of ``stem_engine`` that are ported
+STEM_ENGINES = ("gather", "band")
+
 _NOT_PORTED = {
-    "dedup_divisor": "ROADMAP.md queue 1 item 11c",
-    "dedup_tokens": "ROADMAP.md queue 1 item 11c",
-    "stem_engine": "ROADMAP.md queue 1 item 11c",
+    "stem_engine": "ROADMAP.md queue 1 item 17",
     "enable_rpe": "ROADMAP.md queue 1 item 11d",
     "pad_per_element": "ROADMAP.md queue 1 item 11d",
     "pdnorm": "ROADMAP.md queue 1 item 11d",
@@ -168,11 +189,14 @@ def _shuffled(orders, inverses, code, perm):
 
 
 def make_pointset(coord, feat, batch, valid, grid_size: float,
-                  order_perm=None) -> PointSet:
+                  order_perm=None, grid_coord=None) -> PointSet:
     """Grid-quantize and serialize a flat padded batch along the four curve
     orders (reference ``Point.serialization``, blocks.py:98-153), shuffled
-    by ``order_perm`` when one is given."""
-    grid_coord = quantize_grid(coord, valid, grid_size)
+    by ``order_perm`` when one is given. ``grid_coord`` skips the
+    quantization (token mode quantizes the full cloud before compressing
+    it: the tokens' own minimum could differ)."""
+    if grid_coord is None:
+        grid_coord = quantize_grid(coord, valid, grid_size)
     batch = torch.where(valid, batch.to(torch.int64), INVALID_BATCH)
     code = torch.stack([
         encode(grid_coord, batch, depth=DEPTH, order=name)[1]
@@ -257,9 +281,49 @@ class FeedForward(nn.Module):
         return _dense(self.Dense_1, x, dt)
 
 
+def _lex_permute_level(ps: PointSet, cluster):
+    """A pooled level re-stored in lex (b, x, y, z) order, for the band
+    engine's premise; and the fine level's ``cluster`` map into it.
+    Attention reads rows through ``orders`` / ``inverses`` and (un)pooling
+    through ``cluster``, so composing all of them (and the codes) with the
+    permutation leaves the model's function unchanged; padding rows stay
+    last."""
+    cap = ps.feat.shape[0]
+    coords4 = torch.cat([ps.batch[:, None], ps.grid_coord], dim=1)
+    perm = dedup_sort_perm(coords4, ps.valid)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(cap, device=perm.device)
+    new_ps = PointSet(
+        coord=ps.coord[perm], grid_coord=ps.grid_coord[perm],
+        feat=ps.feat[perm], batch=ps.batch[perm], valid=ps.valid[perm],
+        orders=inv[ps.orders], inverses=ps.inverses[:, perm],
+        code=ps.code[:, perm],
+    )
+    new_cluster = torch.where(cluster < cap, inv[cluster.clamp(0, cap - 1)],
+                              cap)
+    return new_ps, new_cluster
+
+
+def _level_conv(feat, kernel, rulebook, valid, dt, dedup=None):
+    """Submanifold conv over the level's rows; with ``dedup``, once per
+    unique voxel (``rulebook`` is then the unique voxels') and broadcast
+    back to the rows (those whose voxel overflowed the cap get 0)."""
+    if dedup is None:
+        return subm_conv_apply(feat, kernel, rulebook, valid,
+                               compute_dtype=dt)
+    u_feat = feat[dedup.rows] * dedup.valid[:, None]
+    x_u = subm_conv_apply(u_feat, kernel, rulebook, dedup.valid,
+                          compute_dtype=dt)
+    cap = dedup.rows.shape[0]
+    return x_u[dedup.v2u.clamp(max=cap - 1)] * (dedup.v2u < cap)[:, None]
+
+
 class CPE(nn.Module):
     """xCPE: submanifold conv (k=3, bias) + linear + LayerNorm (reference
-    Block.cpe, blocks.py:562-572), on the gather engine."""
+    Block.cpe, blocks.py:562-572). The conv's engine follows its
+    ``rulebook`` (a rulebook: gather; a ``BandPlan``: band). With
+    ``dedup`` the conv runs once per unique voxel and broadcasts to the
+    voxel's points; the linear and the LayerNorm stay per point."""
 
     def __init__(self, channels: int, compute_dtype: str = "float32"):
         super().__init__()
@@ -269,10 +333,9 @@ class CPE(nn.Module):
         self.Dense_0 = nn.Linear(channels, channels)
         self.LayerNorm_0 = _ln(channels)
 
-    def forward(self, feat, rulebook, valid):
+    def forward(self, feat, rulebook, valid, dedup=None):
         dt = _conv_dtype(self.compute_dtype)
-        x = subm_conv_apply(feat, self.kernel, rulebook, valid,
-                            compute_dtype=dt)
+        x = _level_conv(feat, self.kernel, rulebook, valid, dt, dedup)
         x = x + self.bias * valid[:, None]
         return self.LayerNorm_0(_dense(self.Dense_0, x, dt))
 
@@ -292,8 +355,9 @@ class PTv3Block(nn.Module):
         self.mlp = FeedForward(channels, compute_dtype)
         self.drop_path = DropPath(drop_path)
 
-    def forward(self, ps: PointSet, rulebook, generator=None) -> PointSet:
-        feat = ps.feat + self.cpe(ps.feat, rulebook, ps.valid)
+    def forward(self, ps: PointSet, rulebook, generator=None,
+                dedup=None) -> PointSet:
+        feat = ps.feat + self.cpe(ps.feat, rulebook, ps.valid, dedup)
         x = self.attn(ps._replace(feat=self.norm1(feat)))
         feat = feat + self.drop_path(x, generator)
         x = self.mlp(self.norm2(feat))
@@ -399,19 +463,27 @@ class SerializedUnpooling(nn.Module):
 
 
 class Embedding(nn.Module):
-    """k=5 submanifold conv stem + BN + GELU (reference blocks.py:770-800),
-    on the gather engine."""
+    """k=5 submanifold conv stem + BN + GELU (reference blocks.py:770-800)
+    over a prebuilt k=5 rulebook. ``engine="band"`` builds a band plan over
+    it (:func:`~..ops.bandconv.choose_band_plan`; the rows must be
+    lex-sorted: unique voxels or tokens); with ``dedup`` the conv runs once
+    per unique voxel and broadcasts to the voxel's points."""
 
     def __init__(self, in_channels: int, channels: int,
-                 compute_dtype: str = "float32"):
+                 compute_dtype: str = "float32", engine: str = "gather"):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.engine = engine
         self.kernel = nn.Parameter(torch.empty(125, in_channels, channels))
         self.MaskedBatchNorm_0 = _bn(channels)
 
-    def forward(self, ps: PointSet, rulebook) -> PointSet:
-        x = subm_conv_apply(ps.feat, self.kernel, rulebook, ps.valid,
-                            compute_dtype=_conv_dtype(self.compute_dtype))
+    def forward(self, ps: PointSet, rulebook, dedup=None) -> PointSet:
+        dt = _conv_dtype(self.compute_dtype)
+        if self.engine == "band":
+            _, cin, cout = self.kernel.shape
+            rows = dedup.valid if dedup is not None else ps.valid
+            rulebook = choose_band_plan(rulebook, rows, cin, cout, dt)
+        x = _level_conv(ps.feat, self.kernel, rulebook, ps.valid, dt, dedup)
         x = self.MaskedBatchNorm_0(x, ps.valid)
         return ps._replace(feat=_gelu(x) * ps.valid[:, None])
 
@@ -424,8 +496,17 @@ def level_capacity(p_now: int, patch: int, pool_shrink: int) -> int:
     return min(cap, p_now)
 
 
+def token_capacity(p_in: int, divisor: int, patch: int) -> int:
+    """Rows of token mode's level 0 for ``p_in`` points: ``p_in //
+    divisor`` rounded up to the attention patch, at least one patch, at
+    most the points rounded up to it."""
+    cap = max(-(-(p_in // divisor) // patch) * patch, patch)
+    return min(cap, -(-p_in // patch) * patch)
+
+
 class PointTransformerV3(nn.Module):
-    """The backbone (reference PointTransformerV3.py:261-457)."""
+    """The backbone (reference PointTransformerV3.py:261-457), with the
+    dedup and conv-engine options of the module docstring."""
 
     def __init__(self, in_channels=4, enc_depths=(2, 2, 2, 6, 2),
                  enc_channels=(32, 64, 128, 256, 512),
@@ -433,17 +514,29 @@ class PointTransformerV3(nn.Module):
                  enc_patch_size=(1024,) * 5, dec_depths=(2, 2, 2, 2),
                  dec_channels=(64, 64, 128, 256), dec_num_head=(4, 4, 8, 16),
                  dec_patch_size=(1024,) * 4, drop_path=0.3, grid_size=0.02,
-                 pool_shrink=2, compute_dtype="float32"):
+                 pool_shrink=2, compute_dtype="float32", dedup_divisor=None,
+                 dedup_tokens=False, stem_engine="gather"):
         super().__init__()
+        if dedup_tokens and not dedup_divisor:
+            raise ValueError("dedup_tokens needs dedup_divisor")
         self.enc_depths = tuple(enc_depths)
         self.dec_depths = tuple(dec_depths)
+        self.enc_channels = tuple(enc_channels)
+        self.dec_channels = tuple(dec_channels)
         self.enc_patch_size = tuple(enc_patch_size)
         self.grid_size = grid_size
         self.pool_shrink = pool_shrink
+        self.compute_dtype = compute_dtype
+        self.dedup_divisor = dedup_divisor
+        self.dedup_tokens = dedup_tokens
+        self.stem_engine = stem_engine
         n_orders = len(DEFAULT_ORDERS)
         num_stages = len(self.enc_depths)
-        self.embedding = Embedding(in_channels, enc_channels[0],
-                                   compute_dtype)
+        # the stem takes the chosen engine over unique voxels or tokens
+        # (lex-sorted rows); over plain points, the gather engine
+        self.embedding = Embedding(
+            in_channels, enc_channels[0], compute_dtype,
+            stem_engine if dedup_divisor or dedup_tokens else "gather")
         total_enc = sum(self.enc_depths)
         enc_dp = [drop_path * i / max(total_enc - 1, 1)
                   for i in range(total_enc)]
@@ -472,27 +565,79 @@ class PointTransformerV3(nn.Module):
                     dec_channels[s], dec_num_head[s], dec_patch_size[s],
                     i % n_orders, dp_slice[i], compute_dtype))
 
+    def _tokens(self, coord, feat, batch, valid):
+        """Token mode's inputs: one token per occupied voxel (the voxel's
+        first point by row, lex-sorted), quantized against the full cloud's
+        minimum; and the :class:`~..ops.sparse.DedupMap` from points to
+        tokens."""
+        grid = quantize_grid(coord, valid, self.grid_size)
+        batch = torch.where(valid, batch.to(torch.int64), INVALID_BATCH)
+        cap = token_capacity(coord.shape[0], self.dedup_divisor,
+                             self.enc_patch_size[0])
+        dd = build_dedup(torch.cat([batch[:, None], grid], dim=1), valid,
+                         cap=cap)
+        keep = dd.valid[:, None]
+        return (coord[dd.rows] * keep, feat[dd.rows] * keep,
+                torch.where(dd.valid, dd.coords[:, 0].to(torch.int64),
+                            INVALID_BATCH),
+                dd.valid, dd.coords[:, 1:].to(torch.int64), dd)
+
+    def _level_rulebook(self, s, ps, rb5, dd):
+        """Level ``s``'s k=3 rulebook (level 0: the stem's, sliced), as a
+        band plan where the engine is band and the rows are lex-sorted:
+        unique voxels or tokens at level 0, every pooled level."""
+        dt = _conv_dtype(self.compute_dtype)
+        if s == 0:
+            rulebook = rb5[:, rulebook_subset_columns(5, 3)]
+        else:
+            coords4 = torch.cat([ps.batch[:, None], ps.grid_coord], dim=1)
+            rulebook = build_rulebook(coords4, ps.valid, 3)
+        lex = s > 0 or self.dedup_tokens or dd is not None
+        if self.stem_engine != "band" or not lex:
+            return rulebook
+        # the level's widest xCPE: its encoder's, or its decoder's
+        width = max(self.enc_channels[s],
+                    self.dec_channels[s] if s < len(self.dec_channels)
+                    else 0)
+        valid = dd.valid if dd is not None else ps.valid
+        return choose_band_plan(rulebook, valid, width, width, dt)
+
     def forward(self, coord, feat, batch, valid, order_perms=None,
                 generator=None):
         """``order_perms``: one permutation of the orders per stage (or
         None: unshuffled); ``generator``: the stochastic depth's, needed in
-        train mode when ``drop_path`` > 0."""
+        train mode when ``drop_path`` > 0. Returns the last level and the
+        diagnostics ``dedup_overflow`` (points whose voxel missed the dedup
+        cap), ``token_v2u`` (token mode: each point's token, the cap where
+        it has none; else None) and ``pool_overflow``."""
         num_stages = len(self.enc_depths)
         perms = (list(order_perms) if order_perms is not None
                  else [None] * num_stages)
         if len(perms) != num_stages:
             raise ValueError(f"{len(perms)} order permutations for "
                              f"{num_stages} stages")
+        token_dd = grid = None
+        if self.dedup_tokens:
+            coord, feat, batch, valid, grid, token_dd = self._tokens(
+                coord, feat, batch, valid)
         ps = make_pointset(coord, feat, batch, valid, self.grid_size,
-                           perms[0])
+                           perms[0], grid)
         coords4 = torch.cat([ps.batch[:, None], ps.grid_coord], dim=1)
+        dd = None
+        if self.dedup_divisor and not self.dedup_tokens:
+            # level 0's convs run once per unique voxel
+            p0 = ps.feat.shape[0]
+            cap = max(p0 // self.dedup_divisor, min(p0, 1024))
+            dd = build_dedup(coords4, ps.valid, cap=cap)
+            coords4 = dd.coords
         # one k=5 rulebook serves the stem and, sliced to its central 3^3
         # columns, the level-0 xCPEs
-        rb5 = build_rulebook(coords4, ps.valid, 5)
-        ps = self.embedding(ps, rb5)
+        rb5 = build_rulebook(coords4, ps.valid if dd is None else dd.valid, 5)
+        ps = self.embedding(ps, rb5, dd)
 
-        skips = []  # (fine level, cluster, fine level's rulebook)
-        rulebook = None
+        # (fine level, cluster, fine level's rulebook, its dedup)
+        skips = []
+        rulebook = level_dd = None
         pool_overflow = torch.zeros((), dtype=torch.int64,
                                     device=feat.device)
         for s in range(num_stages):
@@ -503,30 +648,42 @@ class PointTransformerV3(nn.Module):
                 coarse, cluster, over = getattr(self, f"enc{s}_down")(
                     ps, cap, perms[s])
                 pool_overflow = pool_overflow + over
-                skips.append((ps, cluster, rulebook))
+                if self.stem_engine == "band":
+                    coarse, cluster = _lex_permute_level(coarse, cluster)
+                skips.append((ps, cluster, rulebook, level_dd))
                 ps = coarse
-                coords4 = torch.cat([ps.batch[:, None], ps.grid_coord], dim=1)
-                rulebook = build_rulebook(coords4, ps.valid, 3)
-            else:
-                rulebook = rb5[:, rulebook_subset_columns(5, 3)]
+            # pooled levels are duplicate-free: only level 0 carries dups
+            level_dd = dd if s == 0 else None
+            rulebook = self._level_rulebook(s, ps, rb5, level_dd)
             for i in range(self.enc_depths[s]):
                 ps = getattr(self, f"enc{s}_block{i}")(ps, rulebook,
-                                                       generator)
+                                                       generator, level_dd)
         for s in reversed(range(num_stages - 1)):
-            fine, cluster, rulebook = skips.pop()
+            fine, cluster, rulebook, level_dd = skips.pop()
             ps = getattr(self, f"dec{s}_up")(ps.feat, ps.valid, fine, cluster)
             for i in range(self.dec_depths[s]):
                 ps = getattr(self, f"dec{s}_block{i}")(ps, rulebook,
-                                                       generator)
-        return ps, pool_overflow
+                                                       generator, level_dd)
+        zero = torch.zeros((), dtype=torch.int64, device=feat.device)
+        overflow = next((d.overflow for d in (dd, token_dd) if d is not None),
+                        zero)
+        return ps, {
+            "dedup_overflow": overflow,
+            "token_v2u": token_dd.v2u if token_dd is not None else None,
+            "pool_overflow": pool_overflow,
+        }
 
 
 class PointTransformerWithHeads(nn.Module):
     """Backbone + MLP heads (reference PointTransformerV3.py:19-110).
 
     Returns per-point predictions (padding rows are not zeroed, as in the
-    JAX package) and the capacity diagnostics ``dedup_overflow`` (0: dedup
-    is not ported) and ``pool_overflow``."""
+    JAX package) and the capacity diagnostics ``dedup_overflow`` (points
+    whose voxel missed the level-0 or token dedup cap) and
+    ``pool_overflow``. ``dedup_divisor``, ``dedup_tokens`` and
+    ``stem_engine`` (``"gather"`` or ``"band"``) are the backbone's options
+    (module docstring); in token mode the heads run on the tokens and their
+    predictions are broadcast to the points."""
 
     def __init__(self, dim_feat=4, use_feats=False, voxel_size=0.02,
                  enc_depths=(2, 2, 2, 6, 2),
@@ -539,9 +696,7 @@ class PointTransformerWithHeads(nn.Module):
                  dedup_tokens=False, stem_engine="gather", enable_rpe=False,
                  pad_per_element=False, pdnorm=None):
         super().__init__()
-        off_path = dict(dedup_divisor=dedup_divisor is not None,
-                        dedup_tokens=dedup_tokens,
-                        stem_engine=stem_engine != "gather",
+        off_path = dict(stem_engine=stem_engine == "zpack",
                         enable_rpe=enable_rpe,
                         pad_per_element=pad_per_element,
                         pdnorm=pdnorm is not None)
@@ -552,6 +707,8 @@ class PointTransformerWithHeads(nn.Module):
                 )
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {compute_dtype!r}")
+        if stem_engine not in STEM_ENGINES:
+            raise ValueError(f"stem_engine {stem_engine!r}")
         self.config = dict(
             dim_feat=dim_feat, use_feats=use_feats, voxel_size=voxel_size,
             enc_depths=tuple(enc_depths), enc_channels=tuple(enc_channels),
@@ -561,6 +718,8 @@ class PointTransformerWithHeads(nn.Module):
             dec_num_head=tuple(dec_num_head),
             dec_patch_size=tuple(dec_patch_size), drop_path=drop_path,
             pool_shrink=pool_shrink, compute_dtype=compute_dtype,
+            dedup_divisor=dedup_divisor, dedup_tokens=dedup_tokens,
+            stem_engine=stem_engine,
         )
         self.use_feats = use_feats
         self.backbone = PointTransformerV3(
@@ -568,6 +727,8 @@ class PointTransformerWithHeads(nn.Module):
             enc_patch_size, dec_depths, dec_channels, dec_num_head,
             dec_patch_size, drop_path=drop_path, grid_size=voxel_size,
             pool_shrink=pool_shrink, compute_dtype=compute_dtype,
+            dedup_divisor=dedup_divisor, dedup_tokens=dedup_tokens,
+            stem_engine=stem_engine,
         )
         head = dec_channels[0] if len(enc_depths) > 1 else enc_channels[0]
         self.semantic_head = MLPHead(head, 2)
@@ -606,16 +767,24 @@ class PointTransformerWithHeads(nn.Module):
         :meth:`PointTransformerV3.forward` takes it."""
         if not self.use_feats:
             feats = torch.ones_like(feats)
-        ps, pool_overflow = self.backbone(coords, feats, batch_ids, valid,
-                                          order_perms, generator)
+        ps, diag = self.backbone(coords, feats, batch_ids, valid,
+                                 order_perms, generator)
+        feat = ps.feat
+        sem = self.semantic_head(feat, ps.valid)
+        off = self.offset_head(feat, ps.valid)
+        v2u = diag["token_v2u"]
+        if v2u is not None:
+            # the heads ran on tokens: broadcast to the points
+            cap = feat.shape[0]
+            ok = ((v2u < cap) & valid)[:, None]
+            idx = v2u.clamp(max=cap - 1)
+            feat, sem, off = feat[idx] * ok, sem[idx] * ok, off[idx] * ok
         return {
-            "backbone_feats": ps.feat,
-            "semantic_prediction_logits": self.semantic_head(ps.feat,
-                                                             ps.valid),
-            "offset_predictions": self.offset_head(ps.feat, ps.valid),
-            "dedup_overflow": torch.zeros((), dtype=torch.int64,
-                                          device=ps.feat.device),
-            "pool_overflow": pool_overflow,
+            "backbone_feats": feat,
+            "semantic_prediction_logits": sem,
+            "offset_predictions": off,
+            "dedup_overflow": diag["dedup_overflow"],
+            "pool_overflow": diag["pool_overflow"],
         }
 
 

@@ -5,12 +5,13 @@ Port of the main-path part of ``treemorph_tpu/ops/bandconv.py``. Every voxel
 level is lex-sorted (:mod:`.voxelize`, :func:`.sparse.build_downsample`), so
 adding a fixed kernel offset preserves order and every rulebook COLUMN is
 monotone over its found entries. For a tile of 128 consecutive output rows,
-all found neighbors of one (dx, dy) group (its 3 dz offsets) therefore lie in
+all found neighbors of one (dx, dy) group (its ksize dz offsets) lie in
 a narrow window of feature rows. :func:`build_band_plan` anchors one
 ``win``-row window per (tile, group); the kernel (``csrc/band_conv.cu``,
 through :func:`band_conv_padded`) applies each offset's filter to the rows
 of its window that the tile's rulebook finds, as a gathered GEMM on the
-tensor cores.
+tensor cores. The kernel takes 3x3x3 convs (every TreeLearn conv and PTv3
+xCPE) and 5x5x5 ones (PTv3's stem, ``Embedding(engine="band")``).
 
 Exactness: found neighbors that fall outside their window (the tail of the
 band-width distribution) are repaired by a mini gather pass
@@ -59,6 +60,9 @@ TILE = 128  # output rows per kernel block
 WIN = 448  # feature-window rows per (dx, dy) group
 ALIGN = 64  # window anchors are stored in units of 64 rows
 
+#: kernel sizes (offsets) the forward kernel takes: every 3x3x3 conv, and
+#: PTv3's 5x5x5 stem
+FWD_KERNEL_SIZES = (27, 125)
 #: the (Cin, Cout) channel slices of csrc/band_conv_bwd.cu
 _BWD_SLICE = 32
 #: shared memory one block may use on an H100
@@ -206,12 +210,13 @@ def band_conv_padded(
     n_tiles, k, _ = rb_tiles.shape
     mp, cin = feats.shape
     kw, cin_w, cout = weights.shape
-    if kw != 27 or cin_w != cin:
+    if kw != k or cin_w != cin:
         raise ValueError(
             f"band_conv_padded: shapes feats {tuple(feats.shape)}, weights "
-            f"{tuple(weights.shape)}"
+            f"{tuple(weights.shape)}, rb_tiles {tuple(rb_tiles.shape)}"
         )
-    _check_plan_args("band_conv_padded", rb_tiles, starts, mp, win)
+    _check_plan_args("band_conv_padded", rb_tiles, starts, mp, win,
+                     FWD_KERNEL_SIZES)
     if feats.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"band_conv_padded: feats dtype {feats.dtype}")
     if weights.dtype != torch.float32:
@@ -226,7 +231,7 @@ def band_conv_padded(
     bf16 = int(feats.dtype == torch.bfloat16)
     out = torch.empty((mp, cout), dtype=torch.float32, device=feats.device)
     workspace = torch.empty(
-        lib.band_conv_workspace_bytes(cin, cout, bf16), dtype=torch.uint8,
+        lib.band_conv_workspace_bytes(k, cin, cout, bf16), dtype=torch.uint8,
         device=feats.device,
     )
     with torch.cuda.device(feats.device):
@@ -237,15 +242,18 @@ def band_conv_padded(
         )
     check_launch("band_conv", rc)
     LAUNCHES["band_conv"] += 1
+    LAUNCHES[f"band_conv_k{k}"] += 1  # the same launches, by kernel size
     return out
 
 
-def _check_plan_args(name, rb_tiles, starts, mp, win):
-    """Raise unless the tiled rulebook and anchors are a 3x3x3 band plan's
-    (int32) over ``mp`` rows with a window the kernels take."""
+def _check_plan_args(name, rb_tiles, starts, mp, win, sizes=(27,)):
+    """Raise unless the tiled rulebook and anchors are a band plan's (int32)
+    over ``mp`` rows with K in ``sizes`` offsets and a window the kernels
+    take."""
     n_tiles, k, tile = rb_tiles.shape
-    if k != 27 or starts.shape != (9, n_tiles):
-        raise ValueError(f"{name} takes 3x3x3 kernels only (rb_tiles "
+    ksize = round(k ** (1 / 3))
+    if k not in sizes or starts.shape != (ksize * ksize, n_tiles):
+        raise ValueError(f"{name} takes K in {sizes} only (rb_tiles "
                          f"{tuple(rb_tiles.shape)}, starts "
                          f"{tuple(starts.shape)})")
     if tile != TILE or mp != n_tiles * TILE:
@@ -265,7 +273,7 @@ def _library():
             p, p, p, i, p, p, p, i, i, i, i, i, i, p,
         ]
         lib.band_conv_launch.restype = ctypes.c_int
-        lib.band_conv_workspace_bytes.argtypes = [i, i, i]
+        lib.band_conv_workspace_bytes.argtypes = [i, i, i, i]
         lib.band_conv_workspace_bytes.restype = ctypes.c_size_t
         lib._typed = True
     return lib
@@ -328,7 +336,10 @@ def band_conv_bwd_padded(
 
     On a CUDA tensor this runs the forward kernel on ``(grad, w_bwd)`` for
     ``d_feats`` and :func:`band_conv_dw_padded` for ``d_w``; each raises on
-    what its kernel does not take. A CPU tensor takes the plain version."""
+    what its kernel does not take. A CPU tensor takes the plain version.
+    Only K = 27 has a backward kernel: K = 125 (PTv3's stem, whose input
+    needs no gradient) raises on any device."""
+    _check_bwd_kernel_size("band_conv_bwd_padded", rb_tiles)
     if grad.device.type == "cpu":
         return band_conv_bwd_padded_plain(
             rb_tiles, starts, grad, feats, w_bwd, m, win
@@ -357,7 +368,9 @@ def band_conv_dw_padded(
 
     On a CUDA tensor this launches ``csrc/band_conv_bwd.cu``, whose
     per-block partial sums are added here, or raises; a CPU tensor takes
-    the plain version."""
+    the plain version. K = 125 raises on any device, as for
+    :func:`band_conv_bwd_padded`."""
+    _check_bwd_kernel_size("band_conv_dw_padded", rb_tiles)
     if grad.device.type == "cpu":
         return band_conv_dw_padded_plain(rb_tiles, starts, grad, feats, m, win)
     if grad.device.type != "cuda":
@@ -400,6 +413,17 @@ def band_conv_dw_padded(
     return partial.sum(dim=0)
 
 
+def _check_bwd_kernel_size(name, rb_tiles):
+    """Raise unless the plan is a 3x3x3 conv's: no caller differentiates a
+    5x5x5 band conv through its features (ROADMAP.md queue 2A)."""
+    k = rb_tiles.shape[1]
+    if k != 27:
+        raise ValueError(
+            f"{name}: the backward kernels take 3x3x3 kernels (K = 27) only, "
+            f"not K = {k}; a K = 125 backward is still to be ported "
+            f"(ROADMAP.md queue 2A)")
+
+
 #: blocks the weight-gradient kernel aims for: two waves of one block (200
 #: KB of shared memory) on each of an H100's 132 SMs
 _BWD_TARGET_BLOCKS = 2 * 132
@@ -428,13 +452,13 @@ def _bwd_library():
 
 
 def band_viable(k: int, cin: int, cout: int, dtype) -> bool:
-    """Whether the kernels take this conv shape: 3x3x3 kernels in bf16 or
-    f32. The kernels stage 64 bytes of a row at a time, split outputs wider
-    than 128 columns over blocks and gather rows rather than staging
-    windows, so their shared memory is the same at every width and window
-    (the TPU gate was a VMEM budget that turned deep wide levels away);
-    only ``k`` and the type decide."""
-    return k == 27 and dtype in (torch.bfloat16, torch.float32)
+    """Whether the forward kernel takes this conv shape: 3x3x3 or 5x5x5
+    kernels in bf16 or f32. The kernel stages 64 bytes of a row at a time,
+    splits outputs wider than 128 columns over blocks and gathers rows
+    rather than staging windows, so its shared memory is the same at every
+    width and window (the TPU gate was a VMEM budget that turned deep wide
+    levels away); only ``k`` and the type decide."""
+    return k in FWD_KERNEL_SIZES and dtype in (torch.bfloat16, torch.float32)
 
 
 def _band_impl(feats, weights, plan: BandPlan, valid, dtype):

@@ -26,7 +26,8 @@ Port of the main-path part of ``treemorph_tpu/ops/sparse.py``:
    dedup as :mod:`.voxelize` and records each fine voxel's ``parent`` and
    child octant, so the down conv is a scatter-add and the inverse conv a
    gather. :func:`build_dedup` is the same sort at stride 1 (points to
-   unique voxels).
+   unique voxels), and :func:`dedup_sort_perm` its permutation alone
+   (PTv3 re-stores its pooled levels in lex order with it).
 
 Index tensors are int64 (torch's index type); ``valid`` masks thread
 through every step.
@@ -271,6 +272,14 @@ class _SubmConv(torch.autograd.Function):
 
 def _subm_conv(dtype, feats, weights, rulebook, valid):
     return _SubmConv.apply(feats, weights, rulebook, valid, dtype)
+
+
+def dedup_sort_perm(key4: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """(N,) int64 permutation bringing equal (b, x, y, z) rows adjacent, in
+    lexicographic (b, x, y, z) order, padding last: one stable sort of the
+    packed keys (the JAX package's ``lexsort`` of its (hi, lo) lex keys is
+    stable too, so ties keep their index order in both)."""
+    return torch.sort(pack_keys(key4, valid), stable=True).indices
 
 
 class DedupMap(NamedTuple):

@@ -84,13 +84,12 @@ def predict_single(
 
 
 #: per-family capacity settings that cannot overflow on ANY input
-#: (divisor 1 = arrays sized to the worst case). Weights do not depend on
-#: capacities, so they carry straight into the relaxed model. The JAX
-#: package's PTv3 entry also sets ``dedup_divisor=1``; level-0 dedup is not
-#: ported (ROADMAP.md queue 1 item 11c), so there is no dedup cap to relax.
+#: (divisor 1 = arrays sized to the worst case; pool_shrink 2 is lossless
+#: for stride-2 coarsening). Weights do not depend on capacities, so they
+#: carry straight into the relaxed model.
 SAFE_CAP_OVERRIDES = {
     "treelearn": dict(voxel_capacity_divisor=1),
-    "pointtransformerv3": dict(pool_shrink=2),
+    "pointtransformerv3": dict(dedup_divisor=1, pool_shrink=2),
 }
 
 

@@ -10,8 +10,7 @@ k=3 32->32, k=3 64->64) with random features and weights (seed 1). Per
 shape it builds the rulebook, a band plan and a z-band plan
 (``res_divisor=2``), then runs the gather, band and z-band engines in bf16
 and f32 and prints each one's time and the z-band engine's max |diff|
-from the gather engine. The port's band kernel takes 3x3x3 kernels only,
-so at k=5 its row says so instead of timing another engine.
+from the gather engine.
 
 On the card (the default) times are CUDA events, median of ``--reps``
 runs after two warm-ups; with ``--device cpu`` they are host-clock times of
@@ -49,18 +48,25 @@ SHAPES = (
 DTYPES = (("bf16", torch.bfloat16), ("f32", torch.float32))
 
 
-def bench_coords(n: int = 131072) -> np.ndarray:
-    """(n, 4) int32 voxel coords (b, x, y, z) of the bench cloud: a
-    synthetic tree's scan tiled to ``n`` points and jittered by 5 mm."""
+def bench_points(n: int = 131072) -> np.ndarray:
+    """(n, 3) float32 points of the bench cloud (the JAX package's
+    bench.py:86-100, its first tree): a synthetic tree's scan (numpy seed
+    0, 40,000 points/m^2, noise 0.004) tiled to ``n`` points and jittered
+    by 5 mm."""
     rng = np.random.default_rng(0)
     qsm = synthetic_qsm(rng=rng)
     pts, _ = synthetic_tree_cloud(
         qsm=qsm, points_per_m2=40000, noise_scale=0.004, rng=rng
     )
     reps = -(-n // len(pts))
-    pts = np.tile(pts, (reps, 1))[:n] + rng.normal(0, 0.005, (n, 3)).astype(
-        np.float32
-    )
+    return np.tile(pts, (reps, 1))[:n] + rng.normal(
+        0, 0.005, (n, 3)).astype(np.float32)
+
+
+def bench_coords(n: int = 131072) -> np.ndarray:
+    """(n, 4) int32 voxel coords (b, x, y, z) of the bench cloud's points
+    (:func:`bench_points`) at 0.02 m."""
+    pts = bench_points(n)
     g = np.floor((pts - pts.min(0)) / 0.02).astype(np.int32)
     return np.concatenate([np.zeros((n, 1), np.int32), g], 1)
 
@@ -145,9 +151,6 @@ def main(argv=None) -> list[dict]:
                     f"[{label}] band {dt_name}",
                     lambda: band_subm_conv_apply(feats, w, plan_b, vj,
                                                  compute_dtype=dt))
-            else:
-                print(f"[{label}] band {dt_name}: not ported (the band "
-                      f"kernel takes 3x3x3 kernels only)")
             calls = [0]
 
             def zband():

@@ -37,9 +37,9 @@ import torch
 _NOT_PORTED = {
     "pointnet2": "the pointnet2 family is not ported yet "
                  "(ROADMAP.md queue 1 item 12)",
-    "ptv3_stem": "PTv3's level-0 dedup (--dedup_divisor) and its band and "
-                 "z-pack stems (--engine) are not ported yet (ROADMAP.md "
-                 "queue 1 item 11c)",
+    "ptv3_stem": "PTv3 training with its dedup (--dedup_divisor) or its "
+                 "band and z-pack stems (--engine) is not wired into the "
+                 "CLI yet (ROADMAP.md queue 1 item 11c)",
     "raster": "raster training (--raster_dir, --hierarchical_json) comes "
               "with PointNet2 (ROADMAP.md queue 1 item 12)",
 }
