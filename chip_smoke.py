@@ -99,10 +99,13 @@ The z-band conv (z-band plans over the profile workload of
 ``python -m treemorph_tpu_torch.scripts.profile_zband`` and over the
 TreeLearn plot's levels 0-2):
 
-9a. ``zband_conv_padded`` against its plain version, bf16 and f32, at the
-    profile's three convs and at every 3x3x3 conv shape of the plot's
-    levels; residual rows, route, CUDA-event times against the bound, the
-    plain version, the band kernel on the same conv and the gather engine.
+9a. ``zband_conv_padded`` (the z-band instances of ``csrc/band_conv.cu``)
+    against its plain version, bf16 and f32, at the profile's three convs
+    and at every 3x3x3 conv shape of the plot's levels; residual rows,
+    route, CUDA-event times against both bounds, the plain version, the
+    band kernel on the same conv (K = 27 or 125) and the gather engine,
+    and the replaced SIMT kernel's time, a historical constant
+    (``ZBAND_SIMT_HISTORICAL_MS``).
 9b. ``zband_subm_conv_apply`` through autograd against the gather engine
     (f32, random cotangent): output, ``d_feats`` and ``d_w``; the backward
     launches the kernel.
@@ -237,6 +240,32 @@ SIMT_HISTORICAL_MS: dict = {
     ('train_fwd', 2, 96, 96, 'torch.float32'): 2.7579,
     ('bwd', 2, 96, 96, 'torch.float32'): 5.5856,
     ('bwd_d_feats', 2, 96, 96, 'torch.float32'): 2.7628,
+}
+#: historical, not measured by this script: ms per call of the SIMT
+#: z-band kernel that the z-band instances of csrc/band_conv.cu replaced
+#: (csrc/zband_conv.cu, commit c838477), at each 9a (conv, type); the mean
+#: of two runs of time_kernels.py on a checkout of that commit, in one call
+#: on one NVIDIA H100 80GB HBM3 at 700 W. Printed beside each 9a row's own
+#: time as ``simt_historical_ms``; never in a record
+ZBAND_SIMT_HISTORICAL_MS: dict = {
+    ('profile stem k=5 4->32', 'torch.bfloat16'): 0.1552,
+    ('profile stem k=5 4->32', 'torch.float32'): 0.1615,
+    ('profile xcpe k=3 32->32', 'torch.bfloat16'): 0.2431,
+    ('profile xcpe k=3 32->32', 'torch.float32'): 0.2382,
+    ('profile k=3 64->64', 'torch.bfloat16'): 0.5230,
+    ('profile k=3 64->64', 'torch.float32'): 0.5243,
+    ('L0 7->32', 'torch.bfloat16'): 0.2325,
+    ('L0 7->32', 'torch.float32'): 0.2323,
+    ('L0 32->32', 'torch.bfloat16'): 0.3868,
+    ('L0 32->32', 'torch.float32'): 0.3872,
+    ('L0 64->32', 'torch.bfloat16'): 0.6603,
+    ('L0 64->32', 'torch.float32'): 0.6665,
+    ('L1 64->64', 'torch.bfloat16'): 0.5264,
+    ('L1 64->64', 'torch.float32'): 0.5465,
+    ('L1 128->64', 'torch.bfloat16'): 1.0370,
+    ('L1 128->64', 'torch.float32'): 1.0504,
+    ('L2 96->96', 'torch.bfloat16'): 0.8191,
+    ('L2 96->96', 'torch.float32'): 0.7949,
 }
 
 #: (level, Cin, Cout, launches per forward) of every band conv of the
@@ -2273,9 +2302,11 @@ def phase_zband_vs_plain(profile, levels, device):
     """9a: ``zband_conv_padded`` against its plain version, bf16 and f32,
     at the profile workload's three convs and at every K = 27 conv shape of
     the TreeLearn plot's levels 0-2 (z-band plans over their rulebooks),
-    timed beside the bound, the plain version, the band kernel on the same
-    conv and the gather engine. Returns the kernel record (one pass of the
-    profile workload: its 3 convs in bf16 and f32) and the rows."""
+    timed beside both bounds, the plain version, the band kernel on the
+    same conv (K = 27 or 125) and the gather engine; the replaced SIMT
+    kernel's time is logged beside each row as a historical constant
+    (``ZBAND_SIMT_HISTORICAL_MS``). Returns the kernel record (one pass of
+    the profile workload: its 3 convs in bf16 and f32) and the rows."""
     import torch
 
     from treemorph_tpu_torch.ops.bandconv import (
@@ -2297,13 +2328,13 @@ def phase_zband_vs_plain(profile, levels, device):
                   for lvl, cin, cout, _ in LEVEL_CONVS if lvl == level]
     gen = torch.Generator(device=device).manual_seed(9)
     rows, worst = [], 0.0
-    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, band_ms=0.0,
-                  gather_ms=0.0, bytes=0.0, flops=0.0)
+    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_tc_ms=0.0,
+                  band_ms=0.0, gather_ms=0.0, bytes=0.0, flops=0.0)
     for label, rb, valid, cin, cout, profiled in cases:
         m, k = rb.shape
         ksize = round(k ** (1 / 3))
         plan = build_zband_plan(rb, valid, res_divisor=ZBAND_RES_DIVISOR)
-        bplan = build_band_plan(rb, valid) if k == 27 else None
+        bplan = build_band_plan(rb, valid)
         mp = plan.anchors.shape[0] * TILE
         # found anchors inside their windows (the kernel's work) and
         # outside them (the residual repair's: the kernel must skip them)
@@ -2312,6 +2343,10 @@ def phase_zband_vs_plain(profile, levels, device):
         inside = (local >= 0) & (local < plan.win)
         covered = int(((anchors < m) & inside).sum())
         outside = int(((anchors < m) & ~inside).sum())
+        # the packed rows the kernel reads: the distinct covered anchors
+        # (the rest of zq's mp rows, padding and rows no anchor names, are
+        # never read)
+        zq_rows = int(torch.unique(anchors[(anchors < m) & inside]).numel())
         w = torch.randn((k, cin, cout), device=device, generator=gen)
         w /= (k * cin) ** 0.5
         w2 = w.reshape(ksize * ksize, ksize * cin, cout).contiguous()
@@ -2328,43 +2363,46 @@ def phase_zband_vs_plain(profile, levels, device):
             worst = max(worst, err)
             ms = cuda_ms(lambda: zband_conv_padded(*args), 20)
             plain_ms = cuda_ms(lambda: zband_conv_padded_plain(*args), 5)
-            band_ms = None
-            if bplan is not None:
-                fpad = torch.zeros((bplan.rb_tiles.shape[0] * TILE, cin),
-                                   dtype=dtype, device=device)
-                fpad[:m] = feats
-                band_ms = cuda_ms(lambda: band_conv_padded(
-                    bplan.rb_tiles, bplan.starts, fpad, w, m, bplan.win), 20)
+            fpad = torch.zeros((bplan.rb_tiles.shape[0] * TILE, cin),
+                               dtype=dtype, device=device)
+            fpad[:m] = feats
+            band_ms = cuda_ms(lambda: band_conv_padded(
+                bplan.rb_tiles, bplan.starts, fpad, w, m, bplan.win), 20)
             gather_ms = cuda_ms(
                 lambda: _subm_conv_impl(dtype, feats, w, rb, valid), 5)
             nbytes = ((plan.anchors.numel() + plan.starts.numel()) * 4
-                      + zq.numel() * zq.element_size() + w2.numel() * 4
-                      + mp * cout * 4)
+                      + zq_rows * zq.shape[1] * zq.element_size()
+                      + w2.numel() * 4 + mp * cout * 4)
             flops = 2.0 * covered * ksize * cin * cout
             bound_ms, bound_by = bound(nbytes, flops)
             row = dict(conv=label, k=k, cin=cin, cout=cout, dtype=str(dtype),
                        m=m, valid=int(valid.sum()), covered_anchors=covered,
+                       zq_rows_read=zq_rows,
                        found_anchors_outside_window=outside,
                        residual_rows=int(plan.res_valid.sum()),
                        route="zband" if bool(plan.ok)
                        else "gather (residual overflow)",
                        max_abs_err=err, output_scale=scale, ms=ms,
+                       simt_historical_ms=ZBAND_SIMT_HISTORICAL_MS.get(
+                           (label, str(dtype))),
                        plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, band_kernel_ms=band_ms,
-                       gather_ms=gather_ms)
+                       bound_by=bound_by,
+                       **tc_bound(nbytes, flops, BAND_TC[str(dtype)]),
+                       band_kernel_ms=band_ms, gather_ms=gather_ms)
             rows.append(row)
             log("kernel " + json.dumps(row))
             if profiled:
                 for key, val in (("ms", ms), ("plain_ms", plain_ms),
                                  ("bound_ms", bound_ms),
-                                 ("band_ms", band_ms or 0.0),
+                                 ("bound_tc_ms", row["bound_tc_ms"]),
+                                 ("band_ms", band_ms),
                                  ("gather_ms", gather_ms), ("bytes", nbytes),
                                  ("flops", flops)):
                     totals[key] += val
     record = {
         "name": "zband_conv",
         "route": "cuda",
-        "source": "treemorph_tpu_torch/csrc/zband_conv.cu",
+        "source": "treemorph_tpu_torch/csrc/band_conv.cu",
         "replaces": "treemorph_tpu/ops/bandconv.py:851",
         "shape": "the profile workload's 3 convs (k=5 4->32, k=3 32->32, "
                  "k=3 64->64 over 32,768 rows) x (bf16, f32), one launch "
@@ -2374,18 +2412,20 @@ def phase_zband_vs_plain(profile, levels, device):
         "plain_ms": totals["plain_ms"],
         "bound_ms": totals["bound_ms"],
         "bound_by": bound(totals["bytes"], totals["flops"])[1],
+        "bound_tc_ms": totals["bound_tc_ms"],
         "library_ms": None,
         "library_note": "no single PyTorch call computes a windowed sparse "
-                        "conv; the band kernel (k=3 only) and the gather "
-                        "engine on the same convs:",
+                        "conv; the band kernel and the gather engine on the "
+                        "same convs:",
         "band_kernel_ms": totals["band_ms"],
         "gather_ms": totals["gather_ms"],
     }
     log(f"phase 9a ok: zband_conv within {KERNEL_RTOL} x scale of plain at "
         f"{len(rows)} conv/type cases; the profile workload's 6 launches: "
         f"kernel {totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, "
-        f"bound {totals['bound_ms']:.3f} ms, band kernel (k=3) "
-        f"{totals['band_ms']:.3f} ms, gather {totals['gather_ms']:.3f} ms")
+        f"bound {totals['bound_ms']:.3f} ms (TC {totals['bound_tc_ms']:.3f}), "
+        f"band kernel {totals['band_ms']:.3f} ms, gather "
+        f"{totals['gather_ms']:.3f} ms")
     return record, rows
 
 

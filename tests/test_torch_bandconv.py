@@ -283,7 +283,7 @@ def emulate_band_forward(rb, feats, w, scheme, fresh=True, add=mma_sum):
     pad = -(-cin // (2 * step)) * 2 * step - cin
     f = np.pad(feats, ((0, 0), (0, pad)))
     wp = np.pad(w, ((0, 0), (0, pad), (0, 0)))
-    acc = np.zeros((feats.shape[0], w.shape[-1]), np.float32)
+    acc = np.zeros((rb.shape[0] * rb.shape[2], w.shape[-1]), np.float32)
     part = np.zeros_like(acc)
     for k in range(rb.shape[1]):
         a = gathered(rb, f, k)

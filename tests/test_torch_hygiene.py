@@ -40,6 +40,7 @@ def port_sources():
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "time_kernels.py")
+    yield os.path.join(REPO, "compare_sass.py")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

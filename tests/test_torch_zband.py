@@ -2,7 +2,9 @@
 and the z-band plan (exactly equal), the engine (kernel part through its
 plain version, the z-band packing and the residual repair) against the
 Pallas kernel run in interpret mode, its gradients against ``jax.grad``,
-the ``subm_conv_apply`` route and the profile script.
+the ``subm_conv_apply`` route and the profile script; and the arithmetic of
+the kernel's z-band instance (``csrc/band_conv.cu`` with the groups as its
+offsets) emulated in numpy against float64.
 
 Inputs are the z-column voxel sets of ``tests/test_bandconv.py`` (the
 surface-cloud shape the engine targets), made from numpy seeds. In f32 the
@@ -27,6 +29,7 @@ from treemorph_tpu_torch.ops import sparse as tsp
 from treemorph_tpu_torch.scripts import profile_zband
 
 from test_bandconv import column_voxels
+from test_torch_bandconv import bf16_round, emulate_band_forward
 from test_torch_ops import (  # noqa: F401
     assert_scaled_close, fresh_jax_caches, one_torch_thread, surface_cloud,
     t,
@@ -191,3 +194,101 @@ def test_profile_zband_runs_on_cpu(capsys):
         if r["route"] == "zband":
             limit = 1e-5 if r["dtype"] == "f32" else 1e-2
             assert r["max_abs_diff"] <= limit * r["scale"], r
+
+
+def zband_tile(seed, ksize, cin, bf16, cout=32, win=64):
+    """One 128-row output tile of the z-band kernel: anchors (1, G, 128)
+    into 256 packed rows of which the first 240 are found (a third of the
+    anchors missing, many found ones outside their group's window of
+    ``win`` rows at ``8 * starts[g]``), starts (G, 1), the packed rows zq
+    (bf16 values in bf16 mode) and the group filters w2 (G, e, Cout)."""
+    rng = np.random.default_rng(seed)
+    g, e, mp, m = ksize * ksize, ksize * cin, 256, 240
+    anchors = rng.integers(0, mp, size=(1, g, 128))
+    anchors[rng.random(anchors.shape) < 0.33] = m
+    starts = rng.integers(0, (mp - win) // tband.ZALIGN + 1, size=(g, 1))
+    zq = rng.normal(size=(mp, e)).astype(np.float32)
+    if bf16:
+        zq = bf16_round(zq)
+    w2 = (rng.normal(size=(g, e, cout)) / np.sqrt(g * e)).astype(np.float32)
+    return anchors, starts, zq, w2, m, win
+
+
+def kernel_rows(anchors, starts, m, win, gspan, unit, missing):
+    """The rows the kernel's prologue keeps for each (tile, offset, row):
+    the entry if it is found (< m) and lies in the window [unit *
+    starts[k // gspan, t], + win) of its offset's group, else ``missing``
+    (a zero-filled row). gspan = 1, unit = 8 is the z-band instance."""
+    k = anchors.shape[1]
+    base = (starts[np.arange(k) // gspan] * unit).T[:, :, None]
+    local = anchors - base
+    ok = (anchors < m) & (local >= 0) & (local < win)
+    return np.where(ok, anchors, missing), ok
+
+
+def zband_reference(rows, zq, w2):
+    """float64 sum over groups of the kept packed rows times the group
+    filter; ``rows == len(zq)`` adds nothing."""
+    pad = np.concatenate([zq, np.zeros((1, zq.shape[1]), zq.dtype)])
+    return sum(pad[rows[0, j]].astype(np.float64) @ w2[j].astype(np.float64)
+               for j in range(rows.shape[1]))
+
+
+@pytest.mark.parametrize("ksize,cin", [(3, 32), (5, 4)])
+@pytest.mark.parametrize("mode", ["bf16", "f32"])
+def test_zband_kernel_precision(ksize, cin, mode):
+    """The z-band instance's arithmetic on one tile, at the profile's k=3
+    32 -> 32 conv (96 packed channels: 3 bf16 or 6 f32 stages a group) and
+    PTv3's k=5 stem (4 -> 32: 20 packed channels, one zero-padded stage in
+    bf16, two in f32): bf16 rows by three bf16 weight pieces (bf16 mode)
+    and 3xTF32 (f32 mode), each stage a fresh fragment added with a rounded
+    add, land within 1e-6 of the output scale of float64; a single TF32
+    pass, or weights rounded to bf16, misses 1e-5."""
+    anchors, starts, zq, w2, m, win = zband_tile(ksize + cin, ksize, cin,
+                                                 mode == "bf16")
+    rows, ok = kernel_rows(anchors, starts, m, win, 1, tband.ZALIGN,
+                           len(zq))
+    assert ok.any(axis=2).all()  # every group has work in the tile
+    ref = zband_reference(rows, zq, w2)
+    scale = np.abs(ref).max()
+    schemes = (["bf16 pieces", "bf16 weights", "one tf32 pass"]
+               if mode == "bf16" else ["3xTF32", "one tf32 pass"])
+    errs = {s: np.abs(emulate_band_forward(rows, zq, w2, s) - ref).max()
+            for s in schemes}
+    assert errs[schemes[0]] <= 1e-6 * scale
+    for s in schemes[1:]:
+        assert errs[s] > 1e-5 * scale, s
+
+
+@pytest.mark.parametrize("mode", ["bf16", "f32"])
+def test_zband_kernel_skips_out_of_window_anchors(mode):
+    """A found anchor outside its group's 8-row-unit window adds nothing in
+    the kernel (the residual repair owns its entries): the emulated tile
+    equals the plain version, which skips them, to 1e-6 of scale, and a
+    sum that read them would be far off. The prologue's window test with
+    the band's constants (groups of ksize offsets, 64-row units) is
+    :func:`.bandconv.in_window`'s."""
+    anchors, starts, zq, w2, m, win = zband_tile(7, 3, 8, mode == "bf16")
+    rows, ok = kernel_rows(anchors, starts, m, win, 1, tband.ZALIGN,
+                           len(zq))
+    outside = (anchors < m) & ~ok
+    assert outside.sum() > 100 and ok.sum() > 100
+    scheme = "bf16 pieces" if mode == "bf16" else "3xTF32"
+    got = emulate_band_forward(rows, zq, w2, scheme)
+    plain = tband.zband_conv_padded_plain(
+        t(anchors.astype(np.int32)), t(starts.astype(np.int32)),
+        t(zq).to(torch.bfloat16 if mode == "bf16" else torch.float32),
+        t(w2), m, win).numpy()[:128]
+    scale = np.abs(plain).max()
+    assert np.abs(got - plain).max() <= 1e-6 * scale
+    found = np.where(anchors < m, anchors, len(zq))
+    assert np.abs(zband_reference(found, zq, w2) - plain).max() > 0.1 * scale
+
+    # the same prologue with the band's constants: a 3x3x3 band tile
+    rng = np.random.default_rng(3)
+    rb = rng.integers(0, 256, size=(1, 27, 128))
+    band_starts = rng.integers(0, 3, size=(9, 1))
+    _, band_ok = kernel_rows(rb, band_starts, 240, 128, 3, tband.ALIGN, 256)
+    _, expected = tband.in_window(t(rb.astype(np.int32)),
+                                  t(band_starts.astype(np.int32)), 240, 128)
+    np.testing.assert_array_equal(band_ok, expected.numpy())

@@ -1,5 +1,6 @@
-"""CUDA-event times of the band kernels and the window-attention forward of
-one checkout, at the shapes that ``chip_smoke.py`` phases 2, 5 and 7a use.
+"""CUDA-event times of the band kernels, the z-band conv and the
+window-attention forward of one checkout, at the shapes that
+``chip_smoke.py`` phases 2, 5, 7a, 9a and 11a use.
 
     python3 time_kernels.py [ROOT]
 
@@ -16,7 +17,13 @@ line ``TIMES {json}`` of ms per call (median of 20).
 Band keys are ``(part, level, Cin, Cout, type)``: ``fwd`` is the forward
 on the e2e plot's levels; ``train_fwd`` the forward, ``bwd`` the whole
 ``band_conv_bwd_padded`` and ``bwd_d_feats`` its forward launch on the
-training batch's levels. Attention keys are ``(part, W, H, K, D, type)``:
+training batch's levels. ``(bench_fwd, K, rows, Cin, Cout, type)`` is the
+forward at each shape of one forward of the bench PTv3 configuration on
+the bench tree (its own features in bf16, the same cast to f32), and
+``bench_calls`` that shape's launches per forward. ``(zband, conv, type)``
+is ``zband_conv_padded`` at 9a's convs (the z-band profile workload's three
+and the e2e plot's level convs, z-band plans with 9a's residual divisor,
+seeded features and weights). Attention keys are ``(part, W, H, K, D, type)``:
 ``attn_fwd`` is ``window_attention`` (inference, no log-sum-exp),
 ``attn_sdpa`` ``scaled_dot_product_attention`` with the same boolean mask
 (median of 5), and ``attn_calls`` the launches of that shape per forward;
@@ -34,7 +41,7 @@ import sys
 import tempfile
 
 
-def band_times(cs, dev) -> dict:
+def band_times(cs, dev, points) -> dict:
     import torch
 
     from treemorph_tpu_torch.ops.bandconv import (
@@ -58,7 +65,7 @@ def band_times(cs, dev) -> dict:
                            generator=gen) / (27 * cin) ** 0.5
 
     times = {}
-    plans = cs.e2e_level_plans(cs.e2e_cloud(), dev)
+    plans = cs.e2e_level_plans(points, dev)
     for level, cin, cout, _ in cs.LEVEL_CONVS:
         p, w = plans[level], weights(cin, cout)
         m = p.rulebook.shape[0]
@@ -95,7 +102,60 @@ def band_times(cs, dev) -> dict:
     return times
 
 
-def attention_times(cs, dev) -> dict:
+def bench_band_times(cs, dev) -> dict:
+    import torch
+
+    from treemorph_tpu_torch.ops.bandconv import band_conv_padded
+
+    model, _ = cs.ptv3_bench_models(dev)
+    captured, _, _ = cs.capture_band_inputs(model, cs.bench_tree_cloud())
+    times = {}
+    for (k, mp, cin, cout), (args, count) in sorted(captured.items()):
+        rb_tiles, starts, feats, w, m, win = args
+        times[str(("bench_calls", k, mp, cin, cout))] = count
+        for dt in (torch.bfloat16, torch.float32):
+            f = feats.to(dt).contiguous()
+            times[str(("bench_fwd", k, mp, cin, cout, str(dt)))] = cs.cuda_ms(
+                lambda: band_conv_padded(rb_tiles, starts, f, w, m, win), 20)
+    return times
+
+
+def zband_times(cs, dev, points) -> dict:
+    import torch
+
+    from treemorph_tpu_torch.ops.bandconv import (
+        TILE,
+        build_zband_plan,
+        zband_conv_padded,
+        zband_pack,
+    )
+    from treemorph_tpu_torch.ops.sparse import build_rulebook
+
+    cases = list(cs.profile_rulebooks(dev))
+    for level, (c, v) in enumerate(cs.e2e_levels(points, dev)):
+        rb = build_rulebook(c, v)
+        cases += [(f"L{level} {cin}->{cout}", rb, v, cin, cout)
+                  for lvl, cin, cout, _ in cs.LEVEL_CONVS if lvl == level]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    times = {}
+    for label, rb, valid, cin, cout in cases:
+        m, k = rb.shape
+        ksize = round(k ** (1 / 3))
+        plan = build_zband_plan(rb, valid, res_divisor=cs.ZBAND_RES_DIVISOR)
+        mp = plan.anchors.shape[0] * TILE
+        w2 = torch.randn((ksize * ksize, ksize * cin, cout), device=dev,
+                         generator=gen) / (k * cin) ** 0.5
+        feats = torch.randn((m, cin), device=dev, generator=gen)
+        feats *= valid[:, None]
+        for dt in (torch.bfloat16, torch.float32):
+            zq = zband_pack(feats.to(dt), plan.zoff, ksize, mp)
+            args = (plan.anchors, plan.starts, zq, w2, m, plan.win)
+            times[str(("zband", label, str(dt)))] = cs.cuda_ms(
+                lambda: zband_conv_padded(*args), 20)
+    return times
+
+
+def attention_times(cs, dev, points) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -105,8 +165,7 @@ def attention_times(cs, dev) -> dict:
     )
 
     model, _ = cs.ptv3_models(dev)
-    captured, _ = cs.capture_attention_inputs(
-        model, cs.ptv3_cloud(cs.e2e_cloud()))
+    captured, _ = cs.capture_attention_inputs(model, cs.ptv3_cloud(points))
     times = {}
     for shape, ((q, k, v, seg), count) in sorted(captured.items()):
         mask = allowed_pairs(seg)[:, None]
@@ -146,7 +205,10 @@ def main(root: str) -> dict:
         check=True).stdout.strip(), flush=True)
     print(f"nvcc build {build_all():.2f} s", flush=True)
     dev = torch.device("cuda", 0)
-    times = {**band_times(cs, dev), **attention_times(cs, dev)}
+    points = cs.e2e_cloud()
+    times = {**band_times(cs, dev, points), **bench_band_times(cs, dev),
+             **zband_times(cs, dev, points),
+             **attention_times(cs, dev, points)}
     print("TIMES " + json.dumps(times), flush=True)
     return times
 

@@ -1,4 +1,5 @@
-// Band submanifold conv forward for Hopper (sm_90a), on the tensor cores.
+// Band submanifold conv forward for Hopper (sm_90a), on the tensor cores,
+// and its z-packed variant.
 //
 // Replaces treemorph_tpu/ops/bandconv.py::_band_kernel (the Pallas TPU
 // kernel behind _band_conv_padded). It computes that kernel's function, not
@@ -14,13 +15,32 @@
 // bf16 hi/lo split of f32 features are TPU workarounds and are not carried
 // over.
 //
+// The same kernel also replaces treemorph_tpu/ops/bandconv.py::_zband_kernel
+// (behind _zband_conv_padded), the z-packed band conv:
+//
+//   out[t*128 + i] = sum_g  zq[a] @ W2[g],   a = anchors[t, g, i]
+//
+// over the G = ksize^2 groups whose anchor (the group's dz = 0 entry) is
+// found (a < m) and lies in [8 * starts[g, t], + win). Row a of zq holds
+// the features of a's ksize z-neighbors side by side, so W2[g] is the
+// group's (ksize * Cin, Cout) filter. That is the band function with the G
+// groups as the offsets, e = ksize * Cin as the channels, each offset its
+// own window group and windows in units of 8 rows: the z-band instances
+// are band_conv_kernel<G, 1, 8, ...> (G = 9 or 25), launched by
+// zband_conv_launch. A missing or out-of-window anchor adds nothing; the
+// caller's residual repair owns it.
+//
 // What bounds it on an H100: per output row the kernel does K * Cin * Cout
 // multiply-adds (the in-window share of them is real work) and reads 4 K
 // bytes of rulebook plus the rows it gathers, so at TreeLearn's and PTv3's
 // xCPE widths (Cin 7..512, Cout 32..512) it is bound by arithmetic, and
 // without tensor cores by FP32 FMA issue and the shared-memory loads that
 // feed it; PTv3's stem (4 -> 32 at K = 125) is bound by its rulebook's
-// bytes. The design:
+// bytes. The z-band variant does the same multiply-adds per covered anchor
+// (ksize * Cin * Cout for each of G groups) from a rulebook ksize times
+// smaller, and its rows are ksize times longer: the k=5 stem's 4 channels
+// become one 40-byte (bf16) or 80-byte (f32) row per group, 25 or 50
+// stages a tile where K = 125 takes 125. The design:
 //
 // - A gathered implicit GEMM with mma.sync: M is one 128-row tile, N is a
 //   column slice of Cout (all of it up to 128 columns, so nothing is staged
@@ -37,9 +57,10 @@
 //   banks. Stages (offset, 64-byte channel chunk) run through a 3-deep
 //   cp.async ring; a prologue marks the offsets some row of the tile
 //   reaches (a mask of 32-bit words, one ballot per offset), only those
-//   are staged, and a tile that reaches nothing writes zeros. K is a
-//   template parameter, so the K = 27 instances keep their constant
-//   offsets and one mask word.
+//   are staged, and a tile that reaches nothing writes zeros. K, the
+//   offsets of a window group (GSPAN) and the window unit (UNIT) are
+//   template parameters, so the band instances keep their constant
+//   offsets, groups and 64-row unit, and K <= 32 keeps one mask word.
 // - B is W[k], split once per call by split_weights_kernel into fragment
 //   order, so a stage's B is one contiguous block copied with cp.async and
 //   read by each lane as 16-byte loads without bank conflicts.
@@ -53,16 +74,16 @@
 //   lo*hi + hi*lo + hi*hi), A split in registers after its ldmatrix. The
 //   tensor cores round each mma's sum toward zero, so each stage's six mma
 //   (two k-steps x three passes) go into a fresh fragment that is added to
-//   the f32 sums with a rounded add. tests/test_torch_bandconv.py emulates
-//   both modes against float64.
-// - Rows that are not a multiple of 16 bytes (the stem's 7 channels) are
-//   staged element by element, all of a stage's loads issued before its
-//   stores, and zero-padded in shared memory up to the stage's 64 bytes;
-//   that path is an instantiation of its own (VEC false), so the cp.async
-//   path keeps its registers and its blocks per SM. PTv3's bf16 stem (4
-//   channels, 8 bytes a row) takes it too: each stage holds 4 real channels
-//   of 32, the price of a simple kernel for a conv that is a small share of
-//   the forward.
+//   the f32 sums with a rounded add. tests/test_torch_bandconv.py and
+//   tests/test_torch_zband.py emulate both modes against float64.
+// - Rows that are not a multiple of 16 bytes (the stem's 7 channels; the
+//   z-band rows of 20 and 21 bf16 or 21 f32 channels) are staged element
+//   by element, all of a stage's loads issued before its stores, and
+//   zero-padded in shared memory up to the stage's 64 bytes; that path is
+//   an instantiation of its own (VEC false), so the cp.async path keeps its
+//   registers and its blocks per SM. PTv3's bf16 stem (4 channels, 8 bytes
+//   a row) takes it too: each stage holds 4 real channels of 32, the price
+//   of a simple kernel for a conv that is a small share of the forward.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,7 +94,8 @@
 namespace {
 
 constexpr int TILE = 128;        // output rows per block
-constexpr int ALIGN = 64;        // window anchors are in units of 64 rows
+constexpr int ALIGN = 64;        // band window anchors: units of 64 rows
+constexpr int ZALIGN = 8;        // z-band window anchors: units of 8 rows
 constexpr int MAX_K = 125;       // offsets: ksize^3, dz fastest, ksize 3 or 5
 constexpr int THREADS = 256;     // 8 warps: 4 along the rows x 2 along N
 constexpr int CHUNK_BYTES = 64;  // bytes of a row per stage (two k-steps)
@@ -232,16 +254,18 @@ __global__ void split_weights_kernel(const float* __restrict__ w,
   }
 }
 
-template <int K, bool BF16, int NS, bool VEC>
+// K offsets; offset k's window is group k / GSPAN's, anchored in units of
+// UNIT rows: <ksize^3, ksize, ALIGN> for the band conv, <ksize^2, 1,
+// ZALIGN> for the z-band conv (its offsets are the groups, its rows zq's)
+template <int K, int GSPAN, int UNIT, bool BF16, int NS, bool VEC>
 __global__ void __launch_bounds__(THREADS, NS <= 96 ? 2 : 1)
 band_conv_kernel(const int32_t* __restrict__ rb_tiles,  // (n_tiles, K, 128)
-                 const int32_t* __restrict__ starts,    // (ksize^2, n_tiles)
+                 const int32_t* __restrict__ starts,    // (K/GSPAN, n_tiles)
                  const char* __restrict__ feats,        // (Mp, cin)
                  const uint4* __restrict__ wf,          // split weights
                  float* __restrict__ out,               // (Mp, cout)
                  int n_tiles, int cin, int cout, int m, int win,
                  int n_chunks) {
-  constexpr int KSIZE = K == 27 ? 3 : 5;  // kernel edge
   constexpr int WORDS = (K + 31) / 32;    // words of the live-offset mask
   static_assert(WORDS * 4 <= 16, "the mask has 16 bytes of shared memory");
   constexpr int ELEM = BF16 ? 2 : 4;
@@ -272,7 +296,7 @@ band_conv_kernel(const int32_t* __restrict__ rb_tiles,  // (n_tiles, K, 128)
     unsigned mask = 0u;  // K <= 32: this thread's bits, reduced once
     for (int k = k0; k < k1; ++k) {
       const int idx = rb_tiles[((size_t)t * K + k) * TILE + i];
-      const int local = idx - starts[(k / KSIZE) * n_tiles + t] * ALIGN;
+      const int local = idx - starts[(k / GSPAN) * n_tiles + t] * UNIT;
       const bool ok = idx < m && local >= 0 && local < win;
       idx_s[k * TILE + i] = ok ? idx : -1;
       if constexpr (WORDS == 1) {
@@ -493,56 +517,80 @@ size_t workspace_bytes(int k, int cin, int cout, int bf16) {
          b_bytes(bf16 != 0, slice_cols(cout));
 }
 
-template <bool BF16, int NS, bool VEC>
-cudaError_t launch_gemm(const int32_t* rb_tiles, const int32_t* starts,
-                        const char* feats, const uint4* wf, float* out,
-                        int n_tiles, int k, int cin, int cout, int m, int win,
-                        cudaStream_t stream) {
-  auto kernel = k == 27 ? &band_conv_kernel<27, BF16, NS, VEC>
-                        : &band_conv_kernel<MAX_K, BF16, NS, VEC>;
-  const size_t smem = smem_bytes(BF16, NS, k);
+// what a GEMM instance reads and writes
+struct GemmArgs {
+  const int32_t* rb_tiles;  // or the z-band anchors
+  const int32_t* starts;
+  const char* feats;  // or zq
+  const uint4* wf;
+  float* out;
+  int n_tiles, cin, cout, m, win;
+};
+
+template <int K, int GSPAN, int UNIT, bool BF16, int NS, bool VEC>
+cudaError_t launch_gemm(const GemmArgs& a, cudaStream_t stream) {
+  auto kernel = &band_conv_kernel<K, GSPAN, UNIT, BF16, NS, VEC>;
+  const size_t smem = smem_bytes(BF16, NS, K);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(n_tiles, n_slices(cout));
-  kernel<<<grid, THREADS, smem, stream>>>(rb_tiles, starts, feats, wf, out,
-                                          n_tiles, cin, cout, m, win,
-                                          n_chunks(cin, BF16));
+  const dim3 grid(a.n_tiles, n_slices(a.cout));
+  kernel<<<grid, THREADS, smem, stream>>>(a.rb_tiles, a.starts, a.feats,
+                                          a.wf, a.out, a.n_tiles, a.cin,
+                                          a.cout, a.m, a.win,
+                                          n_chunks(a.cin, BF16));
   return cudaGetLastError();
 }
 
 // rows of a multiple of 16 bytes take cp.async; the others (the stem's 7
 // channels) a kernel of their own, so the vector path holds no registers
 // for element staging
-template <bool BF16, int NS>
-cudaError_t launch_vec(const int32_t* rb, const int32_t* st, const char* f,
-                       const uint4* wf, float* o, int n_tiles, int k,
-                       int cin, int cout, int m, int win, int vec,
-                       cudaStream_t s) {
-  return vec ? launch_gemm<BF16, NS, true>(rb, st, f, wf, o, n_tiles, k, cin,
-                                           cout, m, win, s)
-             : launch_gemm<BF16, NS, false>(rb, st, f, wf, o, n_tiles, k,
-                                            cin, cout, m, win, s);
+template <int K, int GSPAN, int UNIT, bool BF16, int NS>
+cudaError_t launch_vec(const GemmArgs& a, int vec, cudaStream_t s) {
+  return vec ? launch_gemm<K, GSPAN, UNIT, BF16, NS, true>(a, s)
+             : launch_gemm<K, GSPAN, UNIT, BF16, NS, false>(a, s);
 }
 
-template <bool BF16>
-cudaError_t launch_ns(const int32_t* rb, const int32_t* st, const char* f,
-                      const uint4* wf, float* o, int n_tiles, int k, int cin,
-                      int cout, int m, int win, int vec, cudaStream_t s) {
-  switch (slice_cols(cout)) {
+template <int K, int GSPAN, int UNIT, bool BF16>
+cudaError_t launch_ns(const GemmArgs& a, int vec, cudaStream_t s) {
+  switch (slice_cols(a.cout)) {
     case 32:
-      return launch_vec<BF16, 32>(rb, st, f, wf, o, n_tiles, k, cin, cout,
-                                  m, win, vec, s);
+      return launch_vec<K, GSPAN, UNIT, BF16, 32>(a, vec, s);
     case 64:
-      return launch_vec<BF16, 64>(rb, st, f, wf, o, n_tiles, k, cin, cout,
-                                  m, win, vec, s);
+      return launch_vec<K, GSPAN, UNIT, BF16, 64>(a, vec, s);
     case 96:
-      return launch_vec<BF16, 96>(rb, st, f, wf, o, n_tiles, k, cin, cout,
-                                  m, win, vec, s);
+      return launch_vec<K, GSPAN, UNIT, BF16, 96>(a, vec, s);
     default:
-      return launch_vec<BF16, MAX_NS>(rb, st, f, wf, o, n_tiles, k, cin,
-                                      cout, m, win, vec, s);
+      return launch_vec<K, GSPAN, UNIT, BF16, MAX_NS>(a, vec, s);
   }
+}
+
+template <int K, int GSPAN, int UNIT>
+cudaError_t launch_instance(const GemmArgs& a, int bf16, int vec,
+                            cudaStream_t s) {
+  return bf16 ? launch_ns<K, GSPAN, UNIT, true>(a, vec, s)
+              : launch_ns<K, GSPAN, UNIT, false>(a, vec, s);
+}
+
+// The weight split of `weights` (k, cin, cout) into `workspace`, then the
+// GEMM instance `gemm`; returns the CUDA error code (0 = ok)
+int launch(GemmArgs a, const void* weights, void* workspace, int k,
+           int bf16,
+           cudaError_t (*gemm)(const GemmArgs&, int, int, cudaStream_t),
+           void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* wf = static_cast<uint4*>(workspace);
+  a.wf = wf;
+  const int row_bytes = a.cin * (bf16 ? 2 : 4);
+  const int vec =
+      row_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(a.feats) % 16 == 0;
+  const int total = (int)(workspace_bytes(k, a.cin, a.cout, bf16) / 16);
+  split_weights_kernel<<<(total + 255) / 256, 256, 0, s>>>(
+      static_cast<const float*>(weights), wf, k, a.cin, a.cout,
+      n_chunks(a.cin, bf16), slice_cols(a.cout), bf16, total);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)gemm(a, bf16, vec, s);
 }
 
 }  // namespace
@@ -568,27 +616,45 @@ int band_conv_launch(const void* rb_tiles, const void* starts,
       reinterpret_cast<uintptr_t>(workspace) % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* rb = static_cast<const int32_t*>(rb_tiles);
-  const auto* st = static_cast<const int32_t*>(starts);
-  const auto* f = static_cast<const char*>(feats);
-  auto* wf = static_cast<uint4*>(workspace);
-  auto* o = static_cast<float*>(out);
-  const int row_bytes = cin * (feats_bf16 ? 2 : 4);
-  const int vec =
-      row_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(feats) % 16 == 0;
-  const int total = (int)(workspace_bytes(k, cin, cout, feats_bf16) / 16);
-  split_weights_kernel<<<(total + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(weights), wf, k, cin, cout,
-      n_chunks(cin, feats_bf16), slice_cols(cout), feats_bf16, total);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = feats_bf16
-            ? launch_ns<true>(rb, st, f, wf, o, n_tiles, k, cin, cout, m,
-                              win, vec, s)
-            : launch_ns<false>(rb, st, f, wf, o, n_tiles, k, cin, cout, m,
-                               win, vec, s);
-  return (int)err;
+  const GemmArgs a{static_cast<const int32_t*>(rb_tiles),
+                   static_cast<const int32_t*>(starts),
+                   static_cast<const char*>(feats), nullptr,
+                   static_cast<float*>(out), n_tiles, cin, cout, m, win};
+  return launch(a, weights, workspace, k, feats_bf16,
+                k == 27 ? &launch_instance<27, 3, ALIGN>
+                        : &launch_instance<MAX_K, 5, ALIGN>,
+                stream);
+}
+
+// Bytes of the workspace zband_conv_launch needs for the split weights.
+size_t zband_conv_workspace_bytes(int groups, int e, int cout, int zq_bf16) {
+  return workspace_bytes(groups, e, cout, zq_bf16);
+}
+
+// The z-band conv: `anchors` (n_tiles, G, 128) and `starts` (G, n_tiles)
+// int32, zq (n_tiles * 128, e) bf16 or f32, w2 (G, e, cout) f32, out
+// (n_tiles * 128, cout) f32. Launches the weight split and the GEMM on
+// `stream`; returns the CUDA error code (0 = ok). Takes G = 9 or 25
+// groups; `win` must be a multiple of 8 and m at most n_tiles * 128 (found
+// anchors are rows of zq), which build_zband_plan guarantees. `workspace`
+// holds zband_conv_workspace_bytes and is 16-byte aligned.
+int zband_conv_launch(const void* anchors, const void* starts, const void* zq,
+                      int zq_bf16, const void* w2, void* out,
+                      void* workspace, int n_tiles, int groups, int e,
+                      int cout, int m, int win, void* stream) {
+  if ((groups != 9 && groups != 25) || e < 1 || cout < 1 || win < 1 ||
+      win % ZALIGN != 0 || n_tiles < 1 || m > n_tiles * TILE ||
+      reinterpret_cast<uintptr_t>(workspace) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const GemmArgs a{static_cast<const int32_t*>(anchors),
+                   static_cast<const int32_t*>(starts),
+                   static_cast<const char*>(zq), nullptr,
+                   static_cast<float*>(out), n_tiles, e, cout, m, win};
+  return launch(a, w2, workspace, groups, zq_bf16,
+                groups == 9 ? &launch_instance<9, 1, ZALIGN>
+                            : &launch_instance<25, 1, ZALIGN>,
+                stream);
 }
 
 }  // extern "C"

@@ -30,9 +30,10 @@ its weight gradient, as the JAX package's ``needs_feats_grad=False`` convs
 do.
 
 The z-packed variant (:class:`ZBandPlan`, :func:`zband_subm_conv_apply`,
-``csrc/zband_conv.cu`` through :func:`zband_conv_padded`) packs each row's
-ksize z-neighbors into one row, so a (dx, dy) group is one row read and one
-(ksize*Cin, Cout) product. Nothing builds a ``ZBandPlan`` on its own
+the z-band instances of ``csrc/band_conv.cu`` through
+:func:`zband_conv_padded`) packs each row's ksize z-neighbors into one row,
+so a (dx, dy) group is one row read and one (ksize*Cin, Cout) product.
+Nothing builds a ``ZBandPlan`` on its own
 (:func:`choose_band_plan` never does); a caller passes one to
 :func:`.sparse.subm_conv_apply`, as
 ``python -m treemorph_tpu_torch.scripts.profile_zband`` does. Types, in
@@ -65,8 +66,6 @@ ALIGN = 64  # window anchors are stored in units of 64 rows
 FWD_KERNEL_SIZES = (27, 125)
 #: the (Cin, Cout) channel slices of csrc/band_conv_bwd.cu
 _BWD_SLICE = 32
-#: shared memory one block may use on an H100
-SMEM_LIMIT = 232_448
 
 #: convs :func:`band_subm_conv_apply` sent to the gather engine, by reason
 GATHER_ROUTES: Counter = Counter()
@@ -269,12 +268,14 @@ def _library():
     lib = load_library("band_conv")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.band_conv_launch.argtypes = [
-            p, p, p, i, p, p, p, i, i, i, i, i, i, p,
-        ]
-        lib.band_conv_launch.restype = ctypes.c_int
-        lib.band_conv_workspace_bytes.argtypes = [i, i, i, i]
-        lib.band_conv_workspace_bytes.restype = ctypes.c_size_t
+        # the band conv and its z-band instances take the same arguments
+        for launch in (lib.band_conv_launch, lib.zband_conv_launch):
+            launch.argtypes = [p, p, p, i, p, p, p, i, i, i, i, i, i, p]
+            launch.restype = ctypes.c_int
+        for size in (lib.band_conv_workspace_bytes,
+                     lib.zband_conv_workspace_bytes):
+            size.argtypes = [i, i, i, i]
+            size.restype = ctypes.c_size_t
         lib._typed = True
     return lib
 
@@ -600,10 +601,6 @@ def choose_band_plan(
 # ---------------------------------------------------------------------------
 
 ZALIGN = 8  # z-band window anchors are stored in units of 8 rows
-#: the z-band kernel's shared memory (csrc/zband_conv.cu): 128 gathered
-#: rows of a 32-channel chunk, one chunk of the group filter and the tile's
-#: anchors
-_ZBAND_SMEM = (TILE * 33 + 32 * 4 * 16 + TILE) * 4
 
 
 class ZBandPlan(NamedTuple):
@@ -765,8 +762,9 @@ def zband_conv_padded(
     ``zq[a] @ w2[g]`` (see :func:`zband_conv_padded_plain`); (Mp, Cout)
     float32.
 
-    On a CUDA tensor this launches the kernel of ``csrc/zband_conv.cu`` or
-    raises; a CPU tensor takes the plain version."""
+    On a CUDA tensor this launches the z-band instance of
+    ``csrc/band_conv.cu`` (its weight split, then its GEMM, with the groups
+    as the offsets) or raises; a CPU tensor takes the plain version."""
     if zq.device.type == "cpu":
         return zband_conv_padded_plain(anchors, starts, zq, w2, m, win)
     if zq.device.type != "cuda":
@@ -800,40 +798,30 @@ def zband_conv_padded(
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("zband_conv_padded: tensors must be contiguous")
 
-    lib = _zband_library()
+    lib = _library()
+    bf16 = int(zq.dtype == torch.bfloat16)
     out = torch.empty((mp, cout), dtype=torch.float32, device=zq.device)
+    workspace = torch.empty(
+        lib.zband_conv_workspace_bytes(g, e, cout, bf16), dtype=torch.uint8,
+        device=zq.device,
+    )
     with torch.cuda.device(zq.device):
         rc = lib.zband_conv_launch(
-            anchors.data_ptr(), starts.data_ptr(), zq.data_ptr(),
-            int(zq.dtype == torch.bfloat16), w2.data_ptr(), out.data_ptr(),
-            n_tiles, g, e, cout, m, win, stream_handle(zq.device),
+            anchors.data_ptr(), starts.data_ptr(), zq.data_ptr(), bf16,
+            w2.data_ptr(), out.data_ptr(), workspace.data_ptr(), n_tiles, g,
+            e, cout, m, win, stream_handle(zq.device),
         )
     check_launch("zband_conv", rc)
-    LAUNCHES["zband_conv"] += 1
+    LAUNCHES["zband_conv"] += 1  # not a band_conv launch: its own count
     return out
-
-
-def _zband_library():
-    lib = load_library("zband_conv")
-    if not getattr(lib, "_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.zband_conv_launch.argtypes = [p, p, p, i, p, p, i, i, i, i, i, i,
-                                          p]
-        lib.zband_conv_launch.restype = ctypes.c_int
-        lib._typed = True
-    return lib
 
 
 def zband_viable(k: int, dtype) -> bool:
     """Whether the z-band kernel takes this conv shape: 3x3x3 or 5x5x5
-    kernels. It stages 32 packed channels of 128 rows at a time and splits
-    wide outputs over blocks, so its shared memory (``_ZBAND_SMEM``) is the
-    same for every width; the TPU gate was a VMEM budget."""
-    return (
-        k in (27, 125)
-        and dtype in (torch.bfloat16, torch.float32)
-        and _ZBAND_SMEM <= SMEM_LIMIT
-    )
+    kernels in bf16 or f32. It is the band kernel's instance at 9 or 25
+    groups, so as there only ``k`` and the type decide (the TPU gate was a
+    VMEM budget)."""
+    return k in (27, 125) and dtype in (torch.bfloat16, torch.float32)
 
 
 def _zband_impl(feats, weights, plan: ZBandPlan, valid, dtype):

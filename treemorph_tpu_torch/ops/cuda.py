@@ -32,7 +32,6 @@ KERNEL_FUNCTIONS: dict[str, tuple[str, ...]] = {
                    "brick_gemm_kernel"),
     "window_attention": ("window_attention_kernel",),
     "window_attention_bwd": ("dq_kernel", "dk_dv_kernel"),
-    "zband_conv": ("zband_conv_kernel",),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
