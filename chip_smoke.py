@@ -34,7 +34,12 @@ reference's training batch, written to a temporary directory):
    (``d_feats``: the forward kernel; ``d_w``: ``band_conv_dw_padded``),
    both bounds and, in each row's log line only, the SIMT kernels' times
    (``SIMT_HISTORICAL_MS``); the forward kernel is timed at the same
-   shapes.
+   shapes. Then the same at K = 125, the level plans of
+   ``TreeLearn(kernel_size=5)`` on the same batch (every conv 5x5x5).
+   The bounds count the bytes of the rows the kernels read: the rows an
+   in-window entry names (features in the forward, the gradient in the
+   backward) and, for ``d_w``, the rows that own one; so do phases 2 and
+   11a.
 6. Training on the card: each band conv of a full-width f32 train step
    differentiated alone through autograd against the gather engine's
    backward, with the step's own cotangents and with random ones; one
@@ -44,7 +49,10 @@ reference's training batch, written to a temporary directory):
    3 epochs of 2 steps, band engine, bf16), counting the kernels'
    launches; then a timed step split into forward, backward and
    optimizer, and one more step under ``torch.profiler`` (device busy
-   share, top operators and kernels).
+   share, top operators and kernels). 6d: ``TreeLearn(kernel_size=5,
+   engine="band")``: the f32 step band against gather on the card (as
+   6a), the bf16 step card against CPU, and full-width bf16 steps with
+   their launches counted (``band_conv_bwd``, the K = 125 forward).
 
 PTv3 serving (the pipeline's ``pointtransformerv3`` family at full width,
 seeded weights, f32, on the e2e cloud given seeded per-point features):
@@ -145,6 +153,20 @@ tree, 131,072 points, seeded features):
 11c. The same configuration through ``run_pipeline`` on the PTv3 plot,
      stage by stage; one forward's wall time (median of 3) and one forward
      under ``torch.profiler``.
+
+PointNet2 serving (the pipeline's ``pointnet2`` family, depth 5, seeded
+weights, f32), on the e2e cloud cut into 1 m rasters:
+
+12a. Two rasters cut to 4,096 points each, card against CPU: offsets within
+     1e-3 of their scale, semantic argmax agreement; the shares of
+     identical FPS and ball-query indices.
+12b. The plot through ``run_pipeline`` with ``model_type: pointnet2`` (one
+     (60, max_pts) minibatch per model), then stage by stage, with peak
+     device memory.
+12c. Exact FPS at the first set abstraction's shape (CUDA events), and one
+     minibatch forward under ``torch.profiler``: wall, device busy share,
+     and the spans on the device of FPS, ball queries, 3-NN
+     interpolation, MLPs and heads.
 
 The last two lines are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``. Float32 matmuls and convolutions run
@@ -527,20 +549,23 @@ def level_sets(coords, batch_ids, valid, batch_size, capacity):
     return levels, int(vox.num_voxels)
 
 
-def band_plans(levels):
+def band_plans(levels, kernel_size=3):
     """One band plan per (coords, valid) level."""
     from treemorph_tpu_torch.ops.bandconv import build_band_plan
     from treemorph_tpu_torch.ops.sparse import build_rulebook
 
-    return [build_band_plan(build_rulebook(c, v), v) for c, v in levels]
+    return [build_band_plan(build_rulebook(c, v, kernel_size), v)
+            for c, v in levels]
 
 
-def level_plans(coords, batch_ids, valid, batch_size, capacity):
-    """Band plans of the three levels TreeLearn builds for these points,
-    and the level-0 voxel count."""
+def level_plans(coords, batch_ids, valid, batch_size, capacity,
+                kernel_size=3):
+    """Band plans of the three levels TreeLearn builds for these points
+    (``kernel_size`` 3: K = 27; 5: K = 125), and the level-0 voxel
+    count."""
     levels, n_voxels = level_sets(coords, batch_ids, valid, batch_size,
                                   capacity)
-    return band_plans(levels), n_voxels
+    return band_plans(levels, kernel_size), n_voxels
 
 
 def e2e_levels(points, device):
@@ -563,14 +588,26 @@ def e2e_level_plans(points, device):
     return band_plans(e2e_levels(points, device))
 
 
-def in_window_entries(plan) -> int:
-    """Rulebook entries the kernels apply: found and inside the window of
-    their (tile, group)."""
+def window_counts(rb_tiles, starts, m, win) -> tuple[int, int, int]:
+    """What the band kernels do and read on a plan: the rulebook entries
+    they apply (found and inside the window of their (tile, group)), the
+    distinct rows those entries name (the feature rows the forward reads;
+    the gradient rows the backward reads) and the rows that own one (the
+    feature rows the weight gradient reads). Every other row of the
+    padded tile grid is never read."""
+    import torch
+
     from treemorph_tpu_torch.ops.bandconv import in_window
 
-    _, ok = in_window(plan.rb_tiles, plan.starts, plan.rulebook.shape[0],
-                      plan.win)
-    return int(ok.sum())
+    idx, ok = in_window(rb_tiles, starts, m, win)
+    return (int(ok.sum()), int(torch.unique(idx[ok]).numel()),
+            int(ok.any(dim=1).sum()))
+
+
+def plan_counts(plan) -> tuple[int, int, int]:
+    """:func:`window_counts` of a band plan."""
+    return window_counts(plan.rb_tiles, plan.starts, plan.rulebook.shape[0],
+                         plan.win)
 
 
 def phase_kernel_vs_plain(points, device):
@@ -594,8 +631,9 @@ def phase_kernel_vs_plain(points, device):
         m = plan.rulebook.shape[0]
         mp = plan.rb_tiles.shape[0] * TILE
         # found in-window entries: the kernel's multiply-adds per
-        # (input, output) channel pair on this level's data
-        nnz = in_window_entries(plan)
+        # (input, output) channel pair on this level's data; the feature
+        # rows they name are all the kernel reads of the features
+        nnz, rows_named, _ = plan_counts(plan)
         w = torch.randn((27, cin, cout), device=device, generator=gen)
         w /= (27 * cin) ** 0.5
         for dtype in (torch.bfloat16, torch.float32):
@@ -618,13 +656,15 @@ def phase_kernel_vs_plain(points, device):
             repeats = bool(torch.equal(out, band_conv_padded(*args)))
             ms = cuda_ms(lambda: band_conv_padded(*args), 20)
             plain_ms = cuda_ms(lambda: band_conv_padded_plain(*args), 5)
-            nbytes = (mp * 27 * 4 + mp * cin * feats.element_size()
+            nbytes = (mp * 27 * 4 + 9 * plan.rb_tiles.shape[0] * 4
+                      + rows_named * cin * feats.element_size()
                       + 27 * cin * cout * 4 + mp * cout * 4)
             flops = 2.0 * nnz * cin * cout
             bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S,
                                  flops / F32_FLOPS)
             row = dict(level=level, cin=cin, cout=cout, dtype=str(dtype),
-                       m=m, nnz=nnz, launches_per_forward=count,
+                       m=m, nnz=nnz, rows_read=rows_named,
+                       launches_per_forward=count,
                        max_abs_err=err, err_over_scale=err / scale,
                        repeats_bit_for_bit=repeats, ms=ms,
                        simt_historical_ms=SIMT_HISTORICAL_MS.get(
@@ -730,16 +770,17 @@ class _RetryCounter(logging.Handler):
 def plot_end_to_end(cloud, model_type, models, device, kernel, per_forward,
                     overflow_routes=None):
     """``run_pipeline`` on ``cloud`` with ``model_type``'s offset and noise
-    predictors ``models``, then the same stages one by one, timed. Checks
-    the run and that ``kernel`` launched ``per_forward`` times in each
-    forward, less the calls that ``overflow_routes`` (a counter the run
-    adds to, such as the band convs' ``GATHER_ROUTES``) sent elsewhere;
-    returns its launches and the stage record."""
+    predictors ``models``, then the same stages one by one, timed, with the
+    run's peak device memory. Checks the run and that ``kernel`` launched
+    ``per_forward`` times in each forward, less the calls that
+    ``overflow_routes`` (a counter the run adds to, such as the band convs'
+    ``GATHER_ROUTES``) sent elsewhere (``kernel`` None: a family whose
+    path has no hand kernel); returns its launches and the stage record."""
     import numpy as np
     import torch
 
     from treemorph_tpu_torch.ops.cuda import LAUNCHES, reset_launches
-    from treemorph_tpu_torch.pipeline.predict import predict_single
+    from treemorph_tpu_torch.pipeline.predict import make_predictions
     from treemorph_tpu_torch.pipeline.qsm import QSMParams, fit_qsm
     from treemorph_tpu_torch.pipeline.run import run_pipeline
     from treemorph_tpu_torch.pipeline.upsample import upsample
@@ -757,15 +798,18 @@ def plot_end_to_end(cloud, model_type, models, device, kernel, per_forward,
         if overflow_routes is not None:
             overflow_routes.clear()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
         reset_launches()
         t0 = time.perf_counter()
         results = run_pipeline(cfg, offset_model, noise_model, device=device)
         e2e_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
         predict_log.removeHandler(retries)
-        launches = LAUNCHES[kernel]
+        launches = LAUNCHES[kernel] if kernel else 0
         routes = sum((overflow_routes or {}).values())
         expected = per_forward * (2 + retries.retries) - routes
-        log(f"run_pipeline ({model_type}): {e2e_s:.2f} s, results {results}")
+        log(f"run_pipeline ({model_type}): {e2e_s:.2f} s, peak device "
+            f"memory {peak_gb:.2f} GB, results {results}")
         log(f"{kernel} launches {launches}, expected {expected} "
             f"({2 * per_forward} per predict_single; retries "
             f"{retries.retries}, routed elsewhere {routes}); "
@@ -782,7 +826,8 @@ def plot_end_to_end(cloud, model_type, models, device, kernel, per_forward,
             "cylinders > 0": len(results) == 1
             and results[0]["cylinders"] > 0,
             "CSV written": os.path.exists(csv),
-            "launch count": launches == expected and launches > 0,
+            "launch count": kernel is None
+            or (launches == expected and launches > 0),
         }
         for name, ok in checks.items():
             log(f"  {'ok ' if ok else 'FAIL'} {name}")
@@ -791,8 +836,8 @@ def plot_end_to_end(cloud, model_type, models, device, kernel, per_forward,
 
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        refined = predict_single(cloud, offset_model, noise_model,
-                                 device=device)
+        refined = make_predictions(cloud, model_type, offset_model,
+                                   noise_model, device=device)
         t1 = time.perf_counter()
         upsampled = upsample(refined, min_points=MIN_POINTS, device=device)
         torch.cuda.synchronize()
@@ -811,6 +856,7 @@ def plot_end_to_end(cloud, model_type, models, device, kernel, per_forward,
             "e2e_qsm_seconds": t3 - t2,
             "e2e_plot_seconds": t3 - t0,
             "run_pipeline_seconds": e2e_s,
+            "run_pipeline_peak_memory_gb": peak_gb,
         }
         log(json.dumps(record))
     return launches, record
@@ -879,21 +925,25 @@ def first_training_batch(root: str, device):
 
 
 def training_model(capacity, batch_size, engine="band",
-                   conv_dtype="bfloat16"):
+                   conv_dtype="bfloat16", kernel_size=3):
     """The training CLI's TreeLearn (channels 32, num_blocks 3, dim_feat 4,
-    voxel 0.02) with seeded weights, on the CPU."""
+    voxel 0.02) with seeded weights, on the CPU; ``kernel_size`` 5 makes
+    every conv 5x5x5 (K = 125)."""
     from treemorph_tpu_torch.models.treelearn import TreeLearn
     from treemorph_tpu_torch.train.families import init_treelearn
 
     model = TreeLearn(channels=32, num_blocks=3, dim_feat=4, voxel_size=0.02,
                       batch_size=batch_size, engine=engine,
-                      conv_dtype=conv_dtype, voxel_capacity=capacity)
+                      conv_dtype=conv_dtype, voxel_capacity=capacity,
+                      kernel_size=kernel_size)
     return init_treelearn(model, 0)
 
 
-def phase_bwd_kernel_vs_plain(batch, capacity, device):
+def phase_bwd_kernel_vs_plain(batch, capacity, device, kernel_size=3):
     """Returns the per-step backward kernel record (bf16) and the band
-    forward and backward kernel ms per training step at these shapes."""
+    forward and backward kernel ms per training step at these shapes, for
+    the training model's convs at ``kernel_size`` (3: K = 27; 5: K = 125,
+    ``TreeLearn(kernel_size=5)``)."""
     import torch
 
     from treemorph_tpu_torch.ops.bandconv import (
@@ -905,10 +955,12 @@ def phase_bwd_kernel_vs_plain(batch, capacity, device):
     )
     from treemorph_tpu_torch.train.families import _flatten_padded
 
+    k = kernel_size ** 3
     flat = _flatten_padded(batch)
     plans, n_voxels = level_plans(flat["coords"], flat["batch_ids"],
-                                  flat["mask_valid"], TRAIN_TREES, capacity)
-    log(f"training batch: {int(flat['mask_valid'].sum())} points, "
+                                  flat["mask_valid"], TRAIN_TREES, capacity,
+                                  kernel_size)
+    log(f"training batch, K = {k}: {int(flat['mask_valid'].sum())} points, "
         f"{n_voxels} level-0 voxels in capacity {capacity}; level rows "
         + ", ".join(
             f"L{i} {p.rulebook.shape[0]} ({int(p.valid.sum())} voxels, "
@@ -935,16 +987,21 @@ def phase_bwd_kernel_vs_plain(batch, capacity, device):
         plan = plans[level]
         m = plan.rulebook.shape[0]
         mp = plan.rb_tiles.shape[0] * TILE
-        nnz = in_window_entries(plan)
-        w = torch.randn((27, cin, cout), device=device, generator=gen)
-        w /= (27 * cin) ** 0.5
+        plan_bytes = (plan.rb_tiles.numel() + plan.starts.numel()) * 4
+        # in-window entries; the rows they name (the features the forward
+        # reads, the gradient rows both backward launches read) and the
+        # rows that own one (the features d_w reads)
+        nnz, rows_named, rows_owning = plan_counts(plan)
+        w = torch.randn((k, cin, cout), device=device, generator=gen)
+        w /= (k * cin) ** 0.5
         w_bwd = w.flip(0).transpose(1, 2).contiguous()
         for dtype in (torch.bfloat16, torch.float32):
             feats = rows_of(plan, cin, dtype)
+            elem = feats.element_size()
             fwd_ms = cuda_ms(lambda: band_conv_padded(
                 plan.rb_tiles, plan.starts, feats, w, m, plan.win), 20)
-            fwd_bytes = (mp * 27 * 4 + mp * cin * feats.element_size()
-                         + 27 * cin * cout * 4 + mp * cout * 4)
+            fwd_bytes = (plan_bytes + rows_named * cin * elem
+                         + k * cin * cout * 4 + mp * cout * 4)
             fwd_flops = 2.0 * nnz * cin * cout
             fwd_bound_ms = 1e3 * max(fwd_bytes / HBM_BYTES_PER_S,
                                      fwd_flops / F32_FLOPS)
@@ -970,7 +1027,7 @@ def phase_bwd_kernel_vs_plain(batch, capacity, device):
                 if not (err <= KERNEL_RTOL * scale
                         and torch.isfinite(out).all()):
                     raise AssertionError(
-                        f"band_conv_bwd {name} L{level} {cin}->{cout} "
+                        f"band_conv_bwd K={k} {name} L{level} {cin}->{cout} "
                         f"{dtype}: max |err| {err:.3e} > {KERNEL_RTOL} x "
                         f"{scale:.3e}"
                     )
@@ -984,12 +1041,12 @@ def phase_bwd_kernel_vs_plain(batch, capacity, device):
             d_w_ms = cuda_ms(lambda: band_conv_dw_padded(
                 plan.rb_tiles, plan.starts, grad, feats, m, plan.win), 20)
             plain_ms = cuda_ms(lambda: band_conv_bwd_padded_plain(*args), 3)
-            # each input read once (rulebook, anchors, gradient, features,
-            # filters), each output written once (d_feats, d_w)
-            nbytes = (mp * 27 * 4 + 9 * plan.rb_tiles.shape[0] * 4
-                      + mp * (cin + cout) * grad.element_size()
-                      + 27 * cin * cout * 4 + mp * cin * 4
-                      + 27 * cin * cout * 4)
+            # each input read once (rulebook, anchors, the gradient rows
+            # and feature rows the kernels read, filters), each output
+            # written once (d_feats, d_w)
+            nbytes = (plan_bytes + rows_named * cout * elem
+                      + rows_owning * cin * elem + k * cin * cout * 4
+                      + mp * cin * 4 + k * cin * cout * 4)
             # d_feats and d_w: one multiply-add per entry and channel pair
             # each. d_feats multiplies by f32 weights (f32 rate); d_w
             # multiplies features by the output gradient, both bf16 in
@@ -1005,18 +1062,22 @@ def phase_bwd_kernel_vs_plain(batch, capacity, device):
                                                       DW_TC[str(dtype)])
             tc = tc_bound(nbytes, flops, (1.0, f_passes / f_rate
                                           + w_passes / w_rate))
-            key = (level, cin, cout, str(dtype))
-            row = dict(level=level, cin=cin, cout=cout, dtype=str(dtype),
-                       m=m, nnz=nnz, launches_per_step=count,
+            # the SIMT kernels' historical times exist for K = 27 only
+            key = (level, cin, cout, str(dtype)) if k == 27 else None
+            row = dict(k=k, level=level, cin=cin, cout=cout,
+                       dtype=str(dtype), m=m, nnz=nnz,
+                       gradient_rows_read=rows_named,
+                       feature_rows_read=rows_owning,
+                       launches_per_step=count,
                        err_d_feats=errs["d_feats"], err_d_w=errs["d_w"],
                        repeats_bit_for_bit=repeats,
                        ms=ms, d_feats_ms=d_feats_ms, d_w_ms=d_w_ms,
                        simt_historical_ms=SIMT_HISTORICAL_MS.get(
-                           ("bwd",) + key),
+                           key and ("bwd",) + key),
                        simt_historical_d_feats_ms=SIMT_HISTORICAL_MS.get(
-                           ("bwd_d_feats",) + key),
+                           key and ("bwd_d_feats",) + key),
                        simt_historical_fwd_ms=SIMT_HISTORICAL_MS.get(
-                           ("train_fwd",) + key),
+                           key and ("train_fwd",) + key),
                        fwd_ms=fwd_ms, fwd_bound_ms=fwd_bound_ms,
                        fwd_bound_tc_ms=fwd_tc["bound_tc_ms"],
                        plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1041,6 +1102,8 @@ def phase_bwd_kernel_vs_plain(batch, capacity, device):
         "route": "cuda",
         "source": "treemorph_tpu_torch/csrc/band_conv_bwd.cu",
         "replaces": "treemorph_tpu/ops/bandconv.py:244",
+        "k": k,
+        "plans_ok": [bool(p.ok) for p in plans],
         "shape": shape,
         "max_abs_err": worst,
         "max_err_over_scale": worst_rel,
@@ -1061,8 +1124,9 @@ def phase_bwd_kernel_vs_plain(batch, capacity, device):
                 "band_backward_ms_per_step": totals["ms"],
                 "band_backward_d_feats_ms_per_step": totals["d_feats_ms"],
                 "band_backward_d_w_ms_per_step": totals["d_w_ms"]}
-    log(f"phase 5 ok: band_conv_bwd within {KERNEL_RTOL} x scale of plain "
-        f"at {len(rows)} shape/type cases (worst {worst_rel:.2e} of scale; "
+    log(f"phase 5 ok, K = {k}: band_conv_bwd within {KERNEL_RTOL} x scale "
+        f"of plain at {len(rows)} shape/type cases (worst {worst_rel:.2e} "
+        f"of scale; "
         f"a second call bit-identical in "
         f"{sum(r['repeats_bit_for_bit'] for r in rows)}); "
         f"one step's {BWD_PER_STEP} calls (bf16): {totals['ms']:.3f} ms "
@@ -1077,7 +1141,7 @@ def phase_bwd_kernel_vs_plain(batch, capacity, device):
     return record, per_step
 
 
-def one_train_step(batch, engine, conv_dtype, device):
+def one_train_step(batch, engine, conv_dtype, device, kernel_size=3):
     """Loss and parameter gradients (clipped as the step clips them) of one
     ``make_train_step`` of the training model on ``batch``, on ``device``;
     ``conv_dtype="float64"`` runs the whole model in float64."""
@@ -1085,8 +1149,8 @@ def one_train_step(batch, engine, conv_dtype, device):
 
     from treemorph_tpu_torch.train import families, harness
 
-    model = training_model(None, batch.batch_size, engine,
-                           conv_dtype).to(device)
+    model = training_model(None, batch.batch_size, engine, conv_dtype,
+                           kernel_size).to(device)
     if conv_dtype == "float64":
         model = model.to(torch.float64)
     forward_fn, loss_fn = families.treelearn_family()
@@ -1793,11 +1857,15 @@ def profile_forward(predictor, cloud, top=10):
                           "PTv3 forward", top)
 
 
-def profile_device(fn, label, top=10):
+def profile_device(fn, label, top=10, ranges=()):
     """One call of ``fn`` under ``torch.profiler``: the wall seconds (host
     clock, synchronized), the summed device time of the kernels (the
     device's busy share), and the operators and kernels that take the most
-    device time."""
+    device time; for each name of ``ranges`` (``record_function`` scopes
+    the call opens), its span on the device's timeline (its kernels and
+    the gaps between them; the profiler records a scope as a device-side
+    annotation, which is not a kernel and is left out of the busy time)
+    and that span's share of the wall time."""
     import re
 
     import torch
@@ -1814,7 +1882,8 @@ def profile_device(fn, label, top=10):
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     rows = prof.key_averages()
-    kernels = [e for e in rows if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in rows if e.device_type == DeviceType.CUDA
+               and e.key not in ranges]
     ops = [e for e in rows if e.device_type == DeviceType.CPU]
     busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
 
@@ -1833,6 +1902,13 @@ def profile_device(fn, label, top=10):
               "top_ops_device_ms": table(ops),
               "top_kernels_device_ms": table(kernels),
               "hand_kernels_device_ms": table(hand)}
+    if ranges:
+        spans = {e.key: e.self_device_time_total / 1e6 for e in rows
+                 if e.device_type == DeviceType.CUDA and e.key in ranges}
+        record["ranges_device_span_ms"] = {
+            name: 1e3 * spans.get(name, 0.0) for name in ranges}
+        record["ranges_wall_share"] = {
+            name: spans.get(name, 0.0) / wall_s for name in ranges}
     log(f"{label} profile: " + json.dumps(record))
     return record
 
@@ -2870,10 +2946,8 @@ def phase_bench_kernels(cloud, device):
     import torch
 
     from treemorph_tpu_torch.ops.bandconv import (
-        TILE,
         band_conv_padded,
         band_conv_padded_plain,
-        in_window,
     )
 
     offset_model, _ = ptv3_bench_models(device)
@@ -2890,8 +2964,7 @@ def phase_bench_kernels(cloud, device):
               for k in (27, 125)}
     for (k, mp, cin, cout), (args, count) in sorted(captured.items()):
         rb_tiles, starts, feats, w, m, win = args
-        _, ok = in_window(rb_tiles, starts, m, win)
-        nnz = int(ok.sum())
+        nnz, rows_named, _ = window_counts(rb_tiles, starts, m, win)
         live = (torch.arange(mp, device=device) < m)[:, None]
         random_f32 = torch.randn((mp, cin), device=device,
                                  generator=gen) * live
@@ -2908,17 +2981,18 @@ def phase_bench_kernels(cloud, device):
             ms = cuda_ms(lambda: band_conv_padded(*call), 20)
             plain_ms = cuda_ms(lambda: band_conv_padded_plain(*call), 5)
             # each input read once (the tiled rulebook, the anchors, the
-            # features, the weights), the f32 output written once; the
-            # in-window entries' multiply-adds
+            # feature rows in-window entries name, the weights), the f32
+            # output written once; the in-window entries' multiply-adds
             nbytes = (rb_tiles.numel() * 4 + starts.numel() * 4
-                      + mp * cin * call[2].element_size()
+                      + rows_named * cin * call[2].element_size()
                       + k * cin * cout * 4 + mp * cout * 4)
             flops = 2.0 * nnz * cin * cout
             bound_ms, bound_by = bound(nbytes, flops)
             row = dict(k=k, rows=mp, m=m, cin=cin, cout=cout,
                        dtype=str(dtype), inputs="main path" if dtype ==
                        torch.bfloat16 else "random", calls_per_forward=count,
-                       in_window_entries=nnz, max_abs_err=err,
+                       in_window_entries=nnz, rows_read=rows_named,
+                       max_abs_err=err,
                        output_scale=scale, repeats_bit_for_bit=repeats,
                        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=bound_by,
@@ -3190,6 +3264,261 @@ def phase_bench_end_to_end(cloud, device, reps=3):
     log("phase 11c ok")
 
 
+def phase_k5_train_step(batch, capacity, device, plans_ok):
+    """6d: ``TreeLearn(kernel_size=5, engine="band")`` training, every conv
+    5x5x5 (K = 125). One f32 train step on a 2-tree cut, band engine
+    against gather engine on the card (held as 6a holds K = 27), both
+    logged against the same step in float64 on the CPU; the bf16 band step
+    card against CPU; then full-width bf16 steps on the 30-tree batch,
+    launches counted on one: ``band_conv_bwd`` once per conv whose
+    features need a gradient and the K = 125 forward kernel once per
+    forward conv and per ``d_feats``, on the levels whose plan is ``ok``
+    (``plans_ok``, phase 5 at K = 125). Returns the step's launches."""
+    import torch
+
+    from treemorph_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from treemorph_tpu_torch.train import families, harness
+
+    cut = batch.map(lambda a: a[:2])
+    compare_engine_steps(
+        one_train_step(cut, "band", "float32", device, 5),
+        one_train_step(cut, "gather", "float32", device, 5),
+        one_train_step(cut, "gather", "float64", "cpu", 5))
+    compare_steps("K = 125 train step, card vs CPU, bf16 band engine",
+                  one_train_step(cut, "band", "bfloat16", device, 5),
+                  one_train_step(cut, "band", "bfloat16", "cpu", 5),
+                  STEP_LOSS_RTOL, STEP_GRAD_RTOL)
+
+    model = training_model(capacity, TRAIN_TREES, kernel_size=5).to(device)
+    state = harness.TrainState(model, harness.make_optimizer(model))
+    step = harness.make_train_step(*families.treelearn_family())
+    torch.cuda.reset_peak_memory_stats(device)
+    seconds = []
+    for _ in range(2):  # the second step is timed without first-call costs
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch, 1e-2)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        if not torch.isfinite(torch.as_tensor(metrics["loss"])):
+            raise AssertionError("K = 125 step: non-finite loss")
+    launches = dict(LAUNCHES)
+    want_bwd = sum(count for level, cin, _, count in LEVEL_CONVS
+                   if cin != 7 and plans_ok[level])
+    want_fwd = want_bwd + sum(count for level, _, _, count in LEVEL_CONVS
+                              if plans_ok[level])
+    record = {"k5_train_step_seconds": seconds[1],
+              "k5_train_first_step_seconds": seconds[0],
+              "k5_train_peak_memory_gb":
+                  torch.cuda.max_memory_allocated(device) / 1e9,
+              "k5_plans_ok": plans_ok, "k5_launches_per_step": launches,
+              "k5_expected_band_conv_bwd": want_bwd,
+              "k5_expected_band_conv_k125": want_fwd}
+    log(json.dumps(record))
+    if not (launches.get("band_conv_bwd") == want_bwd > 0
+            and launches.get("band_conv_k125") == want_fwd
+            and not launches.get("band_conv_k27")):
+        raise AssertionError("K = 125 step: launches differ from the plans")
+    log("phase 6d ok")
+    return launches
+
+
+#: PointNet2, the pipeline's third family: 12a compares two rasters of the
+#: plot, each cut to this many points, card against CPU (f32 throughout:
+#: the MLPs' matmuls sum in another order on the card; sampling rounds
+#: alike on both)
+PN2_CHECK_POINTS = 4096
+PN2_OFFSET_RTOL = 1e-3
+PN2_ARGMAX_AGREEMENT = 0.999
+
+
+def pointnet2_models(device):
+    """Offset and noise predictors of the pipeline's PointNet2 (depth 5,
+    seeded weights); as in :func:`pipeline_models`, the noise model's
+    semantic head prefers class 0 (keep)."""
+    import copy
+
+    import torch
+
+    from treemorph_tpu_torch.evaluation.model_loaders import (
+        Predictor,
+        build_model,
+    )
+
+    model = build_model("pointnet2", device=device, seed=0)
+    noise = copy.deepcopy(model)
+    with torch.no_grad():
+        noise.semantic_head.Dense_1.bias.copy_(torch.tensor([5.0, -5.0]))
+    return (Predictor("pointnet2", model, device),
+            Predictor("pointnet2", noise, device))
+
+
+class _SamplingRecorder:
+    """Swaps PointNet2's sampling functions for ones that keep a CPU copy
+    of every index tensor they return, in call order."""
+
+    names = ("bucketed_farthest_point_sample", "query_ball_point")
+
+    def __enter__(self):
+        from treemorph_tpu_torch.models import pointnet2
+
+        self.module, self.saved = pointnet2, {}
+        self.seen = {name: [] for name in self.names}
+        for name in self.names:
+            fn = self.saved[name] = getattr(pointnet2, name)
+            setattr(pointnet2, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def recorded(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            self.seen[name].append(out.cpu())
+            return out
+        return recorded
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+
+def phase_pointnet2_card_vs_cpu(points, device):
+    """12a: the pipeline's PointNet2 (depth 5, seeded) on two rasters of the
+    plot cut to PN2_CHECK_POINTS points, card against CPU: offsets within
+    PN2_OFFSET_RTOL of their scale, the semantic argmax agreeing on
+    PN2_ARGMAX_AGREEMENT of the points; the shares of identical FPS and
+    ball-query indices are reported."""
+    import numpy as np
+    import torch
+
+    from treemorph_tpu_torch.pipeline.predict import raster_assignments
+
+    idx = [i for _, i in raster_assignments(points, 1.0, 1.0)
+           if len(i) >= PN2_CHECK_POINTS][:2]
+    coords = np.stack([points[i[:PN2_CHECK_POINTS], :3]
+                       for i in idx]).astype(np.float32)
+    feats = np.zeros((*coords.shape[:2], 4), np.float32)
+    valid = np.ones(coords.shape[:2], bool)
+    outs, seen = [], []
+    for dev in (device, "cpu"):
+        model, _ = pointnet2_models(dev)
+        with _SamplingRecorder() as rec:
+            res = model.predict_padded(coords, feats, valid)
+        outs.append({k: v.float().cpu().numpy() for k, v in res.items()})
+        seen.append(rec.seen)
+    card, cpu = outs
+    err, scale = within_scale(
+        "12a PointNet2 offsets, card vs cpu",
+        torch.from_numpy(card["offset_predictions"]),
+        torch.from_numpy(cpu["offset_predictions"]), PN2_OFFSET_RTOL)
+    agree = float((card["semantic_prediction_logits"].argmax(-1)
+                   == cpu["semantic_prediction_logits"].argmax(-1)).mean())
+    shares = {}
+    for name in _SamplingRecorder.names:
+        pairs = list(zip(seen[0][name], seen[1][name]))
+        same = sum(int((a == b).sum()) for a, b in pairs)
+        shares[name] = same / sum(a.numel() for a, _ in pairs)
+    record = {"pn2_check_shape": list(coords.shape),
+              "pn2_offset_err": err, "pn2_offset_scale": scale,
+              "pn2_argmax_agreement": agree,
+              "pn2_identical_index_share": shares}
+    log(json.dumps(record))
+    if agree < PN2_ARGMAX_AGREEMENT:
+        raise AssertionError(f"12a: argmax agreement {agree:.5f}")
+    log("phase 12a ok")
+    return record
+
+
+def raster_minibatch(points):
+    """The first minibatch ``predict_rasterized`` builds for the plot:
+    (coords, feats, valid) numpy arrays of (60, max_pts) points, the
+    rasters' count and max_pts."""
+    import numpy as np
+
+    from treemorph_tpu_torch.pipeline.predict import (
+        pad_to_bucket,
+        raster_assignments,
+    )
+
+    rasters = raster_assignments(points, 1.0, 1.0)
+    max_pts = pad_to_bucket(max(len(i) for _, i in rasters), 512)
+    coords = np.zeros((60, max_pts, 3), np.float32)
+    valid = np.zeros((60, max_pts), bool)
+    for i, (_, idx) in enumerate(rasters[:60]):
+        coords[i, :len(idx)] = points[idx, :3]
+        valid[i, :len(idx)] = True
+    log(f"plot rasters: {len(rasters)} (1 m, stride 1 m), points "
+        f"{min(len(i) for _, i in rasters)}..{max(len(i) for _, i in rasters)}"
+        f", padded to {max_pts}; valid share of a (60, {max_pts}) minibatch "
+        f"{valid.mean():.4f}")
+    return (coords, np.zeros((60, max_pts, 4), np.float32), valid,
+            len(rasters), max_pts)
+
+
+def phase_pointnet2_end_to_end(points, device):
+    """12b: the plot through ``run_pipeline`` with the pointnet2 family,
+    then stage by stage, with peak device memory; 12c: exact FPS at the
+    first set abstraction's shape timed with CUDA events, and one
+    minibatch forward under ``torch.profiler`` with the spans on the
+    device of FPS, the ball queries, the 3-NN interpolations, the MLPs
+    and the heads."""
+    import torch
+    from torch.profiler import record_function
+
+    from treemorph_tpu_torch.models import pointnet2
+    from treemorph_tpu_torch.models.pointnet2 import SA_CONFIGS
+    from treemorph_tpu_torch.ops.sampling import farthest_point_sample
+
+    models = pointnet2_models(device)
+    _, record = plot_end_to_end(points, "pointnet2", models, device, None, 0)
+    log("phase 12b ok")
+
+    coords, feats, valid, n_rasters, max_pts = raster_minibatch(points)
+    xyz = torch.from_numpy(coords).to(device)
+    mask = torch.from_numpy(valid).to(device)
+    npoint = SA_CONFIGS[5][0][0]
+    fps_ms = cuda_ms(lambda: farthest_point_sample(xyz, mask, npoint), 5)
+    models[0].predict_padded(coords, feats, valid)  # warm-up
+    scopes = {"fps": "bucketed_farthest_point_sample",
+              "ball query": "query_ball_point",
+              "3-NN interpolation": "three_nn_interpolate"}
+    classes = {"MLPs": pointnet2.PointwiseMLP, "heads": pointnet2.Head}
+    saved = ({a: getattr(pointnet2, a) for a in scopes.values()},
+             {c: c.forward for c in classes.values()})
+
+    def scoped(label, fn):
+        def run(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return run
+
+    try:
+        for label, attr in scopes.items():
+            setattr(pointnet2, attr, scoped(label, getattr(pointnet2, attr)))
+        for label, cls in classes.items():
+            cls.forward = scoped(label, cls.forward)
+        torch.cuda.reset_peak_memory_stats(device)
+        profile = profile_device(
+            lambda: models[0].predict_padded(coords, feats, valid),
+            "PointNet2 minibatch forward",
+            ranges=(*scopes, *classes))
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    finally:
+        for attr, fn in saved[0].items():
+            setattr(pointnet2, attr, fn)
+        for cls, fn in saved[1].items():
+            cls.forward = fn
+    record.update(pn2_rasters=n_rasters, pn2_max_points=max_pts,
+                  pn2_fps_ms=fps_ms, pn2_fps_shape=[60, max_pts, npoint],
+                  pn2_minibatch_forward_seconds=profile["seconds"],
+                  pn2_minibatch_peak_memory_gb=peak_gb,
+                  pn2_minibatch_profile=profile)
+    log(json.dumps({k: v for k, v in record.items()
+                    if k != "pn2_minibatch_profile"}))
+    log("phase 12c ok")
+    return record
+
+
 def pipeline_config(input_dir: str, output_dir: str,
                     model_type: str = "treelearn") -> dict:
     """``configs/pipeline_config.yaml`` as a dict (no YAML parser needed),
@@ -3263,11 +3592,22 @@ def main() -> int:
             f"level-0 voxel capacity {capacity}")
         bwd_record, per_step = phase_bwd_kernel_vs_plain(batch, capacity,
                                                          device)
+        bwd125_record, per_step125 = phase_bwd_kernel_vs_plain(
+            batch, capacity, device, kernel_size=5)
         phase_train_step_checks(batch, capacity, device)
         bwd_launches, cli_record = phase_training_cli(root, device)
         split = phase_step_split(batch, capacity, device)
+        k5_launches = phase_k5_train_step(batch, capacity, device,
+                                          bwd125_record["plans_ok"])
         del batch
         log(json.dumps({**per_step, **split, **cli_record}))
+        log(json.dumps({"k125": per_step125}))
+        bwd_record["k125"] = {
+            **{k: v for k, v in bwd125_record.items()
+               if k not in ("name", "route", "source", "replaces")},
+            "launches": k5_launches["band_conv_bwd"],
+            "forward_kernel_launches_k125": k5_launches["band_conv_k125"],
+            "launches_counted_on": "TreeLearn(kernel_size=5) train step"}
         cloud = ptv3_cloud(points)
         attn_record, _ = phase_attention_vs_plain(cloud, device)
         phase_ptv3_card_vs_cpu(cloud, device)
@@ -3297,6 +3637,8 @@ def main() -> int:
     bench_launches = phase_bench_card_vs_cpu(bench_cloud, device)
     del bench_cloud
     phase_bench_end_to_end(ptv3_cloud(points), device)
+    phase_pointnet2_card_vs_cpu(points, device)
+    phase_pointnet2_end_to_end(points, device)
     path = "ptv3 bench serving (predict_single on the bench tree)"
     fwd_record["k125"] = {
         **bench_records[125], "launches": bench_launches[125],

@@ -121,22 +121,6 @@ def test_plain_band_kernel_matches_pallas_kernel_k5(dtype):
                                   out_t.numpy())
 
 
-def test_backward_wrappers_refuse_k5():
-    """No backward kernel takes K = 125 (PTv3's stem needs no feature
-    gradient): both wrappers refuse it on any device, with the reason."""
-    rb, valid = level(4, n=600, kernel_size=5)
-    plan = tband.build_band_plan(t(rb), t(valid))
-    mp = plan.rb_tiles.shape[0] * tband.TILE
-    feats, grad = torch.zeros((mp, 4)), torch.zeros((mp, 32))
-    w_bwd = torch.zeros((125, 32, 4))
-    with pytest.raises(ValueError, match="K = 27.*not K = 125"):
-        tband.band_conv_bwd_padded(plan.rb_tiles, plan.starts, grad, feats,
-                                   w_bwd, len(rb), plan.win)
-    with pytest.raises(ValueError, match="K = 27.*not K = 125"):
-        tband.band_conv_dw_padded(plan.rb_tiles, plan.starts, grad, feats,
-                                  len(rb), plan.win)
-
-
 def test_band_subm_conv_matches_jax():
     """Kernel part plus residual repair, bf16; a 192-row window, smaller
     than the default, pushes entries of some 50 rows through the repair

@@ -45,10 +45,10 @@ def jax_plan(plan):
     )
 
 
-def operands(m, cin, cout, seed):
+def operands(m, cin, cout, seed, k=27):
     rng = np.random.default_rng(seed)
     feats = rng.normal(size=(m, cin)).astype(np.float32)
-    w = (rng.normal(size=(27, cin, cout)) / np.sqrt(27 * cin)).astype(
+    w = (rng.normal(size=(k, cin, cout)) / np.sqrt(k * cin)).astype(
         np.float32
     )
     g = rng.normal(size=(m, cout)).astype(np.float32)
@@ -117,6 +117,34 @@ def test_bf16_backward_matches_jax_band_vjp(repaired_level):
     for got, want in ((df_t, df_j), (dw_t, dw_j)):
         want = np.asarray(want)
         scale = np.abs(want).max()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
+
+
+def test_bf16_backward_matches_jax_band_vjp_k5():
+    """At 5x5x5 (K = 125, 25 groups of 5 dz offsets; 600 points, 8 -> 16
+    channels), the backward rule of JAX's band VJP against the port's band
+    backward, as at K = 27 above: JAX runs the fused Pallas backward kernel
+    in interpret mode (its VMEM gate holds at this shape, so it takes the
+    band path, not its gather fallback), the port the plain versions of
+    its kernels. Both round the gradient and the features to bf16 and
+    multiply by f32 weights in f32: sum order only (1e-5 of the scale)."""
+    rb, valid = level(4, n=600, kernel_size=5)
+    plan = tband.build_band_plan(t(rb), t(valid))
+    assert bool(plan.ok) and plan.rb_tiles.shape[1] == 125
+    pj = jax_plan(plan)
+    cin, cout = 8, 16
+    assert (jband.band_vmem_bytes(125, cin, cout, 1, plan.win)
+            + 125 * cin * jband.block_rows(cout) * cout * 4) <= 12 * 2**20
+    feats, w, g = operands(len(rb), cin, cout, 6, k=125)
+    saved = (pj.ok, pj.rulebook, pj.rb_tiles, pj.starts, pj.res_rows,
+             pj.res_rb, pj.res_valid, pj.wmark, jnp.asarray(feats),
+             jnp.asarray(w), jnp.asarray(valid))
+    grads_j = jband._band_conv_bwd(1, True, saved, jnp.asarray(g))
+    _, df_t, dw_t = port_grads(feats, w, g, plan, valid, torch.bfloat16)
+    for got, want in ((df_t, grads_j[8]), (dw_t, grads_j[9])):
+        want = np.asarray(want)
+        scale = np.abs(want).max()
+        assert scale > 0.1  # real sums, not zeros
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
 
 
@@ -205,19 +233,22 @@ def test_backward_wrapper_raises_on_devices_it_cannot_launch_for():
 
 def emulate_band_dw(rb, feats, grad, mode, passes=3, fresh=True):
     """``csrc/band_conv_bwd.cu``'s arithmetic in numpy for a 32 x 32 slice
-    over the tiles of ``rb`` (T, 27, 128): for offset k, ``F^T G_k`` over
+    over the tiles of ``rb`` (T, K, 128): for offset k, ``F^T G_k`` over
     the rows in k-steps of 16 (bf16: one pass) or 8 (f32: lo*hi + hi*lo +
     hi*hi, or hi*hi alone with ``passes=1``) rows, summed one mma at a time
     (each sum rounded toward zero, ``mma_sum``) into a fresh f32 fragment
     per stage (a tile's 128 rows in bf16 mode, 64 in f32 mode), each
     stage's fragment Kahan-added to the running sums. ``fresh=False``
-    chains every mma of an offset into one fragment instead. Returns d_w
-    (27, Cin, Cout) in the weights' offset order."""
+    chains every mma of an offset into one fragment instead. Each offset's
+    sums are a warp's own, whichever offsets share its block, so the
+    arithmetic is the same at K = 27 and 125. Returns d_w (K, Cin, Cout) in
+    the weights' offset order."""
     from test_torch_bricks import split_tf32
 
     step, stage = (16, 128) if mode == "bf16" else (8, 64)
-    d_w = np.zeros((27, feats.shape[1], grad.shape[1]), np.float32)
-    for k in range(27):
+    n_k = rb.shape[1]
+    d_w = np.zeros((n_k, feats.shape[1], grad.shape[1]), np.float32)
+    for k in range(n_k):
         g_k = gathered(rb, grad, k)
         total = np.zeros(d_w.shape[1:], np.float32)
         comp = np.zeros_like(total)
@@ -241,7 +272,7 @@ def emulate_band_dw(rb, feats, grad, mode, passes=3, fresh=True):
                 t_ = total + y
                 comp = (t_ - total) - y
                 total = t_
-        d_w[26 - k] = total - comp if fresh else part
+        d_w[n_k - 1 - k] = total - comp if fresh else part
     return d_w
 
 
@@ -264,22 +295,25 @@ def cancelling_tiles(tiles, mode, seed):
     return rb, feats, grad, ref
 
 
-@pytest.mark.parametrize("mode", ["bf16", "f32"])
-def test_weight_gradient_kernel_precision(mode):
+@pytest.mark.parametrize(
+    "mode,k", [("bf16", 27), ("f32", 27), ("bf16", 125), ("f32", 125)],
+    ids=["bf16", "f32", "bf16-k125", "f32-k125"])
+def test_weight_gradient_kernel_precision(mode, k):
     """The weight-gradient kernel's precision decision at 32 -> 32 on one
     tile, with a gradient whose terms cancel (zero mean over the rows, as a
-    BatchNorm's backward leaves it): bf16 x bf16 in one pass (exact
-    products) and 3xTF32 in f32 mode land within 1e-6 of the scale of
-    float64; one TF32 pass of f32 operands misses 1e-5."""
-    rb, feats, _ = one_tile(11, 32, 32, mode == "bf16")
+    BatchNorm's backward leaves it), at 3x3x3 and 5x5x5 kernels: bf16 x
+    bf16 in one pass (exact products) and 3xTF32 in f32 mode land within
+    1e-6 of the scale of float64; one TF32 pass of f32 operands misses
+    1e-5."""
+    rb, feats, _ = one_tile(11, 32, 32, mode == "bf16", k)
     rng = np.random.default_rng(12)
     grad = rng.normal(size=(128, 32)).astype(np.float32)
     grad -= grad.mean(axis=0)
     if mode == "bf16":
         grad = bf16_round(grad)
     ref = np.stack([feats.astype(np.float64).T
-                    @ gathered(rb, grad.astype(np.float64), 26 - k)
-                    for k in range(27)])
+                    @ gathered(rb, grad.astype(np.float64), k - 1 - j)
+                    for j in range(k)])
     scale = np.abs(ref).max()
     assert np.abs(emulate_band_dw(rb, feats, grad, mode) - ref).max() \
         <= 1e-6 * scale

@@ -49,17 +49,22 @@ from test_torch_ops import (  # noqa: F401
 )
 from test_torch_treelearn import SMALL, jax_model_and_variables
 
-#: parameter entries whose gradient is zero but for rounding, in both
-#: packages, because a BatchNorm that follows removes any constant shift:
-#: each head's hidden Dense bias, and the stem's center-offset filter rows
-#: on the three constant voxel-feature channels (every voxel is its own
-#: center neighbor). Adam's first update of them, g / (|g| + 1e-8), is
-#: rounding noise
-ZERO_GRAD = {
-    "semantic_head.Dense_0.bias": np.s_[:],
-    "offset_head.Dense_0.bias": np.s_[:],
-    "backbone.input_conv.kernel": np.s_[13, SMALL["dim_feat"]:, :],
-}
+def zero_grad(kernel_size=3):
+    """Parameter entries whose gradient is zero but for rounding, in both
+    packages, because a BatchNorm that follows removes any constant shift:
+    each head's hidden Dense bias, and the stem's center-offset filter rows
+    (offset K // 2) on the three constant voxel-feature channels (every
+    voxel is its own center neighbor). Adam's first update of them,
+    g / (|g| + 1e-8), is rounding noise."""
+    return {
+        "semantic_head.Dense_0.bias": np.s_[:],
+        "offset_head.Dense_0.bias": np.s_[:],
+        "backbone.input_conv.kernel": np.s_[kernel_size ** 3 // 2,
+                                            SMALL["dim_feat"]:, :],
+    }
+
+
+ZERO_GRAD = zero_grad()
 
 
 def labeled_cloud(seed, n):
@@ -139,15 +144,15 @@ def jax_train_step(jmodel, variables, batch, lr):
     return jax.device_get(out)
 
 
-def assert_grads_match(grads, want_grads):
-    """Every gradient leaf to 1e-5 of its own scale; the ZERO_GRAD entries
+def assert_grads_match(grads, want_grads, zero_entries=ZERO_GRAD):
+    """Every gradient leaf to 1e-5 of its own scale; the ``zero_entries``
     below 1e-6 of the largest gradient."""
     assert set(grads) == set(want_grads)
     top = max(np.abs(g).max() for g in want_grads.values())
     for name, want in want_grads.items():
         got, want = grads[name], want.numpy()
-        if name in ZERO_GRAD:
-            zero = ZERO_GRAD[name]
+        if name in zero_entries:
+            zero = zero_entries[name]
             assert np.abs(got[zero]).max() <= 1e-6 * top, name
             assert np.abs(want[zero]).max() <= 1e-6 * top, name
             got, want = got.copy(), want.copy()
@@ -157,7 +162,7 @@ def assert_grads_match(grads, want_grads):
                                    err_msg=name)
 
 
-def test_train_step_matches_jax(monkeypatch):
+def check_train_step(monkeypatch, kernel_size, slack_share=1e-2):
     """One ``make_train_step`` of the port's band engine against the JAX
     gather engine's step (f32, channels 8, two levels, 2 x 512 points):
     the loss terms to 1e-5; every parameter gradient, taken before the
@@ -169,10 +174,12 @@ def test_train_step_matches_jax(monkeypatch):
     loss and gradients. Adam's first step moves an entry by
     lr * g / (|g| + eps) (g clipped), insensitive to g unless |g| is near
     eps = 1e-8, where a gradient error dg moves it by up to
-    lr * eps * dg / (|g| + eps)^2 more; that slack matters for at most 1 %
-    of the entries. The entries whose gradient is zero but for rounding
-    (ZERO_GRAD) are held below 1e-6 of the largest gradient."""
-    jmodel, variables = jax_model_and_variables("gather", "float32")
+    lr * eps * dg / (|g| + eps)^2 more; that slack matters for at most
+    ``slack_share`` of the entries (None: not bounded). The entries whose gradient is zero but for rounding
+    (:func:`zero_grad`) are held below 1e-6 of the largest gradient."""
+    zero_entries = zero_grad(kernel_size)
+    jmodel, variables = jax_model_and_variables("gather", "float32",
+                                                kernel_size=kernel_size)
     jmodel = jmodel.clone(batch_size=2)
     batch = padded_batch([3, 4], 512)
     lr, eps = 1e-2, 1e-8
@@ -181,8 +188,9 @@ def test_train_step_matches_jax(monkeypatch):
     grads_j = flax_to_state_dict({"params": grads_j})
     after_j = flax_to_state_dict(after_j)
 
+    small = dict(SMALL, kernel_size=kernel_size)
     model = TreeLearn(engine="band", conv_dtype="float32", batch_size=2,
-                      **SMALL)
+                      **small)
     model.load_state_dict(flax_to_state_dict(variables), strict=True)
     grads = {}
     clip_and_step = harness.optimizer_step
@@ -200,10 +208,10 @@ def test_train_step_matches_jax(monkeypatch):
     for key in ("loss", "semantic_loss", "offset_loss"):
         np.testing.assert_allclose(float(metrics_t[key]),
                                    float(metrics_j[key]), rtol=1e-5)
-    assert_grads_match(grads, grads_j)
+    assert_grads_match(grads, grads_j, zero_entries)
 
     ref = TreeLearn(engine="gather", conv_dtype="float64", batch_size=2,
-                    **SMALL)
+                    **small)
     ref.load_state_dict(flax_to_state_dict(variables), strict=True)
     ref = ref.to(torch.float64)
     forward_fn, loss_fn = families.treelearn_family()
@@ -214,7 +222,7 @@ def test_train_step_matches_jax(monkeypatch):
     np.testing.assert_allclose(float(loss.detach()),
                                float(metrics_j["loss"]), rtol=1e-5)
     assert_grads_match({n: p.grad.numpy() for n, p in ref.named_parameters()},
-                       grads_j)
+                       grads_j, zero_entries)
     norm = np.sqrt(sum(np.sum(g.astype(np.float64) ** 2)
                        for g in grads.values()))
     clip = min(1.0, harness.GRAD_CLIP_NORM / norm)
@@ -227,19 +235,39 @@ def test_train_step_matches_jax(monkeypatch):
             g = np.abs(grads[name]) * clip
             dg = 1e-5 * g.max()
             slack = np.minimum(lr * eps * dg / (g + eps) ** 2, 2 * lr)
-            if name in ZERO_GRAD:  # rounding noise: outside the budget
-                slack[ZERO_GRAD[name]] = 0.0
+            if name in zero_entries:  # rounding noise: outside the budget
+                slack[zero_entries[name]] = 0.0
             slack_entries += int((slack > atol).sum())
             total += g.size
-            if name in ZERO_GRAD:  # Adam moves them by at most lr
-                slack[ZERO_GRAD[name]] = 2 * lr
+            if name in zero_entries:  # Adam moves them by at most lr
+                slack[zero_entries[name]] = 2 * lr
             atol = atol + slack
         assert (np.abs(got - want) <= atol).all(), name
-    assert 0 < total and slack_entries <= 1e-2 * total, slack_entries
+    assert 0 < total
+    if slack_share is not None:
+        assert slack_entries <= slack_share * total, slack_entries
     moved = after_t["backbone.input_conv.kernel"] - torch.from_numpy(
         np.asarray(variables["params"]["backbone"]["input_conv"]["kernel"])
     )
     assert float(moved.abs().max()) > 0.5 * lr  # the step really moved
+
+
+def test_train_step_matches_jax(monkeypatch):
+    """3x3x3 convs (K = 27), as the pipeline's TreeLearn."""
+    check_train_step(monkeypatch, 3)
+
+
+def test_train_step_matches_jax_k5(monkeypatch):
+    """``TreeLearn(kernel_size=5, engine="band")``: every conv 5x5x5 (K =
+    125), so the port's backward runs the K = 125 band backward (its plain
+    versions on the CPU) on every conv but the stem. The loss, every
+    gradient and the float64 reference are held as at K = 27. On 2 x 512
+    points most of a 5x5x5 filter's outer offsets find few neighbours, so
+    about a quarter of the filter entries have gradients near Adam's eps,
+    where the update is rounding-sensitive: each updated entry is still
+    held within its slack, but the share of entries that need it is not
+    bounded here (the K = 27 case bounds it at 1 %)."""
+    check_train_step(monkeypatch, 5, slack_share=None)
 
 
 @pytest.mark.parametrize("fixed", [(), ("offset_head",)])

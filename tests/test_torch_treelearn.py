@@ -29,17 +29,17 @@ SMALL = dict(channels=8, num_blocks=2, dim_feat=4, voxel_size=0.02,
              kernel_size=3)
 
 
-def make_jax_model(engine, conv_dtype, num_blocks):
+def make_jax_model(engine, conv_dtype, num_blocks, kernel_size=3):
     return jbuild("treelearn", engine=engine, conv_dtype=conv_dtype,
                   verify_coords=True, channels=SMALL["channels"],
-                  num_blocks=num_blocks)
+                  num_blocks=num_blocks, kernel_size=kernel_size)
 
 
 @functools.lru_cache(maxsize=None)
-def flax_layout(num_blocks):
+def flax_layout(num_blocks, kernel_size=3):
     """Shapes of the small model's flax variables (traced, not compiled;
     they do not depend on the engine)."""
-    model = make_jax_model("gather", "float32", num_blocks)
+    model = make_jax_model("gather", "float32", num_blocks, kernel_size)
     n = 256
     return jax.eval_shape(
         lambda key: model.init(
@@ -50,7 +50,7 @@ def flax_layout(num_blocks):
     )
 
 
-def flax_init(seed, num_blocks):
+def flax_init(seed, num_blocks, kernel_size=3):
     """Variables in flax's layout, drawn from numpy like flax's
     initializers: fan-in normals for conv kernels and shortcuts,
     Glorot-uniform hidden Dense kernels, N(0, 0.01) final Dense kernels,
@@ -78,14 +78,15 @@ def flax_init(seed, num_blocks):
             for k, v in tree.items()
         }
 
-    return walk(flax_layout(num_blocks))
+    return walk(flax_layout(num_blocks, kernel_size))
 
 
-def jax_model_and_variables(engine, conv_dtype, seed=0, num_blocks=2):
+def jax_model_and_variables(engine, conv_dtype, seed=0, num_blocks=2,
+                            kernel_size=3):
     """The JAX model and a fresh perturbed copy of its variables."""
     return (
-        make_jax_model(engine, conv_dtype, num_blocks),
-        perturb(flax_init(seed, num_blocks), seed),
+        make_jax_model(engine, conv_dtype, num_blocks, kernel_size),
+        perturb(flax_init(seed, num_blocks, kernel_size), seed),
     )
 
 

@@ -3,18 +3,19 @@
 //
 // Replaces treemorph_tpu/ops/bandconv.py::_band_bwd_kernel (the Pallas TPU
 // kernel behind _band_bwd_padded) together with the forward kernel of
-// band_conv.cu. The TPU kernel yields both cotangents from one one-hot pass;
-// here the wrapper (ops/bandconv.py::band_conv_bwd_padded) gets d_feats from
-// the forward kernel run on (grad, w_bwd), which is the same banded function
-// over the same plan, and this kernel computes the weight gradient: for every
+// band_conv.cu, at 3x3x3 (K = 27) and 5x5x5 (K = 125) kernels. The TPU
+// kernel yields both cotangents from one one-hot pass; here the wrapper
+// (ops/bandconv.py::band_conv_bwd_padded) gets d_feats from the forward
+// kernel run on (grad, w_bwd), which is the same banded function over the
+// same plan, and this kernel computes the weight gradient: for every
 // 128-row tile t, row i and offset k whose rulebook entry e = rb[t, k, i] is
 // found (e < m) and lies in the window [64 * starts[g(k), t], + win) of the
-// entry's (dx, dy) group g(k) = k / 3,
+// entry's (dx, dy) group g(k) = k / ksize,
 //
-//   dw[26 - k] += feats[t*128 + i] (outer) grad[e]
+//   dw[K - 1 - k] += feats[t*128 + i] (outer) grad[e]
 //
-// By the rulebook's antisymmetry (rb[i, k] == r  <=>  rb[r, 26 - k] == i)
-// this is the forward entry (e, 26 - k) contribution to dW, counted once
+// By the rulebook's antisymmetry (rb[i, k] == r  <=>  rb[r, K - 1 - k] == i)
+// this is the forward entry (e, K - 1 - k) contribution to dW, counted once
 // from the side of the row that owns it, as build_band_plan counts entries;
 // the found entries outside their window are added by the caller's residual
 // repair.
@@ -24,22 +25,31 @@
 // Cout 32..128) it is bound by arithmetic, and without tensor cores by FP32
 // FMA issue. The design:
 //
-// - For each tile and offset k, dw[26 - k] += F_t^T (Cin x 128) . G_k (128 x
-//   Cout), a GEMM whose k dimension is the tile's rows: F_t is the tile's
-//   own 128 contiguous feature rows, G_k its 128 rulebook rows of the
+// - For each tile and offset k, dw[K - 1 - k] += F_t^T (Cin x 128) . G_k
+//   (128 x Cout), a GEMM whose k dimension is the tile's rows: F_t is the
+//   tile's own 128 contiguous feature rows, G_k its 128 rulebook rows of the
 //   gradient, gathered from L2 with cp.async (rows not found, or outside
 //   their window, are zero-filled without a read).
-// - Block (x, plane, slice) owns the 9 offsets of one dx plane (three (dx,
-//   dy) groups) for a 32 x 32 (Cin, Cout) slice and walks a run of tiles x;
-//   each of its 9 warps owns one offset's 32 x 32 sums. Per tile the block
-//   stages the slice of F_t once for all 9 offsets (three times per tile in
-//   all, where the grid of one group per block read it nine times) and
-//   each warp gathers its own G_k. Why a plane and not all 27 offsets: a
-//   warp's running sums and their Kahan compensation take 64 registers a
-//   lane and the tile's fresh fragment 32 more, so 27 warps (864 threads)
-//   would have to live on 75 registers each; and the stage (F plus 9
-//   gathered G, 10 KB each) is double-buffered in 200 KB of shared memory,
-//   which a block of 27 offsets could not double-buffer.
+// - A block owns UNIT consecutive offsets (one warp each) for a 32 x 32
+//   (Cin, Cout) slice and walks a run of tiles; each warp owns one offset's
+//   32 x 32 sums. Per tile the block stages the slice of F_t once for its
+//   UNIT offsets and each warp gathers its own G_k. A warp's running sums
+//   and their Kahan compensation take 64 registers a lane and the tile's
+//   fresh fragment 32 more, and a stage (F plus UNIT gathered G, 10 KB
+//   each) is double-buffered in shared memory, so the unit is bounded by
+//   the 227 KB a block may take:
+//   - K = 27: the 9 offsets of one dx plane (three (dx, dy) groups), 288
+//     threads, 200 KB; F_t is staged three times per tile in all (where a
+//     grid of one group per block would stage it nine times). All 27
+//     offsets would need 864 threads on 75 registers each, and a stage a
+//     block could not double-buffer.
+//   - K = 125: a dx plane holds 25 offsets, 800 threads and a 260 KB stage,
+//     over the limit even single-buffered. So the unit is one (dx, dy)
+//     group's 5 offsets: 160 threads, 6 buffers of 10 KB double-buffered in
+//     120 KB (one block an SM). F_t is staged 25 times per tile, a sixth of
+//     the stage's bytes; it is read from L2 after the first group's block.
+//     A plane split over blocks would stage it no less often and need a
+//     second pass to add the parts.
 // - Rows sit at an 80-byte pitch (bf16) or a 40-float pitch (f32), so
 //   ldmatrix.trans (bf16) and the lanes' scalar loads (f32) hit 32 distinct
 //   banks. Stages are double-buffered with cp.async: a tile's rows load
@@ -55,13 +65,17 @@
 //   zero), which is added to the warp's running sums with Kahan
 //   compensation: a block's sums run over thousands of entries whose terms
 //   largely cancel (a BatchNorm's backward leaves gradients of zero mean).
-//   tests/test_torch_bandconv_bwd.py emulates both modes against float64.
+//   tests/test_torch_bandconv_bwd.py emulates both modes against float64,
+//   at both kernel sizes.
 // - Warps whose offset no row of the stage reaches gather nothing and skip
 //   their products. Each block writes its own partial sums and the wrapper
 //   adds the partials up (no float atomics, so runs repeat bit for bit).
 // - d_feats stays a launch of the forward kernel: it sums over offsets per
 //   row, this kernel over rows per offset, so a fused pass would need all
-//   27 offsets' weight slices and sums in one block.
+//   K offsets' weight slices and sums in one block.
+// - The kernel is a template on K and the unit; the K = 27 instances
+//   compile to the same machine code as before the template
+//   (compare_sass.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,14 +85,31 @@ namespace {
 
 constexpr int TILE = 128;     // rows per tile
 constexpr int ALIGN = 64;     // window anchors are in units of 64 rows
-constexpr int KSIZE = 3;      // kernel edge; K = 27 offsets, dz fastest
-constexpr int K = 27;
-constexpr int PLANE = 9;      // offsets per block, one warp each
-constexpr int THREADS = PLANE * 32;
 constexpr int CS = 32;        // channels of a slice, input and output
 constexpr int BUF_BYTES = 10240;  // one staged operand (F or one G_k)
-constexpr int STAGE_BYTES = (PLANE + 1) * BUF_BYTES;
 constexpr uint32_t TF32_MASK = 0xffffe000u;
+
+// per kernel size: the kernel edge (offsets run dz fastest, ksize of them
+// to a (dx, dy) group) and the offsets a block owns, one warp each
+template <int K>
+struct Size;
+template <>
+struct Size<27> {
+  static constexpr int KSIZE = 3;
+  static constexpr int UNIT = 9;  // one dx plane
+};
+template <>
+struct Size<125> {
+  static constexpr int KSIZE = 5;
+  static constexpr int UNIT = 5;  // one (dx, dy) group
+};
+
+// a block of UNIT offsets: its threads and one stage's bytes
+template <int UNIT>
+struct Unit {
+  static constexpr int THREADS = UNIT * 32;
+  static constexpr int STAGE_BYTES = (UNIT + 1) * BUF_BYTES;
+};
 
 // per mode: rows per stage, staged row pitch in bytes, 16-byte segments of
 // a slice row, rows a lane gathers per stage
@@ -174,20 +205,23 @@ __device__ __forceinline__ void copy_elems(unsigned char* dst,
   }
 }
 
-template <bool BF16>
-__global__ void __launch_bounds__(THREADS, 1)
-band_conv_bwd_kernel(const int32_t* __restrict__ rb_tiles,  // (n_tiles, 27, 128)
-                     const int32_t* __restrict__ starts,    // (9, n_tiles)
+template <bool BF16, int K, int UNIT>
+__global__ void __launch_bounds__(Unit<UNIT>::THREADS, 1)
+band_conv_bwd_kernel(const int32_t* __restrict__ rb_tiles,  // (n_tiles, K, 128)
+                     const int32_t* __restrict__ starts,    // (G, n_tiles)
                      const char* __restrict__ grad,         // (Mp, cout)
                      const char* __restrict__ feats,        // (Mp, cin)
-                     float* __restrict__ partial,  // (gridDim.x, 27, cin, cout)
+                     float* __restrict__ partial,  // (gridDim.x, K, cin, cout)
                      int n_tiles, int tiles_per_block, int cin, int cout,
                      int m, int win, int vec_f, int vec_g) {
   using M = Mode<BF16>;
+  constexpr int KSIZE = Size<K>::KSIZE;
+  constexpr int THREADS = Unit<UNIT>::THREADS;
+  constexpr int STAGE_BYTES = Unit<UNIT>::STAGE_BYTES;
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int k = blockIdx.y * PLANE + warp;  // this warp's offset
+  const int k = blockIdx.y * UNIT + warp;  // this warp's offset
   const int n_co = (cout + CS - 1) / CS;
   const int ci0 = (blockIdx.z / n_co) * CS;
   const int co0 = (blockIdx.z % n_co) * CS;
@@ -379,16 +413,18 @@ band_conv_bwd_kernel(const int32_t* __restrict__ rb_tiles,  // (n_tiles, 27, 128
       }
 }
 
-template <bool BF16>
+template <bool BF16, int K>
 cudaError_t launch(const int32_t* rb_tiles, const int32_t* starts,
                    const void* grad, const void* feats, float* partial,
                    int n_blocks, int n_tiles, int tiles_per_block, int cin,
                    int cout, int m, int win, cudaStream_t stream) {
   constexpr int ELEM = BF16 ? 2 : 4;
+  constexpr int UNIT = Size<K>::UNIT;
+  static_assert(K % UNIT == 0, "a grid row per unit of offsets");
   const int slices = ((cin + CS - 1) / CS) * ((cout + CS - 1) / CS);
-  const dim3 grid(n_blocks, K / PLANE, slices);
-  const size_t smem = 2 * (size_t)STAGE_BYTES;
-  auto kernel = band_conv_bwd_kernel<BF16>;
+  const dim3 grid(n_blocks, K / UNIT, slices);
+  const size_t smem = 2 * (size_t)Unit<UNIT>::STAGE_BYTES;
+  auto kernel = band_conv_bwd_kernel<BF16, K, UNIT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -396,7 +432,7 @@ cudaError_t launch(const int32_t* rb_tiles, const int32_t* starts,
                     reinterpret_cast<uintptr_t>(feats) % 16 == 0;
   const int vec_g = (cout * ELEM) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(grad) % 16 == 0;
-  kernel<<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, Unit<UNIT>::THREADS, smem, stream>>>(
       rb_tiles, starts, static_cast<const char*>(grad),
       static_cast<const char*>(feats), partial, n_tiles, tiles_per_block, cin,
       cout, m, win, vec_f, vec_g);
@@ -409,8 +445,8 @@ extern "C" {
 
 // Launches the kernel on `stream`; returns the CUDA error code (0 = ok).
 // Block x covers tiles [x * tiles_per_block, + tiles_per_block) and writes
-// partial[x] (27, cin, cout); n_blocks * tiles_per_block must cover n_tiles.
-// Takes K = 27 only; `win` must be a multiple of 64 and every window
+// partial[x] (k, cin, cout); n_blocks * tiles_per_block must cover n_tiles.
+// Takes k = 27 or 125; `win` must be a multiple of 64 and every window
 // [64 * starts, + win) must lie inside the n_tiles * 128 rows, which
 // build_band_plan guarantees.
 int band_conv_bwd_launch(const void* rb_tiles, const void* starts,
@@ -418,8 +454,8 @@ int band_conv_bwd_launch(const void* rb_tiles, const void* starts,
                          void* partial, int n_blocks, int n_tiles,
                          int tiles_per_block, int k, int cin, int cout, int m,
                          int win, void* stream) {
-  if (k != K || cin < 1 || cout < 1 || win < 1 || win % ALIGN != 0 ||
-      n_blocks < 1 || tiles_per_block < 1 ||
+  if ((k != 27 && k != 125) || cin < 1 || cout < 1 || win < 1 ||
+      win % ALIGN != 0 || n_blocks < 1 || tiles_per_block < 1 ||
       (long long)n_blocks * tiles_per_block < n_tiles) {
     return (int)cudaErrorInvalidValue;
   }
@@ -427,11 +463,13 @@ int band_conv_bwd_launch(const void* rb_tiles, const void* starts,
   const auto* rb = static_cast<const int32_t*>(rb_tiles);
   const auto* st = static_cast<const int32_t*>(starts);
   auto* p = static_cast<float*>(partial);
+#define BWD_LAUNCH(B, KK)                                                   \
+  launch<B, KK>(rb, st, grad, feats, p, n_blocks, n_tiles, tiles_per_block, \
+                cin, cout, m, win, s)
   const cudaError_t err =
-      bf16 ? launch<true>(rb, st, grad, feats, p, n_blocks, n_tiles,
-                          tiles_per_block, cin, cout, m, win, s)
-           : launch<false>(rb, st, grad, feats, p, n_blocks, n_tiles,
-                           tiles_per_block, cin, cout, m, win, s);
+      k == 27 ? (bf16 ? BWD_LAUNCH(true, 27) : BWD_LAUNCH(false, 27))
+              : (bf16 ? BWD_LAUNCH(true, 125) : BWD_LAUNCH(false, 125));
+#undef BWD_LAUNCH
   return (int)err;
 }
 

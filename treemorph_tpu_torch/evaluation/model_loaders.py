@@ -1,9 +1,9 @@
 """Model construction and checkpoint loading for the pipeline.
 
-Port of ``treemorph_tpu/evaluation/model_loaders.py`` for TreeLearn and
-PTv3: the pipeline's fixed hyperparameters (reference
-``ModelLoaders.py:31-113``: TreeLearn num_blocks=3 dim_feat=4 voxel 0.02;
-PTv3 dim_feat=4 with features, voxel 0.02), :func:`build_model`, the
+Port of ``treemorph_tpu/evaluation/model_loaders.py``: the pipeline's
+fixed hyperparameters (reference ``ModelLoaders.py:31-113``: TreeLearn
+num_blocks=3 dim_feat=4 voxel 0.02; PTv3 dim_feat=4 with features, voxel
+0.02; PointNet2 depth=5 dim_feat=4), :func:`build_model`, the
 :class:`Predictor` the pipeline calls, and :func:`load_model` for the
 port's own checkpoints (:mod:`treemorph_tpu_torch.train.checkpoints`).
 Loading the JAX package's orbax checkpoints is not ported yet; weights of a
@@ -19,6 +19,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..models.pointnet2 import PointNet2
 from ..models.ptv3 import PointTransformerWithHeads
 from ..models.treelearn import TreeLearn
 from ..train.checkpoints import MODEL_FILE, load_metadata
@@ -30,7 +31,10 @@ FAMILY_DEFAULTS = {
         channels=32, num_blocks=3, dim_feat=4, voxel_size=0.02, kernel_size=3
     ),
     "pointtransformerv3": dict(dim_feat=4, use_feats=True, voxel_size=0.02),
+    "pointnet2": dict(depth=5, dim_feat=4, use_coords=True, use_features=True),
 }
+
+Model = TreeLearn | PointTransformerWithHeads | PointNet2
 
 
 @dataclass
@@ -40,7 +44,7 @@ class Predictor:
     module is moved there, and so are the inputs of each call."""
 
     family: str
-    model: TreeLearn | PointTransformerWithHeads
+    model: Model
     device: torch.device | str | None = None
 
     def __post_init__(self):
@@ -49,10 +53,14 @@ class Predictor:
 
     def predict_flat(self, coords, feats, batch_ids, valid) -> dict:
         """Flat voxel-model layout (treelearn / ptv3)."""
-        args = [
-            torch.as_tensor(a).to(self.device)
-            for a in (coords, feats, batch_ids, valid)
-        ]
+        return self._forward(coords, feats, batch_ids, valid)
+
+    def predict_padded(self, coords, feats, valid) -> dict:
+        """Padded (B, N, ...) layout (pointnet2)."""
+        return self._forward(coords, feats, valid)
+
+    def _forward(self, *arrays) -> dict:
+        args = [torch.as_tensor(a).to(self.device) for a in arrays]
         with torch.inference_mode():
             return self.model(*args)
 
@@ -63,12 +71,12 @@ def build_model(
     device=None,
     seed: int = 0,
     **overrides,
-) -> TreeLearn | PointTransformerWithHeads:
+) -> Model:
     """A model of the given family with the pipeline's fixed
     hyperparameters (overrides win), initialized from ``seed`` like flax
     initializes it (in distribution), in eval mode on ``device`` (the CUDA
     device unless named; raises without one). ``batch_size`` is
-    TreeLearn's static batch-element count; PTv3 takes any."""
+    TreeLearn's static batch-element count; PTv3 and PointNet2 take any."""
     device = resolve_device(device)
     model_type = model_type.lower()
     if model_type not in FAMILY_DEFAULTS:
@@ -79,6 +87,8 @@ def build_model(
     cfg.update(overrides)
     if model_type == "treelearn":
         model = TreeLearn(batch_size=batch_size, **cfg)
+    elif model_type == "pointnet2":
+        model = PointNet2(**cfg)
     else:
         model = PointTransformerWithHeads(**cfg)
     generator = torch.Generator().manual_seed(seed)

@@ -1,7 +1,8 @@
 """Weight bridge: flax ``variables`` of the JAX package's models to the
 ``state_dict`` of the port's
-:class:`~treemorph_tpu_torch.models.treelearn.TreeLearn` and
-:class:`~treemorph_tpu_torch.models.ptv3.PointTransformerWithHeads`.
+:class:`~treemorph_tpu_torch.models.treelearn.TreeLearn`,
+:class:`~treemorph_tpu_torch.models.ptv3.PointTransformerWithHeads` and
+:class:`~treemorph_tpu_torch.models.pointnet2.PointNet2`.
 
 The port's modules carry the flax names, so a flax path maps to a torch key
 by joining it with dots. Leaves map as follows (the inverse of
@@ -15,9 +16,16 @@ by joining it with dots. Leaves map as follows (the inverse of
   named (PTv3's ``qkv``, ``proj``, ``proj_skip``) -> ``Linear.weight
   (out, in)``, ``bias`` as it is; a ``kernel`` leaf is a ``Dense`` kernel
   exactly when it has two dims;
-- ``MaskedBatchNorm`` and ``LayerNorm`` ``scale`` / ``bias`` -> ``weight``
-  / ``bias``, and ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` /
-  ``running_var`` (flax momentum m is torch momentum 1 - m).
+- ``MaskedBatchNorm``, ``BatchNorm`` (PointNet2's MLPs and heads) and
+  ``LayerNorm`` ``scale`` / ``bias`` -> ``weight`` / ``bias``, and
+  ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` / ``running_var``
+  (flax momentum m is torch momentum 1 - m, except in PointNet2's
+  ``BatchNorm``, which keeps flax's m).
+
+PointNet2's modules keep flax's automatic names (``SetAbstraction_i``,
+``SetAbstractionMsg_0``, ``PointwiseMLP_i``, ``Dense_i``, ``BatchNorm_i``,
+``FeaturePropagation_j``) and the heads' ``semantic_head`` /
+``offset_head``, so its leaves need no rule of their own.
 
 Every conv engine takes its kernels as (K, Cin, Cout) in kernel-offset
 order: the gather, band and z-band engines (``ops/sparse.py``,

@@ -11,7 +11,8 @@ a narrow window of feature rows. :func:`build_band_plan` anchors one
 through :func:`band_conv_padded`) applies each offset's filter to the rows
 of its window that the tile's rulebook finds, as a gathered GEMM on the
 tensor cores. The kernel takes 3x3x3 convs (every TreeLearn conv and PTv3
-xCPE) and 5x5x5 ones (PTv3's stem, ``Embedding(engine="band")``).
+xCPE) and 5x5x5 ones (PTv3's stem, ``Embedding(engine="band")``, and
+``TreeLearn(kernel_size=5)``), and so does the backward.
 
 Exactness: found neighbors that fall outside their window (the tail of the
 band-width distribution) are repaired by a mini gather pass
@@ -61,9 +62,9 @@ TILE = 128  # output rows per kernel block
 WIN = 448  # feature-window rows per (dx, dy) group
 ALIGN = 64  # window anchors are stored in units of 64 rows
 
-#: kernel sizes (offsets) the forward kernel takes: every 3x3x3 conv, and
-#: PTv3's 5x5x5 stem
-FWD_KERNEL_SIZES = (27, 125)
+#: kernel sizes (offsets) the band kernels take, forward and backward:
+#: 3x3x3 convs, and 5x5x5 ones (PTv3's stem, TreeLearn(kernel_size=5))
+KERNEL_SIZES = (27, 125)
 #: the (Cin, Cout) channel slices of csrc/band_conv_bwd.cu
 _BWD_SLICE = 32
 
@@ -214,8 +215,7 @@ def band_conv_padded(
             f"band_conv_padded: shapes feats {tuple(feats.shape)}, weights "
             f"{tuple(weights.shape)}, rb_tiles {tuple(rb_tiles.shape)}"
         )
-    _check_plan_args("band_conv_padded", rb_tiles, starts, mp, win,
-                     FWD_KERNEL_SIZES)
+    _check_plan_args("band_conv_padded", rb_tiles, starts, mp, win)
     if feats.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"band_conv_padded: feats dtype {feats.dtype}")
     if weights.dtype != torch.float32:
@@ -245,14 +245,14 @@ def band_conv_padded(
     return out
 
 
-def _check_plan_args(name, rb_tiles, starts, mp, win, sizes=(27,)):
+def _check_plan_args(name, rb_tiles, starts, mp, win):
     """Raise unless the tiled rulebook and anchors are a band plan's (int32)
-    over ``mp`` rows with K in ``sizes`` offsets and a window the kernels
-    take."""
+    over ``mp`` rows with K in :data:`KERNEL_SIZES` offsets and a window
+    the kernels take."""
     n_tiles, k, tile = rb_tiles.shape
     ksize = round(k ** (1 / 3))
-    if k not in sizes or starts.shape != (ksize * ksize, n_tiles):
-        raise ValueError(f"{name} takes K in {sizes} only (rb_tiles "
+    if k not in KERNEL_SIZES or starts.shape != (ksize * ksize, n_tiles):
+        raise ValueError(f"{name} takes K in {KERNEL_SIZES} only (rb_tiles "
                          f"{tuple(rb_tiles.shape)}, starts "
                          f"{tuple(starts.shape)})")
     if tile != TILE or mp != n_tiles * TILE:
@@ -338,9 +338,7 @@ def band_conv_bwd_padded(
     On a CUDA tensor this runs the forward kernel on ``(grad, w_bwd)`` for
     ``d_feats`` and :func:`band_conv_dw_padded` for ``d_w``; each raises on
     what its kernel does not take. A CPU tensor takes the plain version.
-    Only K = 27 has a backward kernel: K = 125 (PTv3's stem, whose input
-    needs no gradient) raises on any device."""
-    _check_bwd_kernel_size("band_conv_bwd_padded", rb_tiles)
+    Both kernels take K = 27 and 125."""
     if grad.device.type == "cpu":
         return band_conv_bwd_padded_plain(
             rb_tiles, starts, grad, feats, w_bwd, m, win
@@ -369,9 +367,7 @@ def band_conv_dw_padded(
 
     On a CUDA tensor this launches ``csrc/band_conv_bwd.cu``, whose
     per-block partial sums are added here, or raises; a CPU tensor takes
-    the plain version. K = 125 raises on any device, as for
-    :func:`band_conv_bwd_padded`."""
-    _check_bwd_kernel_size("band_conv_dw_padded", rb_tiles)
+    the plain version."""
     if grad.device.type == "cpu":
         return band_conv_dw_padded_plain(rb_tiles, starts, grad, feats, m, win)
     if grad.device.type != "cuda":
@@ -398,7 +394,7 @@ def band_conv_dw_padded(
         raise ValueError("band_conv_bwd_padded: tensors must be contiguous")
 
     lib = _bwd_library()
-    n_blocks, per_block = _bwd_grid(n_tiles, cin, cout)
+    n_blocks, per_block = _bwd_grid(n_tiles, k, cin, cout)
     partial = torch.empty(
         (n_blocks, k, cin, cout), dtype=torch.float32, device=grad.device
     )
@@ -414,28 +410,26 @@ def band_conv_dw_padded(
     return partial.sum(dim=0)
 
 
-def _check_bwd_kernel_size(name, rb_tiles):
-    """Raise unless the plan is a 3x3x3 conv's: no caller differentiates a
-    5x5x5 band conv through its features (ROADMAP.md queue 2A)."""
-    k = rb_tiles.shape[1]
-    if k != 27:
-        raise ValueError(
-            f"{name}: the backward kernels take 3x3x3 kernels (K = 27) only, "
-            f"not K = {k}; a K = 125 backward is still to be ported "
-            f"(ROADMAP.md queue 2A)")
+#: per kernel size K: the blocks the weight-gradient kernel aims for, and
+#: the offsets a block owns. K = 27: two waves of one block (a dx plane's 9
+#: offsets, 200 KB of shared memory) on each of an H100's 132 SMs. K = 125:
+#: four waves of one block (a (dx, dy) group's 5 offsets, 120 KB): its
+#: blocks are smaller, so more of them even out the tail. The partial sums
+#: (n_blocks, K, Cin, Cout) f32 stay near 10 MB at TreeLearn's K = 125
+#: widths (32->32: 21 blocks along the tiles, 10.8 MB; 64->64: 5, 10.2 MB;
+#: 128->64: 2, 8.2 MB; 96->96: 2, 9.2 MB), as at K = 27 (9.0-9.7 MB).
+_BWD_TARGET_BLOCKS = {27: 2 * 132, 125: 4 * 132}
+_BWD_UNIT = {27: 9, 125: 5}
 
 
-#: blocks the weight-gradient kernel aims for: two waves of one block (200
-#: KB of shared memory) on each of an H100's 132 SMs
-_BWD_TARGET_BLOCKS = 2 * 132
-
-
-def _bwd_grid(n_tiles: int, cin: int, cout: int) -> tuple[int, int]:
+def _bwd_grid(n_tiles: int, k: int, cin: int,
+              cout: int) -> tuple[int, int]:
     """(blocks along the tiles, tiles per block) of the weight-gradient
-    kernel, whose grid is that times 3 dx planes times the 32 x 32 channel
-    slices."""
+    kernel, whose grid is that times K / unit blocks of offsets times the
+    32 x 32 channel slices."""
     slices = -(-cin // _BWD_SLICE) * -(-cout // _BWD_SLICE)
-    n_blocks = max(1, min(n_tiles, _BWD_TARGET_BLOCKS // (3 * slices)))
+    units = k // _BWD_UNIT[k]
+    n_blocks = max(1, min(n_tiles, _BWD_TARGET_BLOCKS[k] // (units * slices)))
     per_block = -(-n_tiles // n_blocks)
     return -(-n_tiles // per_block), per_block
 
@@ -459,7 +453,7 @@ def band_viable(k: int, cin: int, cout: int, dtype) -> bool:
     rather than staging windows, so its shared memory is the same at every
     width and window (the TPU gate was a VMEM budget that turned deep wide
     levels away); only ``k`` and the type decide."""
-    return k in FWD_KERNEL_SIZES and dtype in (torch.bfloat16, torch.float32)
+    return k in KERNEL_SIZES and dtype in (torch.bfloat16, torch.float32)
 
 
 def _band_impl(feats, weights, plan: BandPlan, valid, dtype):

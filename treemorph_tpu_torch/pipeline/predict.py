@@ -1,10 +1,19 @@
 """Stage 1: model-based offset refinement + denoising.
 
-Port of the TreeLearn / PTv3 path of ``treemorph_tpu/pipeline/predict.py``
-(reference ``Modules/Pipeline/ModelPredicting.py:16-95``):
-:func:`predict_single` runs one forward per tree, applies the predicted
-offsets, then drops points whose noise-head argmax is class 1 (class 0 is
-kept). The rasterized PointNet2 path is not ported yet.
+Port of ``treemorph_tpu/pipeline/predict.py`` (reference
+``Modules/Pipeline/ModelPredicting.py``):
+
+- :func:`predict_single` (TreeLearn / PTv3, ``:16-95``) runs one forward
+  per tree, applies the predicted offsets, then drops points whose
+  noise-head argmax is class 1 (class 0 is kept).
+- :func:`predict_rasterized` (PointNet2, ``:166-250``) cuts the cloud into
+  overlapping cubes (:func:`raster_assignments`), runs fixed-shape
+  minibatches of rasters through the padded-batch model on the device,
+  and averages each point's predictions over every raster that holds it in
+  float64 on the host (the reference's streaming scatter-mean,
+  ``PointNet2.py:210-327``). It is the single-device form of the JAX
+  package's ``predict_rasterized_sharded``; the sharded form over several
+  cards is not ported.
 """
 
 from __future__ import annotations
@@ -144,6 +153,113 @@ def _warn_dropped(res: dict, what: str) -> None:
         )
 
 
+def raster_assignments(
+    points: np.ndarray, raster_size: float, stride: float
+) -> list[tuple[tuple, np.ndarray]]:
+    """Point indices grouped by overlapping cubic rasters, on the host
+    (the reference rasterizer loop, ``ModelPredicting.py:98-163``): a point
+    at p belongs to every raster with origin ``min + j * stride`` and
+    ``origin <= p < origin + raster_size``. Returns (raster key, point
+    indices) for the non-empty rasters, ordered by key."""
+    pts = np.asarray(points, np.float64)[:, :3]
+    mins = pts.min(axis=0)
+    maxs = pts.max(axis=0)
+    n_overlap = max(int(np.ceil(raster_size / stride)), 1)
+    # the raster grid's extent, as the reference's arange(min, max, stride)
+    n_cells = np.maximum(np.ceil((maxs - mins) / stride), 1).astype(int)
+
+    base = np.floor((pts - mins) / stride).astype(int)
+    groups: dict[tuple, list] = {}
+    for sx in range(n_overlap):
+        for sy in range(n_overlap):
+            for sz in range(n_overlap):
+                j = base - np.array([sx, sy, sz])
+                origin = mins + j * stride
+                ok = (
+                    (j >= 0).all(axis=1)
+                    & (j < n_cells).all(axis=1)
+                    & (pts >= origin).all(axis=1)
+                    & (pts < origin + raster_size).all(axis=1)
+                )
+                idx = np.nonzero(ok)[0]
+                if len(idx) == 0:
+                    continue
+                keys = j[idx]
+                order = np.lexsort((keys[:, 2], keys[:, 1], keys[:, 0]))
+                idx, keys = idx[order], keys[order]
+                bounds = np.nonzero(np.any(np.diff(keys, axis=0) != 0,
+                                           axis=1))[0] + 1
+                for s, e in zip(np.concatenate([[0], bounds]),
+                                np.concatenate([bounds, [len(idx)]])):
+                    groups.setdefault(tuple(keys[s]), []).append(idx[s:e])
+    return [(key, np.concatenate(groups[key])) for key in sorted(groups)]
+
+
+def predict_rasterized(
+    cloud: np.ndarray,
+    offset_model: Predictor | None = None,
+    noise_model: Predictor | None = None,
+    predict_offset: bool = True,
+    denoise: bool = True,
+    raster_size: float = 1.0,
+    stride: float = 1.0,
+    minibatch_size: int = 60,
+    bucket: int = 512,
+    device=None,
+) -> np.ndarray:
+    """PointNet2 path: rasterize, run batched forwards, scatter-mean.
+    Every minibatch is ``(minibatch_size, max_pts)`` points, ``max_pts``
+    the largest raster rounded up to ``bucket`` (the last minibatch padded
+    with empty rasters), on ``device`` (the CUDA device unless named;
+    raises without one), where the models must live."""
+    device = resolve_device(device)
+    pts = np.asarray(cloud, np.float32)[:, :3]
+    if not predict_offset and not denoise:
+        return pts
+    feats = (
+        np.asarray(cloud, np.float32)[:, 7:11]
+        if cloud.shape[1] >= 11
+        else np.zeros((len(pts), 4), np.float32)
+    )
+    rasters = raster_assignments(pts, raster_size, stride)
+    if not rasters:
+        return pts
+    max_pts = pad_to_bucket(max(len(i) for _, i in rasters), bucket)
+
+    def run_model(model: Predictor, want: str) -> np.ndarray:
+        dim = 3 if want == "offset_predictions" else 2
+        acc = np.zeros((len(pts), dim), np.float64)
+        cnt = np.zeros(len(pts), np.int64)
+        for start in range(0, len(rasters), minibatch_size):
+            chunk = rasters[start:start + minibatch_size]
+            coords = np.zeros((minibatch_size, max_pts, 3), np.float32)
+            f = np.zeros((minibatch_size, max_pts, feats.shape[1]),
+                         np.float32)
+            valid = np.zeros((minibatch_size, max_pts), bool)
+            for i, (_, idx) in enumerate(chunk):
+                coords[i, :len(idx)] = pts[idx]
+                f[i, :len(idx)] = feats[idx]
+                valid[i, :len(idx)] = True
+            out = model.predict_padded(
+                *(torch.from_numpy(a).to(device) for a in (coords, f, valid))
+            )
+            vals = out[want].float().cpu().numpy()
+            for i, (_, idx) in enumerate(chunk):
+                acc[idx] += vals[i, :len(idx)]
+                cnt[idx] += 1
+        nz = cnt > 0
+        acc[nz] /= cnt[nz, None]
+        return acc.astype(np.float32)
+
+    out = pts.copy()
+    if predict_offset and offset_model is not None:
+        out = out + run_model(offset_model, "offset_predictions")
+    if denoise and noise_model is not None:
+        logits = run_model(noise_model, "semantic_prediction_logits")
+        out = out[logits.argmax(axis=1) == 0]
+    return out
+
+
 def make_predictions(
     cloud: np.ndarray,
     model_type: str,
@@ -151,16 +267,24 @@ def make_predictions(
     noise_model: Predictor | None = None,
     predict_offset: bool = True,
     denoise: bool = True,
+    raster_size: float = 1.0,
+    stride: float = 1.0,
+    minibatch_size: int = 60,
     device=None,
 ) -> np.ndarray:
-    """Dispatch by family (reference Pipeline.py:110-131)."""
+    """Dispatch by family (reference Pipeline.py:110-131); the raster
+    arguments are PointNet2's."""
     if model_type in ("treelearn", "pointtransformerv3"):
         return predict_single(
             cloud, offset_model, noise_model, predict_offset, denoise,
             device=device,
         )
+    if model_type == "pointnet2":
+        return predict_rasterized(
+            cloud, offset_model, noise_model, predict_offset, denoise,
+            raster_size=raster_size, stride=stride,
+            minibatch_size=minibatch_size, device=device,
+        )
     if model_type == "no_model":
         return np.asarray(cloud, np.float32)[:, :3]
-    if model_type == "pointnet2":
-        raise NotImplementedError(f"model family {model_type!r} is not ported")
     raise ValueError(f"unknown model type {model_type!r}")

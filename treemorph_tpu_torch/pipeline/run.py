@@ -2,8 +2,9 @@
 
 Capability parity with reference ``Modules/Pipeline/Pipeline.py:49-182`` and
 ``PipelineExecution/exec_pipeline.py``: list input clouds, then per cloud
-run stage 1 (model offset + denoise), stage 2 (upsampling, skipped above
-1.5M points), stage 3 (QSM fitting), with per-cloud exception isolation.
+run stage 1 (model offset + denoise: one forward per tree for TreeLearn
+and PTv3, rasters for PointNet2), stage 2 (upsampling, skipped above 1.5M
+points), stage 3 (QSM fitting), with per-cloud exception isolation.
 The config dict follows the schema of ``configs/pipeline_config.yaml``
 (the reference's ``PipelineExecution/pipeline_config.yaml``). Models are
 given by the caller: loading checkpoints from ``model_dirs`` is not ported

@@ -20,9 +20,10 @@ each step drawing its order shuffles and drop-path masks from a generator
 derived from ``--seed``. It runs on the CUDA device unless ``--device``
 names another, and raises without one. No YAML parser is needed.
 
-Not ported yet, and raising ``NotImplementedError``: the ``pointnet2``
-family, raster training (``--raster_dir``, ``--hierarchical_json``), and
-PTv3's ``--dedup_divisor`` and non-gather stems. It trains on one device.
+Not ported yet, and raising ``NotImplementedError``: training the
+``pointnet2`` family (its model serves, :mod:`..models.pointnet2`), raster
+training (``--raster_dir``, ``--hierarchical_json``), and PTv3's
+``--dedup_divisor`` and non-gather stems. It trains on one device.
 """
 
 from __future__ import annotations
@@ -35,13 +36,13 @@ import numpy as np
 import torch
 
 _NOT_PORTED = {
-    "pointnet2": "the pointnet2 family is not ported yet "
-                 "(ROADMAP.md queue 1 item 12)",
+    "pointnet2": "training the pointnet2 family is not ported yet "
+                 "(ROADMAP.md queue 1 item 12b)",
     "ptv3_stem": "PTv3 training with its dedup (--dedup_divisor) or its "
                  "band and z-pack stems (--engine) is not wired into the "
                  "CLI yet (ROADMAP.md queue 1 item 11c)",
     "raster": "raster training (--raster_dir, --hierarchical_json) comes "
-              "with PointNet2 (ROADMAP.md queue 1 item 12)",
+              "with PointNet2's training (ROADMAP.md queue 1 item 12b)",
 }
 
 

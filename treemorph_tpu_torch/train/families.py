@@ -6,8 +6,9 @@ The harness hands over a :class:`~treemorph_tpu_torch.data.PaddedBatch` of
 tensors and, in a train step, the step's ``torch.Generator``; the models
 consume the flat layout, so the adapters reshape (views, no copies).
 TreeLearn draws nothing at random; PTv3 draws its order shuffles and
-stochastic-depth masks from the step's generator. PointNet2 is not ported
-yet.
+stochastic-depth masks from the step's generator. PointNet2's family
+(``pointnet2_family``) is not ported yet: the model serves, its training
+is ROADMAP.md queue 1 item 12b.
 """
 
 from __future__ import annotations

@@ -135,10 +135,10 @@ def make_train_step(
 
 def make_accum_steps(*args, **kwargs):
     """The gradient-accumulation steps of hierarchical raster training
-    come with PointNet2 (ROADMAP.md queue 1 item 12)."""
+    come with PointNet2's training (ROADMAP.md queue 1 item 12b)."""
     raise NotImplementedError(
         "gradient-accumulation (hierarchical raster) training is not "
-        "ported yet (ROADMAP.md queue 1 item 12)"
+        "ported yet (ROADMAP.md queue 1 item 12b)"
     )
 
 
