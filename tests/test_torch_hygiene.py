@@ -17,11 +17,15 @@ from treemorph_tpu_torch.pipeline.predict import predict_single
 from treemorph_tpu_torch.pipeline.run import run_pipeline
 from treemorph_tpu_torch.pipeline.upsample import upsample_device
 from treemorph_tpu_torch.pipeline import upsample
-from treemorph_tpu_torch.scripts import profile_zband
+from treemorph_tpu_torch.scripts import exec_pipeline, profile_zband
 
 PACKAGE = os.path.dirname(treemorph_tpu_torch.__file__)
 REPO = os.path.dirname(PACKAGE)
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "treemorph_tpu")
+#: the JAX side, and the libraries the card's machine lacks (its config
+#: files are read without a YAML library, its tables written without
+#: pandas)
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "treemorph_tpu",
+             "yaml", "pandas")
 
 
 def imported_modules(path):
@@ -91,7 +95,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
                                           "output_dir": str(tmp_path)},
                               "stage1": {"model_type": "treelearn"}}),
         lambda: profile_zband.main([]),
+        lambda: exec_pipeline.main(["--config", str(config)]),
     ]
+    config = tmp_path / "cfg.json"
+    config.write_text('{"general": {"input_dir": "%s", "output_dir": "%s"}, '
+                      '"stage1": {"model_type": "treelearn"}}'
+                      % (tmp_path, tmp_path))
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

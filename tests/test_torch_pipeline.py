@@ -218,3 +218,137 @@ def test_run_pipeline_end_to_end(tmp_path, models, raw_cloud, stage1_jax):
     assert (out / "tree_qsm_depth_cylinders.csv").read_bytes() == (
         tmp_path / "jax_cylinders.csv"
     ).read_bytes()
+
+
+#: the config ``tests/test_scripts.py::TestPipelineCLI`` dumps with
+#: ``yaml.safe_dump`` (its directories here stand for tmp paths)
+SCRIPTS_CFG = {
+    "general": {
+        "input_dir": "/tmp/data root/clouds", "output_dir": "/tmp/out",
+        "save_model_predictions": False, "save_upsampling": False,
+        "save_qsm_cyl_ply": False, "save_qsm_sphere_ply": False,
+        "save_qsm_cyl_csv": True, "cloud_save_type": "npy",
+    },
+    "stage1": {"predict_offset": False, "denoise": False,
+               "model_type": "no_model"},
+    "stage2": {"upsampling": True, "k_init": 5, "max_iterations": 2,
+               "min_height": 0.0, "use_only_original_points": False,
+               "min_points": 3000},
+    "stage3": {"qsm_fitting": True, "qsm_verbose": False,
+               "qsm_debug": False,
+               "qsm_params": {"eps_deg": 20, "min_samples": 5, "seed": 0}},
+}
+
+
+@pytest.mark.parametrize("source", ["shipped", "scripts_dump", "json"])
+def test_config_reader_matches_safe_load(tmp_path, source):
+    """``load_config`` reads ``configs/pipeline_config.yaml``, the test
+    scripts' ``yaml.safe_dump`` of a config (with ``model_dirs`` and a
+    null entry added) and a JSON config as ``yaml.safe_load`` / ``json``
+    read them; the port imports no YAML library."""
+    import json
+    import os
+
+    import yaml
+
+    from treemorph_tpu_torch.utils.config import load_config
+
+    if source == "shipped":
+        path = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "configs", "pipeline_config.yaml")
+        want = yaml.safe_load(open(path))
+        assert want["model_dirs"]["pointnet2"][0].endswith("offset")
+    else:
+        want = dict(SCRIPTS_CFG, model_dirs={
+            "treelearn": ["saves/treelearn_CV", None],
+            "pointnet2": ["saves/pointnet2_CV", "saves/pointnet2_CV"]})
+        want["stage2"] = dict(want["stage2"], min_height=-0.25,
+                              radius=1.5e-05, label="null", name="it's")
+        path = str(tmp_path / ("cfg.json" if source == "json"
+                               else "cfg.yaml"))
+        with open(path, "w") as f:
+            if source == "json":
+                json.dump(want, f)
+            else:
+                yaml.safe_dump(want, f)
+    got = load_config(path)
+    assert got == want
+    assert {k: type(v) for k, v in got["stage2"].items()} == {
+        k: type(v) for k, v in want["stage2"].items()}
+
+
+@pytest.mark.parametrize("text", [
+    "a: &x 1\nb: *x\n",
+    "general: {input_dir: in, output_dir: out}\n",
+    "dirs: [a, b]\n",
+    "flag: yes\n",
+    "rate: 1e-5\n",
+    "text: |\n  block\n",
+    "a: 1\na: 2\n",
+])
+def test_config_reader_refuses_outside_its_subset(text):
+    """Anchors and aliases, flow mappings and sequences, YAML 1.1 bools,
+    numbers the YAML versions read differently, block scalars and
+    duplicate keys raise rather than being guessed."""
+    from treemorph_tpu_torch.utils.config import parse_yaml
+
+    with pytest.raises(ValueError, match="outside the YAML subset"):
+        parse_yaml(text)
+
+
+def test_run_pipeline_from_model_dirs(tmp_path, models, raw_cloud):
+    """``run_pipeline`` with no injected model loads the port's
+    checkpoints named by ``model_dirs`` (plot 3 first) and writes the same
+    cylinder CSV as with the models injected; so does ``python -m
+    treemorph_tpu_torch.scripts.exec_pipeline --config cfg.yaml``."""
+    import copy
+
+    import yaml
+
+    from treemorph_tpu_torch.scripts import exec_pipeline
+    from treemorph_tpu_torch.train import harness
+    from treemorph_tpu_torch.train.checkpoints import save_checkpoint
+
+    _, tpred = models
+    state = harness.TrainState(tpred.model,
+                               harness.make_optimizer(tpred.model))
+    meta = dict(model="treelearn", channels=8, num_blocks=1, dim_feat=4,
+                voxel_size=0.02, kernel_size=3)
+    for role in ("offset", "noise"):
+        save_checkpoint(str(tmp_path / role / "P3"), state, meta)
+    other = copy.deepcopy(tpred.model)  # another plot's, not taken
+    with torch.no_grad():
+        other.offset_head.Dense_1.bias.add_(0.5)
+    save_checkpoint(str(tmp_path / "offset" / "P5"),
+                    harness.TrainState(other, harness.make_optimizer(other)),
+                    meta)
+    inp = tmp_path / "in"
+    inp.mkdir()
+    np.save(inp / "tree.npy", raw_cloud)
+
+    def config(out):
+        return {
+            "general": {"input_dir": str(inp), "output_dir": str(out),
+                        "save_qsm_cyl_csv": True},
+            "model_dirs": {"treelearn": [str(tmp_path / "offset"),
+                                         str(tmp_path / "noise")]},
+            "stage1": {"predict_offset": True, "denoise": True,
+                       "model_type": "treelearn"},
+            "stage2": {"upsampling": False},
+            "stage3": {"qsm_fitting": True,
+                       "qsm_params": {"seed": 0,
+                                      "clustering_type": "angular"}},
+        }
+
+    injected = run_pipeline(config(tmp_path / "a"), tpred, tpred,
+                            device="cpu")
+    loaded = run_pipeline(config(tmp_path / "b"), device="cpu")
+    cfg_path = tmp_path / "cfg.yaml"
+    cfg_path.write_text(yaml.safe_dump(config(tmp_path / "c")))
+    cli = exec_pipeline.main(["--config", str(cfg_path), "--device", "cpu"])
+    assert injected[0]["cylinders"] > 0
+    csvs = [(tmp_path / d / "treelearn" / "tree_qsm_depth_cylinders.csv")
+            .read_bytes() for d in "abc"]
+    assert csvs[0] == csvs[1] == csvs[2]
+    assert (injected[0]["points"] == loaded[0]["points"]
+            == cli[0]["points"] < len(raw_cloud))

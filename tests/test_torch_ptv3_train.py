@@ -290,3 +290,121 @@ def test_cli_trains_ptv3_on_cpu(tmp_path, monkeypatch):
     out = predict_single(cloud, predictors["O_P1"], None, device="cpu")
     assert out.shape == (len(cloud), 3) and np.isfinite(out).all()
     assert not np.array_equal(out, cloud[:, :3])
+
+
+#: the training CLI's band configuration (``--engine band
+#: --dedup_divisor 4``, scripts/train.py:130-143): level-0 convs once per
+#: unique voxel, the k=5 stem and the xCPEs over lex-sorted rows on the
+#: band engine
+BAND_DEDUP = dict(dedup_divisor=4, stem_engine="band")
+
+
+def test_band_dedup_train_step_matches_jax(monkeypatch):
+    """One ``make_train_step`` in the CLI's band configuration (the port's
+    kernels take their plain versions on the CPU) against the JAX
+    package's step with the same level-0 dedup on its gather engine, the
+    same function, with the JAX step key's order permutations: the loss
+    terms to 1e-5, every gradient to 1e-5 of its leaf's scale, every
+    parameter of the state after the step (BN running statistics
+    included) as :func:`test_train_step_matches_jax` holds them. JAX's
+    own band step, its kernels in Pallas interpret mode, is not the
+    reference here: it rounds otherwise than its gather step (their
+    gradients differ by up to 3.5e-5 of a leaf's scale, the port's band
+    step and JAX's gather step by 5.4e-6), and compiling it takes ~90 s."""
+    batch = tree_batch()
+    variables = flax_values(2)
+    key = jax.random.key(5)
+    perms = jax_perms(key, len(TINY["enc_depths"]))
+    jmodel = jptv3.PointTransformerWithHeads(
+        dim_feat=4, use_feats=True, voxel_size=VOXEL, drop_path=0.0,
+        dedup_divisor=BAND_DEDUP["dedup_divisor"], **TINY)
+    grads_j, metrics_j, after_j = jax_train_step(jmodel, variables, batch,
+                                                 key)
+    grads_j = flax_to_state_dict({"params": grads_j})
+    after_j = flax_to_state_dict(after_j)
+
+    model = tptv3.PointTransformerWithHeads(
+        dim_feat=4, use_feats=True, voxel_size=VOXEL, drop_path=0.0,
+        **BAND_DEDUP, **TINY)
+    model.load_state_dict(flax_to_state_dict(variables), strict=True)
+    monkeypatch.setattr(tptv3, "draw_order_perms",
+                        lambda gen, n: [t(p) for p in perms])
+    grads = {}
+    clip_and_step = harness.optimizer_step
+
+    def recording_step(optimizer, lr):
+        grads.update({n: p.grad.numpy().copy()
+                      for n, p in model.named_parameters()})
+        clip_and_step(optimizer, lr)
+
+    monkeypatch.setattr(harness, "optimizer_step", recording_step)
+    state = harness.TrainState(model, harness.make_optimizer(model))
+    step = harness.make_train_step(*families.ptv3_family())
+    _, metrics_t = step(state, harness.to_device(batch, "cpu"), LR,
+                        torch.Generator().manual_seed(0))
+    for name in ("loss", "semantic_loss", "offset_loss"):
+        np.testing.assert_allclose(float(metrics_t[name]),
+                                   float(metrics_j[name]), rtol=1e-5)
+    top = max(np.abs(g.numpy()).max() for g in grads_j.values())
+    for name, want in grads_j.items():
+        want = want.numpy()
+        if name in ZERO_GRAD:
+            assert np.abs(want).max() <= 1e-6 * top, name
+            assert np.abs(grads[name]).max() <= 1e-6 * top, name
+            continue
+        np.testing.assert_allclose(grads[name], want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max(),
+                                   err_msg=name)
+    norm = np.sqrt(sum(np.sum(g.astype(np.float64) ** 2)
+                       for g in grads.values()))
+    clip = min(1.0, harness.GRAD_CLIP_NORM / norm)
+    after_t = model.state_dict()
+    slack_entries = total = 0
+    for name, want in after_j.items():
+        got, want = after_t[name].numpy(), want.numpy()
+        atol = 1e-5 * np.abs(want).max()
+        if name in ZERO_GRAD:
+            atol += 2 * LR
+        elif not name.endswith(("running_mean", "running_var")):
+            g = np.abs(grads[name]) * clip
+            slack = np.minimum(
+                LR * EPS * 1e-5 * g.max() / (g + EPS) ** 2, 2 * LR)
+            slack_entries += int((slack > atol).sum())
+            total += g.size
+            atol = atol + slack
+        assert (np.abs(got - want) <= atol).all(), name
+    assert 0 < total and slack_entries <= 1e-2 * total
+
+
+def test_cli_trains_ptv3_band_dedup_on_cpu(tmp_path, monkeypatch):
+    """The CLI's ``--engine band --dedup_divisor 4`` (tiny widths, as
+    :func:`test_cli_trains_ptv3_on_cpu`) builds the model in that
+    configuration and trains one epoch; ``pencil`` still means gather, and
+    the z-pack and brick stems raise."""
+    built = []
+    model_cls = tptv3.PointTransformerWithHeads
+
+    def tiny(**kwargs):
+        built.append(kwargs)
+        return model_cls(**kwargs, **TINY)
+
+    monkeypatch.setattr(tptv3, "PointTransformerWithHeads", tiny)
+    write_plots(tmp_path, trees=1, n=300)
+    base = ["pointtransformerv3", "--data_root", str(tmp_path),
+            "--test_plots", "1", "--epochs", "1", "--batch_size", "2",
+            "--bucket", "512", "--save_dir", str(tmp_path / "saves"),
+            "--device", "cpu"]
+    histories = cli.main(base + ["--engine", "band", "--dedup_divisor",
+                                 "4"])
+    (record,) = histories[1]
+    assert np.isfinite([record["train_loss"], record["val_loss"]]).all()
+    assert built[-1]["stem_engine"] == "band"
+    assert built[-1]["dedup_divisor"] == 4
+    assert (tmp_path / "saves" / "pointtransformerv3_CV" / "P1"
+            / "model.pt").exists()
+    cli.build(cli.parse_args(base + ["--engine", "pencil"]), 2, VOXEL,
+              None)
+    assert built[-1]["stem_engine"] == "gather"
+    for engine in ("zpack", "brick"):
+        with pytest.raises(NotImplementedError, match="item 17"):
+            cli.main(base + ["--engine", engine])

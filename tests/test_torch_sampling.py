@@ -138,11 +138,14 @@ def test_bucketed_farthest_point_sample_matches_jax(batch, buckets):
 
 
 def test_fps_generator_starts_at_a_valid_point(batch):
-    """With a generator the first centroid is a random valid point (the
-    two packages draw different numbers: only the rule is compared)."""
+    """With scores drawn from a generator the first centroid is a random
+    valid point (the two packages draw different numbers: only the rule is
+    compared)."""
     coords, _, valid = batch
     gen = torch.Generator().manual_seed(3)
-    got = tsamp.farthest_point_sample(t(coords), t(valid), 20, gen).numpy()
+    scores = torch.rand(valid.shape, generator=gen)
+    got = tsamp.farthest_point_sample(t(coords), t(valid), 20,
+                                      scores).numpy()
     assert valid[np.arange(3)[:, None], got].all()
     assert (got[:, 0] != 0).any()
 

@@ -493,7 +493,7 @@ def test_training_entry_points_default_to_cuda_and_raise_without_it(
 ):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     write_plots(tmp_path, trees=1, n=100)
-    for family in ("treelearn", "pointtransformerv3"):
+    for family in ("treelearn", "pointtransformerv3", "pointnet2"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main([family, "--data_root", str(tmp_path)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -501,16 +501,26 @@ def test_training_entry_points_default_to_cuda_and_raise_without_it(
 
 
 def test_training_paths_not_ported_raise(tmp_path):
-    for argv in (["pointnet2", "--data_root", str(tmp_path)],
-                 ["pointtransformerv3", "--data_root", str(tmp_path),
-                  "--dedup_divisor", "4"],
-                 ["pointtransformerv3", "--data_root", str(tmp_path),
-                  "--engine", "band"],
-                 ["treelearn", "--raster_dir", str(tmp_path)]):
+    """What still raises, naming its ROADMAP item: data-parallel training
+    (``mesh``), PTv3's z-pack and brick stems in the CLI, and a JAX orbax
+    checkpoint directory (``manifest.ocdbt``, no ``model.pt``) in the
+    pipeline's ``model_dirs``."""
+    from treemorph_tpu_torch.pipeline.run import load_pipeline_models
+
+    for engine in ("zpack", "brick"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(argv + ["--device", "cpu"])
+            cli.main(["pointtransformerv3", "--data_root", str(tmp_path),
+                      "--engine", engine, "--device", "cpu"])
     fwd, loss = families.treelearn_family()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        harness.make_accum_steps(fwd, loss)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        harness.make_train_step(fwd, loss, mesh=object())
+    for make in (harness.make_train_step, harness.make_accum_steps,
+                 harness.make_eval_step):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make(fwd, loss, mesh=object())
+    orbax = tmp_path / "offset" / "P3"
+    (orbax / "ocdbt.process_0" / "d").mkdir(parents=True)
+    (orbax / "manifest.ocdbt").write_bytes(b"")
+    (orbax / "_METADATA").write_text("{}")
+    cfg = {"stage1": {"predict_offset": True, "denoise": False},
+           "model_dirs": {"treelearn": [str(tmp_path / "offset"), None]}}
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
+        load_pipeline_models(cfg, "treelearn", device="cpu")

@@ -7,6 +7,14 @@ from .treeset import (
     get_plot_split,
     get_random_split,
 )
+from .rasterized import (
+    HierarchicalRasterDataset,
+    RasterDataset,
+    TreeRasters,
+    hierarchical_batch_iterator,
+    hierarchical_group_iterator,
+    raster_dataset_from_dir,
+)
 
 __all__ = [
     "PaddedBatch",
@@ -16,4 +24,10 @@ __all__ = [
     "batch_iterator",
     "get_plot_split",
     "get_random_split",
+    "RasterDataset",
+    "TreeRasters",
+    "HierarchicalRasterDataset",
+    "raster_dataset_from_dir",
+    "hierarchical_batch_iterator",
+    "hierarchical_group_iterator",
 ]

@@ -6,8 +6,8 @@ num_blocks=3 dim_feat=4 voxel 0.02; PTv3 dim_feat=4 with features, voxel
 0.02; PointNet2 depth=5 dim_feat=4), :func:`build_model`, the
 :class:`Predictor` the pipeline calls, and :func:`load_model` for the
 port's own checkpoints (:mod:`treemorph_tpu_torch.train.checkpoints`).
-Loading the JAX package's orbax checkpoints is not ported yet; weights of a
-flax model go through
+Loading the JAX package's orbax checkpoints is not ported yet and raises
+(ROADMAP.md queue 1 item 13); weights of a flax model go through
 :func:`treemorph_tpu_torch.models.convert.flax_to_state_dict`.
 """
 
@@ -96,6 +96,11 @@ def build_model(
     return model.to(device).eval()
 
 
+_ORBAX_TODO = ("{} is an orbax checkpoint of the JAX package: reading "
+               "orbax/OCDBT directories is not ported yet (ROADMAP.md queue "
+               "1 item 13); the port loads its own checkpoints ({})")
+
+
 def _plot_from_name(path: str) -> str | None:
     # the reference's "{Model}_P{n}[suffix]" naming and the training CLI's
     # bare "P{n}" checkpoint directories
@@ -126,6 +131,11 @@ def load_model(
             plot = _plot_from_name(entry)
             if not os.path.isdir(full) or plot is None:
                 continue
+            if not os.path.exists(os.path.join(full, MODEL_FILE)) and (
+                    os.path.exists(os.path.join(full, "manifest.ocdbt"))
+                    or os.path.exists(os.path.join(full, "_METADATA"))):
+                raise NotImplementedError(_ORBAX_TODO.format(full,
+                                                             MODEL_FILE))
             meta = load_metadata(full) or {}
             overrides = {
                 k: v for k, v in meta.items()

@@ -27,6 +27,7 @@ from torch import nn
 
 from ..ops.sampling import (
     bucketed_farthest_point_sample,
+    fps_score_shape,
     index_points,
     query_ball_point,
     three_nn_interpolate,
@@ -166,23 +167,37 @@ def _group(xyz, feats, valid, new_xyz, radius, nsample):
     return grouped
 
 
-def _sample(xyz, valid, npoint, generator, buckets):
-    fps_idx = bucketed_farthest_point_sample(xyz, valid, npoint, generator,
-                                             buckets)
+def draw_fps_scores(generator: torch.Generator, level: int, shape: tuple,
+                    device) -> torch.Tensor:
+    """The uniform draw whose largest score over the valid points is SA
+    level ``level``'s first FPS centroid (the JAX model draws
+    ``jax.random.uniform`` from its level's split of ``fps_rng``); drawn
+    from ``generator`` on the generator's device, level after level."""
+    return torch.rand(shape, generator=generator,
+                      device=generator.device).to(device)
+
+
+def _sample(xyz, valid, npoint, generator, buckets, level):
+    scores = None
+    if generator is not None:
+        shape = fps_score_shape(xyz.shape[0], xyz.shape[1], npoint, buckets)
+        scores = draw_fps_scores(generator, level, shape, xyz.device)
+    fps_idx = bucketed_farthest_point_sample(xyz, valid, npoint,
+                                             buckets=buckets, scores=scores)
     return index_points(xyz, fps_idx), valid.gather(1, fps_idx)
 
 
 class SetAbstraction(nn.Module):
     def __init__(self, npoint, radius, nsample, in_channels, mlp,
-                 fps_buckets=1):
+                 fps_buckets=1, level=0):
         super().__init__()
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
-        self.fps_buckets = fps_buckets
+        self.fps_buckets, self.level = fps_buckets, level
         self.PointwiseMLP_0 = PointwiseMLP(in_channels, mlp)
 
     def forward(self, xyz, feats, valid, generator=None):
         new_xyz, new_valid = _sample(xyz, valid, self.npoint, generator,
-                                     self.fps_buckets)
+                                     self.fps_buckets, self.level)
         grouped = _group(xyz, feats, valid, new_xyz, self.radius,
                          self.nsample)
         x = self.PointwiseMLP_0(grouped)  # (B, S, K, C)
@@ -194,18 +209,18 @@ class SetAbstractionMsg(nn.Module):
     then a ball group and an MLP per scale, concatenated."""
 
     def __init__(self, npoint, radius_list, nsample_list, in_channels,
-                 mlp_list, fps_buckets=1):
+                 mlp_list, fps_buckets=1, level=0):
         super().__init__()
         self.npoint = npoint
         self.radius_list, self.nsample_list = radius_list, nsample_list
-        self.fps_buckets = fps_buckets
+        self.fps_buckets, self.level = fps_buckets, level
         for i, mlp in enumerate(mlp_list):
             self.add_module(f"PointwiseMLP_{i}",
                             PointwiseMLP(in_channels, mlp))
 
     def forward(self, xyz, feats, valid, generator=None):
         new_xyz, new_valid = _sample(xyz, valid, self.npoint, generator,
-                                     self.fps_buckets)
+                                     self.fps_buckets, self.level)
         outs = []
         for i, (radius, nsample) in enumerate(zip(self.radius_list,
                                                   self.nsample_list)):
@@ -241,7 +256,10 @@ class PointNet2(nn.Module):
     (B, N, 128), ``semantic_prediction_logits`` (B, N, 2) and
     ``offset_predictions`` (B, N, 3). ``fps_buckets`` 1 is the reference's
     exact FPS; more is the JAX package's blocked FPS. ``use_coords`` is
-    kept as a configuration entry only, as in the JAX package."""
+    kept as a configuration entry only, as in the JAX package. A
+    ``generator`` (training) picks each SA level's first FPS centroid at
+    random (:func:`draw_fps_scores`); without one it is the first valid
+    point."""
 
     def __init__(self, depth: int = 4, dim_feat: int = 4,
                  use_coords: bool = True, use_features: bool = True,
@@ -257,15 +275,18 @@ class PointNet2(nn.Module):
         widths = [in_ch]
         self.sa_names = []
         n_sa = n_msg = 0
-        for npoint, radius, nsample, mlp in SA_CONFIGS[depth]:
+        for level, (npoint, radius, nsample, mlp) in enumerate(
+                SA_CONFIGS[depth]):
             if isinstance(radius, tuple):
                 name, n_msg = f"SetAbstractionMsg_{n_msg}", n_msg + 1
                 module = SetAbstractionMsg(npoint, radius, nsample,
-                                           3 + widths[-1], mlp, fps_buckets)
+                                           3 + widths[-1], mlp, fps_buckets,
+                                           level)
             else:
                 name, n_sa = f"SetAbstraction_{n_sa}", n_sa + 1
                 module = SetAbstraction(npoint, radius, nsample,
-                                        3 + widths[-1], mlp, fps_buckets)
+                                        3 + widths[-1], mlp, fps_buckets,
+                                        level)
             self.add_module(name, module)
             self.sa_names.append(name)
             widths.append(_width(mlp))

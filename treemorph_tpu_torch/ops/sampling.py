@@ -92,20 +92,19 @@ def farthest_point_sample(
     xyz: torch.Tensor,  # (B, N, 3)
     valid: torch.Tensor,  # (B, N) bool
     npoint: int,
-    generator: torch.Generator | None = None,
+    scores: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Iterative farthest-point sampling over valid points: (B, npoint)
     int64 indices, one dependent step per sample. The first centroid is a
-    random valid point when a ``generator`` is given (reference behavior),
-    else the first valid point. If npoint exceeds the valid points,
-    selections repeat."""
+    random valid point when (B, N) uniform ``scores`` are given (reference
+    behavior): the valid point of the largest score. Without them it is
+    the first valid point. If npoint exceeds the valid points, selections
+    repeat."""
     b, n, _ = xyz.shape
     dev = xyz.device
     dist = torch.where(valid, 1e10, -1.0).float()
-    if generator is not None:
-        draws = torch.rand((b, n), generator=generator,
-                           device=generator.device).to(dev)
-        farthest = torch.where(valid, draws, -1.0).argmax(dim=1)
+    if scores is not None:
+        farthest = torch.where(valid, scores.to(dev), -1.0).argmax(dim=1)
     else:
         farthest = _first_valid(valid)
     centroids = torch.empty((b, npoint), dtype=torch.int64, device=dev)
@@ -119,23 +118,33 @@ def farthest_point_sample(
     return centroids
 
 
+def fps_score_shape(b: int, n: int, npoint: int, buckets: int) -> tuple:
+    """The shape of the uniform draw that picks the first centroids of
+    :func:`bucketed_farthest_point_sample`: one score per point, (B, N),
+    or per point of each bucket, (B * buckets, ceil(N / buckets))."""
+    g = max(1, min(buckets, npoint, n))
+    return (b, n) if g == 1 else (b * g, -(-n // g))
+
+
 def bucketed_farthest_point_sample(
     xyz: torch.Tensor,
     valid: torch.Tensor,
     npoint: int,
-    generator: torch.Generator | None = None,
     buckets: int = 16,
+    scores: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Blocked approximate FPS (the JAX package's
     ``bucketed_farthest_point_sample``): point ``i`` goes to bucket ``i %
     buckets``, exact FPS runs in every bucket at once for
     ``ceil(npoint / buckets)`` steps, and the buckets' selections are
     interleaved in FPS order; selections on padded rows become the first
-    valid point. ``buckets=1`` is exact FPS."""
+    valid point. ``buckets=1`` is exact FPS. ``scores``, of
+    :func:`fps_score_shape`, pick the first centroids as in
+    :func:`farthest_point_sample`."""
     b, n, _ = xyz.shape
     g = max(1, min(buckets, npoint, n))
     if g == 1:
-        return farthest_point_sample(xyz, valid, npoint, generator)
+        return farthest_point_sample(xyz, valid, npoint, scores)
     npad = -(-n // g) * g
     if npad != n:
         xyz = torch.nn.functional.pad(xyz, (0, 0, 0, npad - n))
@@ -144,7 +153,7 @@ def bucketed_farthest_point_sample(
     xb = xyz.reshape(b, m, g, 3).transpose(1, 2).reshape(b * g, m, 3)
     vb = valid.reshape(b, m, g).transpose(1, 2).reshape(b * g, m)
     q = -(-npoint // g)  # per-bucket quota
-    sub = farthest_point_sample(xb, vb, q, generator).reshape(b, g, q)
+    sub = farthest_point_sample(xb, vb, q, scores).reshape(b, g, q)
     glob = sub * g + torch.arange(g, device=xyz.device)[None, :, None]
     glob = glob.transpose(1, 2).reshape(b, g * q)[:, :npoint]
     ok = valid.gather(1, glob)
@@ -242,11 +251,12 @@ def sample_and_group(
     xyz: torch.Tensor,
     feats: torch.Tensor | None,
     valid: torch.Tensor,
-    generator: torch.Generator | None = None,
+    scores: torch.Tensor | None = None,
 ):
     """FPS + ball grouping: ``(new_xyz (B, S, 3), grouped (B, S, K, 3+C),
-    new_valid (B, S))``, grouped features ``[relative xyz, point feats]``."""
-    fps_idx = farthest_point_sample(xyz, valid, npoint, generator)
+    new_valid (B, S))``, grouped features ``[relative xyz, point feats]``;
+    ``scores`` pick the first centroids as in :func:`farthest_point_sample`."""
+    fps_idx = farthest_point_sample(xyz, valid, npoint, scores)
     new_xyz = index_points(xyz, fps_idx)
     new_valid = valid.gather(1, fps_idx)
     idx = query_ball_point(radius, nsample, xyz, new_xyz, valid)

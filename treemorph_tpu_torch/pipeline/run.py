@@ -6,10 +6,13 @@ run stage 1 (model offset + denoise: one forward per tree for TreeLearn
 and PTv3, rasters for PointNet2), stage 2 (upsampling, skipped above 1.5M
 points), stage 3 (QSM fitting), with per-cloud exception isolation.
 The config dict follows the schema of ``configs/pipeline_config.yaml``
-(the reference's ``PipelineExecution/pipeline_config.yaml``). Models are
-given by the caller: loading checkpoints from ``model_dirs`` is not ported
-yet. Every stage runs on one device, the CUDA device unless the caller
-names another.
+(the reference's ``PipelineExecution/pipeline_config.yaml``). The stage-1
+models are the caller's, or else the port's checkpoints under the config's
+``model_dirs`` (the reference's hardcoded registry, ``Pipeline.py:12-16``,
+becomes that mapping; :func:`load_pipeline_models`).
+``python -m treemorph_tpu_torch.scripts.exec_pipeline`` runs it from a
+config file. Every stage runs on one device, the CUDA device unless the
+caller names another.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import time
 
 import numpy as np
 
+from ..evaluation.model_loaders import load_model
 from ..utils.device import resolve_device
 from ..utils.io import load_cloud, save_cloud
 from .predict import make_predictions
@@ -30,7 +34,52 @@ logger = logging.getLogger("treemorph_tpu_torch.pipeline")
 
 UPSAMPLE_SKIP_THRESHOLD = 1_500_000  # reference Pipeline.py:144
 
+DEFAULT_MODEL_DIRS = {
+    "treelearn": [
+        os.path.join("ModelSaves", "TreeLearn", "offset"),
+        os.path.join("ModelSaves", "TreeLearn", "noise"),
+    ],
+    "pointnet2": [
+        os.path.join("ModelSaves", "PointNet2", "offset"),
+        os.path.join("ModelSaves", "PointNet2", "noise"),
+    ],
+    "pointtransformerv3": [
+        os.path.join("ModelSaves", "PointTransformerV3", "offset"),
+        os.path.join("ModelSaves", "PointTransformerV3", "noise"),
+    ],
+}
+
 SUPPORTED_EXT = (".txt", ".npy", ".laz", ".las")
+
+
+def load_pipeline_models(cfg: dict, model_type: str, device=None):
+    """The offset and noise :class:`Predictor`s of the config's
+    ``model_dirs`` registry (``[offset_dir, noise_dir]`` per family, each
+    holding the training CLI's ``P{n}`` checkpoints), on ``device``. Plot 3
+    is taken first, like the reference's "O_P3" / "N_P3"
+    (``Pipeline.py:31-35``), then any loaded plot; ``(None, None)`` where
+    stage 1 needs no model."""
+    predict_offset = cfg["stage1"]["predict_offset"]
+    denoise = cfg["stage1"]["denoise"]
+    if not (predict_offset or denoise) or model_type == "no_model":
+        return None, None
+    dirs = cfg.get("model_dirs", DEFAULT_MODEL_DIRS).get(model_type)
+    if dirs is None:
+        return None, None
+    offset_dir, noise_dir = dirs
+    models = load_model(model_type, offset_model_dir=offset_dir,
+                        noise_model_dir=noise_dir, device=device)
+
+    def pick(prefix):
+        for key in (f"{prefix}_P3", *sorted(models)):
+            if key.startswith(prefix) and key in models:
+                return models[key]
+        return None
+
+    return (
+        pick("O") if predict_offset else None,
+        pick("N") if denoise else None,
+    )
 
 
 def run_pipeline(cfg: dict, offset_model=None, noise_model=None,
@@ -38,7 +87,9 @@ def run_pipeline(cfg: dict, offset_model=None, noise_model=None,
     """Run the full stage1->2->3 pipeline over a directory of clouds, on
     ``device`` (the CUDA device unless named; raises without one).
 
-    The stage-1 models are given as :class:`Predictor`s on that device.
+    The stage-1 models may be given as :class:`Predictor`s on that device;
+    otherwise they are loaded from the config's ``model_dirs``
+    (:func:`load_pipeline_models`).
     """
     device = resolve_device(device)
     general = cfg["general"]
@@ -59,14 +110,9 @@ def run_pipeline(cfg: dict, offset_model=None, noise_model=None,
         logger.error("no supported clouds found in %s", input_dir)
         return []
 
-    needs_models = model_type != "no_model" and (
-        cfg["stage1"]["predict_offset"] or cfg["stage1"]["denoise"]
-    )
-    if needs_models and offset_model is None and noise_model is None:
-        raise NotImplementedError(
-            "loading checkpoints from model_dirs is not ported; pass "
-            "offset_model / noise_model"
-        )
+    if offset_model is None and noise_model is None:
+        offset_model, noise_model = load_pipeline_models(cfg, model_type,
+                                                         device)
 
     results = []
     for cloud_path in cloud_paths:

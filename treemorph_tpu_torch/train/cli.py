@@ -1,29 +1,40 @@
-"""Training CLI, the port's counterpart of ``scripts/train.py`` for
-TreeLearn and PTv3:
+"""Training CLI, the port's counterpart of ``scripts/train.py`` for all
+three families:
 
     python -m treemorph_tpu_torch.train.cli treelearn --data_root DIR \\
         [--test_plots 3 4 6 8] [--engine band --conv_dtype bfloat16] \\
         [--device cpu]
     python -m treemorph_tpu_torch.train.cli pointtransformerv3 \\
-        --data_root DIR [--batch_size 4] [--device cpu]
+        --data_root DIR [--batch_size 4] \\
+        [--engine band --dedup_divisor 4 --conv_dtype bfloat16]
+    python -m treemorph_tpu_torch.train.cli pointnet2 \\
+        --hierarchical_json R.json [...] [--minibatch_size 20] \\
+        [--per_minibatch_steps] [--depth 5]
+    python -m treemorph_tpu_torch.train.cli pointnet2 --raster_dir DIR
 
-Per-plot cross-validation over ``--test_plots`` (leave-one-plot-out over
-the ``plot_{n}.json`` manifests in ``--data_root``), AdamW (weight decay
-1e-3) with CosineAnnealingWarmRestarts(T_0=50, eta_min=1e-4), the x50 loss
-scale and global-norm clip 1.0, early stopping with best-checkpoint saves
-to ``{save_dir}/{name}_CV/P{plot}/``, loss multipliers and noise-cloud
-training. TreeLearn's level-0 voxel capacity is worked out from the
-fold's clouds (:func:`level0_capacity`). PTv3 is the pipeline's model at
-full width (``scripts/train.py:130-143``: features on, ``--dim_feat``,
-``--voxel_size``, ``--conv_dtype`` as its compute dtype, the gather stem),
-each step drawing its order shuffles and drop-path masks from a generator
-derived from ``--seed``. It runs on the CUDA device unless ``--device``
-names another, and raises without one. No YAML parser is needed.
+Per-plot cross-validation over ``--test_plots``: leave-one-plot-out over
+the ``plot_{n}.json`` manifests in ``--data_root``, over the raster files
+of ``--raster_dir`` (split by their ``{plot}_`` prefix, each raster a
+sample), or over the trees of ``--hierarchical_json`` (the rasterizer's
+AABB metadata, trees split by their key's plot prefix). In hierarchical
+mode the gradients of each tree batch's raster minibatches accumulate into
+one optimizer step (``--batch_size`` trees a step, the reference's
+semantics); ``--per_minibatch_steps`` steps once per minibatch instead.
+AdamW (weight decay 1e-3) with CosineAnnealingWarmRestarts(T_0=50,
+eta_min=1e-4), the x50 loss scale and global-norm clip 1.0, early stopping
+with best-checkpoint saves to ``{save_dir}/{name}_CV/P{plot}/``, loss
+multipliers and noise-cloud training. TreeLearn's level-0 voxel capacity is
+worked out from the fold's clouds (:func:`level0_capacity`). PTv3 is the
+pipeline's model at full width (``scripts/train.py:130-143``: features on,
+``--dim_feat``, ``--voxel_size``, ``--conv_dtype`` as its compute dtype,
+``--engine`` as its stem engine, ``pencil`` meaning gather, and
+``--dedup_divisor``), each step drawing its order shuffles and drop-path
+masks from a generator derived from ``--seed``; PointNet2 draws its FPS
+starts from it. It runs on the CUDA device unless ``--device`` names
+another, and raises without one. No YAML parser is needed.
 
-Not ported yet, and raising ``NotImplementedError``: training the
-``pointnet2`` family (its model serves, :mod:`..models.pointnet2`), raster
-training (``--raster_dir``, ``--hierarchical_json``), and PTv3's
-``--dedup_divisor`` and non-gather stems. It trains on one device.
+It trains on one device. PTv3's ``zpack`` and ``brick`` stems raise
+``NotImplementedError`` (ROADMAP.md queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -35,15 +46,8 @@ import os
 import numpy as np
 import torch
 
-_NOT_PORTED = {
-    "pointnet2": "training the pointnet2 family is not ported yet "
-                 "(ROADMAP.md queue 1 item 12b)",
-    "ptv3_stem": "PTv3 training with its dedup (--dedup_divisor) or its "
-                 "band and z-pack stems (--engine) is not wired into the "
-                 "CLI yet (ROADMAP.md queue 1 item 11c)",
-    "raster": "raster training (--raster_dir, --hierarchical_json) comes "
-              "with PointNet2's training (ROADMAP.md queue 1 item 12b)",
-}
+_STEM_TODO = ("PTv3's {} stem is not ported yet "
+              "(ROADMAP.md queue 1 item 17)")
 
 
 def parse_args(argv=None):
@@ -51,7 +55,9 @@ def parse_args(argv=None):
     p.add_argument("model", choices=["treelearn", "pointnet2",
                                      "pointtransformerv3"])
     p.add_argument("--data_root", type=str, default=None,
-                   help="directory with plot_{n}.json manifests")
+                   help="directory with plot_{n}.json manifests "
+                        "(required unless --raster_dir or "
+                        "--hierarchical_json)")
     p.add_argument("--save_dir", type=str, default="ModelSaves")
     p.add_argument("--name", type=str, default=None,
                    help="checkpoint run name (default: model family)")
@@ -70,8 +76,19 @@ def parse_args(argv=None):
     p.add_argument("--loss_multiplier_offset", type=float, default=1.0)
     p.add_argument("--test_plots", type=int, nargs="+", default=[3, 4, 6, 8])
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--raster_dir", type=str, default=None)
-    p.add_argument("--hierarchical_json", type=str, nargs="+", default=None)
+    p.add_argument("--raster_dir", type=str, default=None,
+                   help="train on rasterized crops (flattened mode, each "
+                        "raster a sample) from this rasterizer output "
+                        "directory")
+    p.add_argument("--hierarchical_json", type=str, nargs="+", default=None,
+                   help="train on trees cut into rasters by these AABB "
+                        "metadata JSONs: each tree batch's raster "
+                        "minibatches accumulate into one optimizer step")
+    p.add_argument("--minibatch_size", type=int, default=20,
+                   help="rasters per minibatch in hierarchical mode")
+    p.add_argument("--per_minibatch_steps", action="store_true",
+                   help="hierarchical mode: one optimizer step per raster "
+                        "minibatch instead of one per tree batch")
     p.add_argument("--fixed_modules", type=str, nargs="+", default=None,
                    help="freeze named top-level submodules for transfer "
                    "learning (reference TreeLearn fixed_modules)")
@@ -86,19 +103,22 @@ def parse_args(argv=None):
     p.add_argument("--voxel_size", type=float, default=None)
     p.add_argument("--num_blocks", type=int, default=3)
     p.add_argument("--channels", type=int, default=32)
+    p.add_argument("--depth", type=int, default=5, help="pointnet2 depth")
     p.add_argument("--dim_feat", type=int, default=4)
     p.add_argument("--engine", default="gather",
                    choices=["gather", "band", "zpack", "pencil", "brick"],
                    help="TreeLearn conv engine (band = the band conv "
                    "kernels; engines share one parameter layout, so "
                    "checkpoints are interchangeable); PTv3 stem engine "
-                   "(gather only, pencil meaning gather)")
+                   "(gather or band, pencil meaning gather)")
     p.add_argument("--conv_dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="conv compute dtype (f32 accumulation); PTv3's "
                         "compute dtype")
     p.add_argument("--dedup_divisor", type=int, default=None,
-                   help="PTv3 level-0 dedup (not ported yet)")
+                   help="PTv3: run level-0 convs once per unique voxel "
+                        "(cap = points // divisor; overflow is reported); "
+                        "None = off")
     p.add_argument("--device", default="cuda",
                    help="torch device (default: the CUDA device; raises "
                         "without one)")
@@ -135,6 +155,7 @@ def build(args, batch_size: int, voxel_size: float, capacity):
     """The family's model (initialized from ``--seed``, on the CPU), its
     (forward_fn, loss_fn) and the checkpoint metadata ``load_model``
     rebuilds the model from (``scripts/train.py::build``)."""
+    from ..models.pointnet2 import PointNet2
     from ..models.ptv3 import PointTransformerWithHeads
     from ..models.treelearn import TreeLearn
     from . import families
@@ -142,9 +163,16 @@ def build(args, batch_size: int, voxel_size: float, capacity):
     losses = (args.loss_multiplier_semantic, args.loss_multiplier_offset)
     metadata = {"model": args.model, "voxel_size": voxel_size,
                 "dim_feat": args.dim_feat}
+    if args.model == "pointnet2":
+        model = PointNet2(depth=args.depth, dim_feat=args.dim_feat)
+        metadata["depth"] = args.depth
+        return (families.init_pointnet2(model, args.seed),
+                families.pointnet2_family(*losses), metadata)
     if args.model == "pointtransformerv3":
         model = PointTransformerWithHeads(
             dim_feat=args.dim_feat, use_feats=True, voxel_size=voxel_size,
+            dedup_divisor=args.dedup_divisor,
+            stem_engine="gather" if args.engine == "pencil" else args.engine,
             compute_dtype=args.conv_dtype,
         )
         metadata["use_feats"] = True
@@ -167,17 +195,110 @@ def build(args, batch_size: int, voxel_size: float, capacity):
             metadata)
 
 
+def _plot_of(name: str) -> str:
+    """The plot prefix of a raster file or tree key ('3_12_raster4.npy',
+    '3_12' -> '3')."""
+    return os.path.basename(name).split("_")[0]
+
+
+def fold_datasets(args, plot):
+    """The CV fold holding out ``plot``: ``(trainset, valset)``."""
+    from ..data import (
+        HierarchicalRasterDataset,
+        RasterDataset,
+        get_plot_split,
+    )
+
+    if args.hierarchical_json is not None:
+        def make_ds(training):
+            ds = HierarchicalRasterDataset(
+                args.hierarchical_json, training=training,
+                noise_distance=args.noise_distance,
+                minibatch_size=args.minibatch_size,
+            )
+            ds.tree_keys = [k for k in ds.tree_keys
+                            if (_plot_of(k) == str(plot)) != training]
+            return ds
+
+        trainset, valset = make_ds(True), make_ds(False)
+    elif args.raster_dir is not None:
+        paths = sorted(os.path.join(args.raster_dir, f)
+                       for f in os.listdir(args.raster_dir)
+                       if f.endswith(".npy"))
+        test_paths = [q for q in paths if _plot_of(q) == str(plot)]
+        held_out = set(test_paths)
+        trainset = RasterDataset([q for q in paths if q not in held_out],
+                                 True, noise_distance=args.noise_distance)
+        valset = RasterDataset(test_paths, False,
+                               noise_distance=args.noise_distance)
+    else:
+        trainset, valset = get_plot_split(
+            args.data_root, plot, noise_distance=args.noise_distance,
+            noise_root=args.noise_root,
+        )
+    return trainset, valset
+
+
+def fold_batches(args, plot, trainset, valset):
+    """``(example, train_batches, val_batches, grouped)`` of the fold:
+    ``train_batches(epoch)`` yields groups of minibatches when ``grouped``
+    (hierarchical mode with accumulation), else batches."""
+    from ..data import (
+        batch_iterator,
+        hierarchical_batch_iterator,
+        hierarchical_group_iterator,
+    )
+
+    rng_np = np.random.default_rng(args.seed)
+    if args.hierarchical_json is None:
+        if len(trainset) == 0:
+            raise SystemExit(f"no training samples for plot {plot}")
+        example = next(batch_iterator(trainset, args.batch_size, args.bucket,
+                                      shuffle=False))
+        return (
+            example,
+            lambda epoch: batch_iterator(trainset, args.batch_size,
+                                         args.bucket, rng=rng_np),
+            lambda epoch: batch_iterator(valset, args.batch_size,
+                                         args.bucket, shuffle=False),
+            False,
+        )
+    try:
+        example = next(hierarchical_batch_iterator(trainset, args.bucket))
+    except StopIteration:
+        raise SystemExit(
+            f"no training rasters for plot {plot}: the hierarchical "
+            "metadata contains no trees outside the held-out plot (check "
+            "--hierarchical_json against --test_plots)"
+        ) from None
+    if args.per_minibatch_steps:
+        def train_batches(epoch):
+            return hierarchical_batch_iterator(trainset, args.bucket,
+                                               rng=rng_np)
+    else:
+        def train_batches(epoch):
+            return hierarchical_group_iterator(
+                trainset, args.bucket, rng=rng_np,
+                trees_per_step=args.batch_size)
+    return (
+        example, train_batches,
+        lambda epoch: hierarchical_batch_iterator(valset, args.bucket),
+        not args.per_minibatch_steps,
+    )
+
+
 def main(argv=None) -> dict:
     """Train every CV fold; returns ``{plot: history}``."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
-    from ..data import batch_iterator, get_plot_split
+    from ..data import RasterDataset, TreeDataset
     from ..utils.device import resolve_device
     from ..utils.early_stopping import EarlyStopper
     from .checkpoints import save_checkpoint
     from .harness import (
         TrainState,
+        make_accum_steps,
         make_eval_step,
         make_optimizer,
         make_train_step,
@@ -185,17 +306,13 @@ def main(argv=None) -> dict:
     )
     from .schedule import cosine_annealing_warm_restarts
 
-    if args.model in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[args.model])
-    if args.raster_dir is not None or args.hierarchical_json is not None:
-        raise NotImplementedError(_NOT_PORTED["raster"])
-    if args.model == "pointtransformerv3" and (
-        args.dedup_divisor is not None
-        or args.engine not in ("gather", "pencil")
-    ):
-        raise NotImplementedError(_NOT_PORTED["ptv3_stem"])
-    if args.data_root is None:
-        raise SystemExit("--data_root is required")
+    if (args.data_root is None and args.raster_dir is None
+            and args.hierarchical_json is None):
+        raise SystemExit("one of --data_root / --raster_dir / "
+                         "--hierarchical_json is required")
+    if args.model == "pointtransformerv3" and args.engine in ("zpack",
+                                                             "brick"):
+        raise NotImplementedError(_STEM_TODO.format(args.engine))
     device = resolve_device(args.device)
 
     name = args.name or args.model
@@ -203,15 +320,11 @@ def main(argv=None) -> dict:
     with torch.autograd.set_detect_anomaly(args.debug_nans):
         for plot in args.test_plots:
             logging.info("=== CV fold: test plot %s ===", plot)
-            trainset, valset = get_plot_split(
-                args.data_root,
-                plot,
-                noise_distance=args.noise_distance,
-                noise_root=args.noise_root,
-            )
+            trainset, valset = fold_datasets(args, plot)
             voxel_size = args.voxel_size or 0.02
             capacity = None
-            if args.model == "treelearn":
+            if args.model == "treelearn" and isinstance(
+                    trainset, (TreeDataset, RasterDataset)):
                 # random_scale grows a cloud by up to 5 %, its voxels by up
                 # to 1.05^3
                 capacity = level0_capacity(
@@ -223,22 +336,8 @@ def main(argv=None) -> dict:
                 from ..data.augmentations import default_augmentations
 
                 trainset.augment = default_augmentations()
-            rng_np = np.random.default_rng(args.seed)
-            example = next(
-                batch_iterator(
-                    trainset, args.batch_size, args.bucket, shuffle=False
-                )
-            )
-
-            def train_batches(epoch):
-                return batch_iterator(
-                    trainset, args.batch_size, args.bucket, rng=rng_np
-                )
-
-            def val_batches(epoch):
-                return batch_iterator(
-                    valset, args.batch_size, args.bucket, shuffle=False
-                )
+            example, train_batches, val_batches, grouped = fold_batches(
+                args, plot, trainset, valset)
 
             model, (forward_fn, loss_fn), metadata = build(
                 args, example.batch_size, voxel_size, capacity)
@@ -249,6 +348,8 @@ def main(argv=None) -> dict:
             )
             train_step = make_train_step(forward_fn, loss_fn, fixed)
             eval_step = make_eval_step(forward_fn, loss_fn)
+            accum_steps = (make_accum_steps(forward_fn, loss_fn, fixed)
+                           if grouped else None)
 
             ckpt_path = os.path.join(args.save_dir, f"{name}_CV", f"P{plot}")
             metadata.update(plot=plot, noise_distance=args.noise_distance)
@@ -269,6 +370,7 @@ def main(argv=None) -> dict:
                 ),
                 early_stopper=stopper,
                 verbose=args.verbose,
+                accum_steps=accum_steps,
                 seed=args.seed,
             )
             logging.info(

@@ -1,14 +1,13 @@
 """Model-family adapters: uniform (forward_fn, loss_fn) pairs for the
 harness.
 
-Port of the TreeLearn and PTv3 parts of ``treemorph_tpu/train/families.py``.
-The harness hands over a :class:`~treemorph_tpu_torch.data.PaddedBatch` of
-tensors and, in a train step, the step's ``torch.Generator``; the models
-consume the flat layout, so the adapters reshape (views, no copies).
-TreeLearn draws nothing at random; PTv3 draws its order shuffles and
-stochastic-depth masks from the step's generator. PointNet2's family
-(``pointnet2_family``) is not ported yet: the model serves, its training
-is ROADMAP.md queue 1 item 12b.
+Port of ``treemorph_tpu/train/families.py``. The harness hands over a
+:class:`~treemorph_tpu_torch.data.PaddedBatch` of tensors and, in a train
+step, the step's ``torch.Generator``. The voxel models consume the flat
+layout, so their adapters reshape (views, no copies); PointNet2 takes the
+padded batch as it is. TreeLearn draws nothing at random; PTv3 draws its
+order shuffles and stochastic-depth masks from the step's generator,
+PointNet2 the first centroid of each level's farthest-point sampling.
 """
 
 from __future__ import annotations
@@ -19,7 +18,39 @@ import torch
 
 from ..models import ptv3
 from ..models.loss import point_wise_loss
+from ..models.pointnet2 import PointNet2, pointnet2_loss
 from ..models.treelearn import TreeLearn, treelearn_loss
+
+
+def pointnet2_family(
+    loss_multiplier_semantic: float = 1.0,
+    loss_multiplier_offset: float = 1.0,
+) -> tuple[Callable, Callable]:
+    """(forward_fn, loss_fn) for the harness, PointNet2 flavor. In train
+    mode BatchNorm normalizes with batch statistics and updates its running
+    ones, and the step's generator draws each level's first FPS centroid
+    (the JAX family hands the step key to the model as ``fps_rng``); eval
+    mode starts FPS at the first valid point."""
+
+    def forward_fn(model: PointNet2, batch, train: bool, generator=None):
+        return model.train(train)(batch.coords, batch.feats,
+                                  batch.mask_valid,
+                                  generator if train else None)
+
+    def loss_fn(output, batch):
+        return pointnet2_loss(
+            output,
+            batch,
+            loss_multiplier_semantic=loss_multiplier_semantic,
+            loss_multiplier_offset=loss_multiplier_offset,
+        )
+
+    return forward_fn, loss_fn
+
+
+def init_pointnet2(model: PointNet2, seed: int = 0) -> PointNet2:
+    """``model`` with flax's initializers drawn from ``seed``."""
+    return model.reset_parameters(torch.Generator().manual_seed(seed))
 
 
 def _flatten_padded(batch) -> dict:

@@ -9,9 +9,10 @@ AdamW with decoupled weight decay, a per-epoch learning rate, early stopping
 with best-checkpoint saves, and the same per-epoch history records.
 
 The train state is the model itself (parameters and BatchNorm running
-statistics, updated in place) with its optimizer and a step count. Data
-parallelism (the JAX package's ``mesh`` path) and the gradient-accumulation
-steps of hierarchical raster training are not ported yet and raise.
+statistics, updated in place) with its optimizer and a step count.
+Hierarchical raster training accumulates the gradients of a group of
+minibatches into one optimizer step (:func:`make_accum_steps`). Data
+parallelism (the JAX package's ``mesh`` path) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -110,36 +111,79 @@ def make_train_step(
     statistics, as in the JAX package."""
     if mesh is not None:
         raise NotImplementedError(_MESH_TODO)
-    fixed = tuple(fixed_modules)
+    accumulate = _make_backward(forward_fn, loss_fn, fixed_modules)
 
     def train_step(state: TrainState, batch, lr: float, generator=None):
-        model = state.model.train()
+        state.model.zero_grad(set_to_none=True)
+        metrics = accumulate(state.model, batch, generator)
+        optimizer_step(state.optimizer, lr)
+        state.step += 1
+        return state, metrics
+
+    return train_step
+
+
+def _make_backward(forward_fn: Callable, loss_fn: Callable,
+                   fixed_modules: tuple):
+    """``(model, batch, generator) -> metrics``: the train-mode forward,
+    the loss and the backward of ``loss x 50``, which adds into each
+    parameter's ``.grad``; the ``fixed_modules``' BN running statistics
+    are put back as they were."""
+    fixed = tuple(fixed_modules)
+
+    def backward(model: nn.Module, batch, generator):
+        model.train()
         pinned = {
             name: buf.clone() for name, buf in model.named_buffers()
             if _is_fixed(name, fixed)
         }
         out = forward_fn(model, batch, True, generator)
         loss, loss_dict = loss_fn(out, batch)
-        model.zero_grad(set_to_none=True)
         (loss * LOSS_BACKWARD_SCALE).backward()
         with torch.no_grad():
             for name, value in pinned.items():
                 model.get_buffer(name).copy_(value)
-        optimizer_step(state.optimizer, lr)
-        state.step += 1
         metrics = {"loss": loss, **loss_dict}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return {k: v.detach() for k, v in metrics.items()}
 
-    return train_step
+    return backward
 
 
-def make_accum_steps(*args, **kwargs):
-    """The gradient-accumulation steps of hierarchical raster training
-    come with PointNet2's training (ROADMAP.md queue 1 item 12b)."""
-    raise NotImplementedError(
-        "gradient-accumulation (hierarchical raster) training is not "
-        "ported yet (ROADMAP.md queue 1 item 12b)"
-    )
+def make_accum_steps(
+    forward_fn: Callable,
+    loss_fn: Callable,
+    fixed_modules: tuple = (),
+    mesh=None,
+):
+    """The gradient-accumulation step pair of hierarchical raster training
+    (the JAX package's ``make_accum_steps``; the reference's one optimizer
+    step per tree batch, ``train_utils.py:46-62``, ``PointNet2.py:296``).
+    Returns ``(accum_step, apply_step)``:
+
+    - ``accum_step(state, batch, generator=None) -> (state, metrics)``:
+      forward and backward of one minibatch, its ``loss x 50`` gradient
+      added into ``.grad`` (torch's own accumulation); BN running
+      statistics update per minibatch, the ``fixed_modules``' stay pinned.
+      Start a group with ``state.model.zero_grad(set_to_none=True)``.
+    - ``apply_step(state, lr) -> state``: one :func:`optimizer_step` on the
+      accumulated gradient (the global-norm clip sees the sum), then the
+      gradients are cleared.
+
+    :func:`run_training` drives the pair over groups of minibatches."""
+    if mesh is not None:
+        raise NotImplementedError(_MESH_TODO)
+    accumulate = _make_backward(forward_fn, loss_fn, fixed_modules)
+
+    def accum_step(state: TrainState, batch, generator=None):
+        return state, accumulate(state.model, batch, generator)
+
+    def apply_step(state: TrainState, lr: float):
+        optimizer_step(state.optimizer, lr)
+        state.model.zero_grad(set_to_none=True)
+        state.step += 1
+        return state
+
+    return accum_step, apply_step
 
 
 def make_eval_step(forward_fn: Callable, loss_fn: Callable, mesh=None):
@@ -182,11 +226,15 @@ def run_training(
     (reference ``run_training``, train_utils.py:130-197). Each batch moves
     to the model's device once; each train step gets a generator of its
     own, seeded in turn from one seeded by ``seed`` (the JAX harness splits
-    its key once per step). Returns ``(state, history)``."""
+    its key once per step). Returns ``(state, history)``.
+
+    With ``accum_steps=(accum_step, apply_step)`` (:func:`make_accum_steps`)
+    ``train_batches(epoch)`` yields groups, iterables of minibatches: each
+    minibatch gets its own generator and adds its gradient, and each group
+    that held a minibatch takes one optimizer step; ``train_step`` is then
+    unused."""
     if mesh is not None:
         raise NotImplementedError(_MESH_TODO)
-    if accum_steps is not None:
-        make_accum_steps()
     device = next(state.model.parameters()).device
     run_generator = torch.Generator().manual_seed(seed)
 
@@ -198,11 +246,24 @@ def run_training(
     for epoch in range(epochs):
         lr = float(lr_schedule(epoch))
         t0 = time.time()
-        train_metrics = [
-            train_step(state, to_device(batch, device), lr,
-                       step_generator())[1]
-            for batch in train_batches(epoch)
-        ]
+        train_metrics = []
+        if accum_steps is not None:
+            accum_step, apply_step = accum_steps
+            for group in train_batches(epoch):
+                state.model.zero_grad(set_to_none=True)
+                n_minibatches = 0
+                for batch in group:
+                    state, metrics = accum_step(
+                        state, to_device(batch, device), step_generator())
+                    train_metrics.append(metrics)
+                    n_minibatches += 1
+                if n_minibatches:
+                    state = apply_step(state, lr)
+        else:
+            for batch in train_batches(epoch):
+                state, metrics = train_step(
+                    state, to_device(batch, device), lr, step_generator())
+                train_metrics.append(metrics)
         val_metrics = [
             eval_step(state, to_device(batch, device))
             for batch in val_batches(epoch)
