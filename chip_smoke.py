@@ -199,6 +199,31 @@ Training the other families (13a-13d, on the training plots above):
      held-out tree with stage 2's target lowered: points kept, cylinders,
      the CSV written.
 
+The JAX package's checkpoints and labeling (14a-14c, run after phase 4,
+whose cylinder CSV 14b takes):
+
+14a. The JAX package's TreeLearn checkpoint committed under
+     ``tests/data/jax_treelearn_P3/`` (orbax, the pipeline's width, the
+     noise head's final bias at [5, -5]) read by the port's orbax reader,
+     every leaf's SHA-256 against ``arrays.sha256.json``; copied as
+     ``offset/TreeLearn_O_P3`` and ``noise/TreeLearn_N_P3``, loaded by
+     ``load_model`` (card and CPU), then served as phase 4 serves (band,
+     bf16, voxel capacity P / 2): stage 1 card against CPU at phase 3's
+     limits, and the plot through ``run_pipeline`` (kept points, >= 1M
+     upsampled, > 0 cylinders, 42 band launches a ``predict_single``);
+     the reader's and ``load_model``'s seconds.
+14b. The plot labeled against phase 4's fitted cylinders:
+     ``generate_offset_cloud`` and ``add_features`` on the card (twice)
+     and on the CPU; ids, offsets, normals and heights card against CPU;
+     seconds, pairs per second, peak device memory, the projection's
+     bound.
+14c. ``python -m treemorph_tpu_torch.scripts.preprocess`` ``label``,
+     ``noise`` (both on the card) and ``split`` over 30 raw synthetic
+     trees and their QSM CSVs, then the TreeLearn training CLI (band,
+     bf16, ``--noise_root``) for one epoch on what they wrote: files of
+     11 finite columns, manifests naming every tree, finite losses,
+     ``band_conv_bwd`` launches counted.
+
 The last two lines are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``. Float32 matmuls and convolutions run
 without TF32 (set below) so f32 comparisons are full precision.
@@ -209,6 +234,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -753,8 +779,13 @@ def tc_bound(nbytes: float, flops: float, rate_passes) -> dict:
             "bound_tc_by": "bytes" if bytes_s > ops_s else "operations"}
 
 
-def phase_stage1_card_vs_cpu(points, device):
+def phase_stage1_card_vs_cpu(points, device, models=None, name="phase 3"):
+    """Stage 1's offset forward on a 20,000-point cut, card against CPU:
+    ``models(device)`` gives the (offset, noise) predictors on a device
+    (default :func:`pipeline_models`)."""
     import numpy as np
+
+    models = models or pipeline_models
 
     from treemorph_tpu_torch.pipeline.predict import _pad_flat
 
@@ -764,7 +795,7 @@ def phase_stage1_card_vs_cpu(points, device):
     feats = np.zeros((len(cut), 4), np.float32)
     outs = []
     for dev in (device, "cpu"):
-        offset_model, _ = pipeline_models(dev)
+        offset_model, _ = models(dev)
         coords, f, b, v, n = _pad_flat(cut, feats, device=dev)
         res = offset_model.predict_flat(coords, f, b, v)
         outs.append({
@@ -785,7 +816,7 @@ def phase_stage1_card_vs_cpu(points, device):
     if not (finite and off_err <= STAGE1_OFFSET_RTOL * off_scale
             and agree >= STAGE1_ARGMAX_AGREEMENT):
         raise AssertionError("stage 1 on the card disagrees with the CPU")
-    log("phase 3 ok")
+    log(f"{name} ok")
 
 
 class _RetryCounter(logging.Handler):
@@ -799,14 +830,15 @@ class _RetryCounter(logging.Handler):
 
 
 def plot_end_to_end(cloud, model_type, models, device, kernel, per_forward,
-                    overflow_routes=None):
+                    overflow_routes=None, csv_out=None):
     """``run_pipeline`` on ``cloud`` with ``model_type``'s offset and noise
     predictors ``models``, then the same stages one by one, timed, with the
     run's peak device memory. Checks the run and that ``kernel`` launched
     ``per_forward`` times in each forward, less the calls that
     ``overflow_routes`` (a counter the run adds to, such as the band convs'
     ``GATHER_ROUTES``) sent elsewhere (``kernel`` None: a family whose
-    path has no hand kernel); returns its launches and the stage record."""
+    path has no hand kernel); returns its launches and the stage record.
+    ``csv_out``: a path the run's cylinder CSV is copied to."""
     import numpy as np
     import torch
 
@@ -864,6 +896,8 @@ def plot_end_to_end(cloud, model_type, models, device, kernel, per_forward,
             log(f"  {'ok ' if ok else 'FAIL'} {name}")
         if not all(checks.values()):
             raise AssertionError(f"{model_type} end-to-end checks failed")
+        if csv_out is not None:
+            shutil.copyfile(csv, csv_out)
 
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -893,12 +927,13 @@ def plot_end_to_end(cloud, model_type, models, device, kernel, per_forward,
     return launches, record
 
 
-def phase_end_to_end(points, device):
+def phase_end_to_end(points, device, csv_out=None):
     from treemorph_tpu_torch.ops import bandconv
 
     launches, _ = plot_end_to_end(points, "treelearn",
                                   pipeline_models(device), device,
-                                  "band_conv", 21, bandconv.GATHER_ROUTES)
+                                  "band_conv", 21, bandconv.GATHER_ROUTES,
+                                  csv_out=csv_out)
     log("phase 4 ok")
     return launches
 
@@ -4266,6 +4301,367 @@ def phase_pipeline_cli(root, checkpoints, device):
     return record
 
 
+#: 14a: the JAX package's TreeLearn deployment checkpoint (orbax, written by
+#: ``treemorph_tpu/train/checkpoints.py::save_model_checkpoint`` at the
+#: pipeline's width, the noise head's final bias at [5, -5]) and the
+#: SHA-256 of each of its leaves, committed under tests/data
+JAX_CHECKPOINT = os.path.join(REPO, "tests", "data", "jax_treelearn_P3")
+#: 14b: labeling the plot on the card against the CPU (the same port
+#: functions): cylinder ids agree on this share of the points, and offsets
+#: within LABEL_OFFSET_RTOL of the cloud's extent where they do; normals
+#: |dot| >= NORMAL_MIN_DOT on NORMAL_AGREEMENT of the points (a point
+#: whose two smallest covariance eigenvalues nearly tie has no settled
+#: normal); relative heights within HEIGHT_ATOL
+LABEL_ID_AGREEMENT = 0.999
+LABEL_OFFSET_RTOL = 1e-4
+NORMAL_MIN_DOT, NORMAL_AGREEMENT = 0.999, 0.999
+HEIGHT_ATOL = 1e-6
+#: 14c: raw synthetic trees drawn as scripts/bench_training.py:39-44 draws
+#: them (``default_rng(0)``, 4,000 points/m^2), written as plots 1 and 2 of
+#: 15 trees each (the CV fold trains on plot 1 and validates on plot 2);
+#: trees per training step
+LABEL_TREES, LABEL_PLOT_TREES, LABEL_TRAIN_BATCH = 30, 15, 5
+#: f32 operations per point-cylinder pair of ``ops/projection.py::
+#: _project_tile`` (its subtractions, products, sums, clamps, square
+#: roots, divisions, selects and the argmin, counted from the code), and
+#: the bytes per point (xyz in; id, distance and offset out) and per
+#: cylinder (start, unit axis, length, radius, id, valid) of
+#: ``closest_cylinder``: the projection's bound in 14b
+PROJECTION_OPS_PER_PAIR = 69
+PROJECTION_BYTES_PER_POINT, PROJECTION_BYTES_PER_CYLINDER = 12 + 20, 37
+
+
+def leaf_sha256(tree, path=()) -> dict:
+    """SHA-256 of each leaf's bytes of a checkpoint the orbax reader read,
+    keyed by its '/'-joined key path (a bfloat16 tensor as its 16-bit
+    patterns, a Python number as its repr)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    out = {}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        key = path + (str(k),)
+        if isinstance(v, (dict, list)):
+            out.update(leaf_sha256(v, key))
+            continue
+        if isinstance(v, torch.Tensor):
+            data = v.view(torch.int16).numpy().tobytes()
+        elif isinstance(v, (int, float)):
+            data = repr(v).encode()
+        else:
+            data = np.ascontiguousarray(v).tobytes()
+        out["/".join(key)] = hashlib.sha256(data).hexdigest()
+    return out
+
+
+def jax_serving_models(loaded, device):
+    """Phase 4's serving TreeLearn (band engine, bf16, voxel capacity P / 2)
+    on ``device``, holding the weights ``load_model`` read from the JAX
+    checkpoint: the (offset, noise) predictors of plot 3."""
+    from treemorph_tpu_torch.evaluation.model_loaders import (
+        Predictor,
+        build_model,
+    )
+
+    out = []
+    for key in ("O_P3", "N_P3"):
+        model = build_model("treelearn", voxel_capacity_divisor=2,
+                            engine="band", conv_dtype="bfloat16",
+                            device=device)
+        model.load_state_dict(loaded[key].model.state_dict())
+        out.append(Predictor("treelearn", model, device))
+    return tuple(out)
+
+
+def phase_jax_checkpoint(points, device):
+    """14a: the committed JAX checkpoint read by the port's orbax reader
+    (every leaf's SHA-256 as recorded), copied as the offset and noise
+    model directories of plot 3 (``TreeLearn_{O,N}_P3``), loaded by
+    ``load_model`` on the card and on the CPU, then served as phase 4
+    serves: stage 1 card against CPU at phase 3's limits, and the plot
+    through ``run_pipeline`` (kept points, >= MIN_POINTS upsampled, > 0
+    cylinders, 21 band launches a forward)."""
+    import numpy as np
+
+    from treemorph_tpu_torch.evaluation.model_loaders import load_model
+    from treemorph_tpu_torch.ops import bandconv
+    from treemorph_tpu_torch.train.orbax_reader import read_checkpoint
+
+    src = os.path.join(JAX_CHECKPOINT, "checkpoint")
+    t0 = time.perf_counter()
+    tree = read_checkpoint(src)
+    read_s = time.perf_counter() - t0
+    with open(os.path.join(JAX_CHECKPOINT, "arrays.sha256.json")) as f:
+        want = json.load(f)
+    got = leaf_sha256(tree)
+    mismatched = sorted(k for k in want.keys() | got.keys()
+                        if want.get(k) != got.get(k))
+    params = sum(np.asarray(v).size
+                 for v in leaf_arrays(tree["params"]))
+    log(f"14a: orbax reader {read_s:.3f} s, {len(got)} leaves, {params} "
+        f"parameters, SHA-256 mismatches {len(mismatched)} "
+        f"{mismatched[:5]}")
+    if mismatched or not got:
+        raise AssertionError("14a: the checkpoint's leaves differ from "
+                             "arrays.sha256.json")
+    loaded, load_s = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        dirs = []
+        for role, tag in (("offset", "O"), ("noise", "N")):
+            dst = os.path.join(root, role, f"TreeLearn_{tag}_P3")
+            shutil.copytree(src, dst)
+            shutil.copyfile(src + ".metadata.json", dst + ".metadata.json")
+            dirs.append(os.path.dirname(dst))
+        for dev in (device, "cpu"):
+            t0 = time.perf_counter()
+            loaded[str(dev)] = load_model("treelearn", *dirs, device=dev)
+            load_s[str(dev)] = time.perf_counter() - t0
+    log(f"14a: load_model {json.dumps(load_s)} s, predictors "
+        f"{sorted(loaded[str(device)])}")
+    if sorted(loaded[str(device)]) != ["N_P3", "O_P3"]:
+        raise AssertionError("14a: load_model found no O_P3 / N_P3")
+
+    def models(dev):
+        return jax_serving_models(loaded["cpu" if str(dev) == "cpu"
+                                         else str(device)], dev)
+
+    phase_stage1_card_vs_cpu(points, device, models, "phase 14a stage 1")
+    _, record = plot_end_to_end(points, "treelearn", models(device), device,
+                                "band_conv", 21, bandconv.GATHER_ROUTES)
+    record.update(reader_seconds=read_s, load_model_seconds=load_s,
+                  leaves=len(got), params=params)
+    log(json.dumps({"jax_checkpoint": record}))
+    log("phase 14a ok")
+    return record
+
+
+def leaf_arrays(tree):
+    for v in (tree.values() if isinstance(tree, dict) else tree):
+        if isinstance(v, (dict, list)):
+            yield from leaf_arrays(v)
+        else:
+            yield v
+
+
+def phase_label_plot(points, csv_path, device):
+    """14b: phase 4's raw plot labeled against the cylinders its stage 3
+    fitted: ``generate_offset_cloud`` (the (N, M) projection in 4,096-point
+    tiles) and ``add_features`` (normals from the 15-NN covariance, relative
+    height), on the card (twice: the first call and a second one) and on
+    the CPU; ids, offsets, normals and heights held card against CPU;
+    seconds, point-cylinder pairs per second and peak device memory."""
+    import numpy as np
+    import torch
+
+    from treemorph_tpu_torch.ops.features import add_features
+    from treemorph_tpu_torch.ops.projection import generate_offset_cloud
+    from treemorph_tpu_torch.utils.table import Table
+
+    qsm = Table.read_csv(csv_path)
+    pairs = len(points) * len(qsm)
+    bytes_ms = 1e3 * (len(points) * PROJECTION_BYTES_PER_POINT
+                      + len(qsm) * PROJECTION_BYTES_PER_CYLINDER) \
+        / HBM_BYTES_PER_S
+    ops_ms = 1e3 * pairs * PROJECTION_OPS_PER_PAIR / F32_FLOPS
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    log(f"14b: {len(points)} points x {len(qsm)} cylinders = {pairs} "
+        f"point-cylinder pairs; the projection's bound {bound_ms:.4f} ms "
+        f"({bound_by})")
+    out, record = {}, {"points": len(points), "cylinders": len(qsm),
+                       "pairs": pairs, "projection_bound_ms": bound_ms,
+                       "projection_bound_by": bound_by}
+    for dev, runs in ((device, 2), ("cpu", 1)):
+        for run in range(runs):
+            card = dev != "cpu"
+            if card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            labeled = generate_offset_cloud(points, qsm, device=dev)
+            if card:
+                torch.cuda.synchronize()
+                proj_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+                torch.cuda.reset_peak_memory_stats(dev)
+            t1 = time.perf_counter()
+            full = add_features(labeled, device=dev)
+            if card:
+                torch.cuda.synchronize()
+                feat_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            t2 = time.perf_counter()
+            tag = f"{'card' if card else 'cpu'}{run if card else ''}"
+            record[tag] = {
+                "projection_seconds": t1 - t0,
+                "pairs_per_second": pairs / (t1 - t0),
+                "features_seconds": t2 - t1,
+                **({"projection_peak_gb": proj_peak,
+                    "features_peak_gb": feat_peak} if card else {}),
+            }
+            log(f"14b {tag}: {json.dumps(record[tag])}")
+        out[dev != "cpu"] = full
+    card, cpu = out[True], out[False]
+    same = card[:, 6] == cpu[:, 6]
+    extent = float(np.ptp(points, axis=0).max())
+    off_err = float(np.abs(card[same, 3:6] - cpu[same, 3:6]).max())
+    dots = np.abs((card[:, 7:10] * cpu[:, 7:10]).sum(axis=1))
+    height_err = float(np.abs(card[:, 10] - cpu[:, 10]).max())
+    record.update(id_agreement=float(same.mean()), offset_max_err=off_err,
+                  extent=extent,
+                  normal_agreement=float((dots >= NORMAL_MIN_DOT).mean()),
+                  normal_min_dot=float(dots.min()), height_max_err=height_err)
+    checks = {
+        "11 finite columns": card.shape == (len(points), 11)
+        and bool(np.isfinite(card).all()),
+        f"ids agree on >= {LABEL_ID_AGREEMENT}":
+            same.mean() >= LABEL_ID_AGREEMENT,
+        f"offsets within {LABEL_OFFSET_RTOL} x extent":
+            off_err <= LABEL_OFFSET_RTOL * extent,
+        f"normals |dot| >= {NORMAL_MIN_DOT} on >= {NORMAL_AGREEMENT}":
+            (dots >= NORMAL_MIN_DOT).mean() >= NORMAL_AGREEMENT,
+        f"heights within {HEIGHT_ATOL}": height_err <= HEIGHT_ATOL,
+    }
+    for name, ok in checks.items():
+        log(f"  {'ok ' if ok else 'FAIL'} {name}")
+    log(json.dumps({"label_plot": record}))
+    if not all(checks.values()):
+        raise AssertionError("14b labeling checks failed")
+    log("phase 14b ok")
+    return record
+
+
+def write_raw_training_trees(raw_dir, qsm_dir):
+    """14c's raw trees (:data:`LABEL_TREES`) and their QSM CSVs, named
+    ``{plot}_{tree}``."""
+    import numpy as np
+
+    from treemorph_tpu_torch.fixtures import (
+        synthetic_qsm,
+        synthetic_tree_cloud,
+    )
+
+    os.makedirs(raw_dir)
+    os.makedirs(qsm_dir)
+    rng = np.random.default_rng(0)
+    sizes = []
+    for i in range(LABEL_TREES):
+        qsm = synthetic_qsm(rng=rng)
+        pts, _ = synthetic_tree_cloud(qsm=qsm, points_per_m2=4000, rng=rng)
+        stem = f"{1 + i // LABEL_PLOT_TREES}_{i}"
+        np.save(os.path.join(raw_dir, f"{stem}.npy"), pts)
+        qsm.to_csv(os.path.join(qsm_dir, f"{stem}_000000.csv"))
+        sizes.append(len(pts))
+    return sizes
+
+
+def phase_preprocess_cli(device):
+    """14c: ``python -m treemorph_tpu_torch.scripts.preprocess`` ``label``
+    (on the card), ``noise`` (on the card) and ``split`` over raw synthetic
+    trees and their QSMs, then the TreeLearn training CLI (band engine,
+    bf16, the noise clouds as ``--noise_root``) for one epoch on what they
+    wrote: every labeled and noise file (N, 11) and finite, the manifests
+    naming every tree, the losses finite, ``band_conv_bwd`` launched
+    ``BWD_PER_STEP`` times per backbone pass (two a step: the cloud and its
+    noise cloud)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from treemorph_tpu_torch.ops import bandconv
+    from treemorph_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from treemorph_tpu_torch.train import cli
+
+    record, checks = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        raw, qsm, data = (os.path.join(root, d)
+                          for d in ("raw", "qsm", "data"))
+        t0 = time.perf_counter()
+        sizes = write_raw_training_trees(raw, qsm)
+        record["raw_trees"] = {"seconds": time.perf_counter() - t0,
+                               "points": sizes}
+        commands = {
+            "label": ["--cloudDir", raw, "--cylinderDir", qsm, "--labelDir",
+                      os.path.join(data, "cloud"), "--device", str(device)],
+            "noise": ["--cylinderDir", qsm, "--labelDir",
+                      os.path.join(data, "noise"), "--device", str(device)],
+            "split": ["--data_root", data],
+        }
+        for command, args in commands.items():
+            cmd = [sys.executable, "-m",
+                   "treemorph_tpu_torch.scripts.preprocess", command, *args]
+            log("14c: " + " ".join(cmd[1:]))
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=REPO, capture_output=True,
+                                  text=True, timeout=600)
+            record[command] = {"seconds": time.perf_counter() - t0,
+                               "stdout": proc.stdout.strip()}
+            log(f"14c {command}: {proc.stdout.strip()} "
+                f"({record[command]['seconds']:.1f} s with the process "
+                "start)")
+            if proc.returncode != 0:
+                log(proc.stderr[-4000:])
+                raise AssertionError(f"14c: preprocess {command} exited "
+                                     f"{proc.returncode}")
+        for kind in ("cloud", "noise"):
+            names = sorted(os.listdir(os.path.join(data, kind)))
+            arrays = [np.load(os.path.join(data, kind, n)) for n in names]
+            checks[f"{kind}: {LABEL_TREES} files"] = \
+                len(names) == LABEL_TREES
+            checks[f"{kind}: (N, 11), no NaN"] = all(
+                a.ndim == 2 and a.shape[1] == 11 and np.isfinite(a).all()
+                for a in arrays)
+            record[f"{kind}_points"] = [len(a) for a in arrays]
+        labeled = sorted(os.path.join(data, "cloud", n)
+                         for n in os.listdir(os.path.join(data, "cloud")))
+        manifests = {}
+        for name in ("plot_1", "plot_2", "trainset", "testset"):
+            with open(os.path.join(data, f"{name}.json")) as f:
+                manifests[name] = json.load(f)
+        checks["plot manifests name every tree"] = sorted(
+            manifests["plot_1"] + manifests["plot_2"]) == labeled
+        checks["train and test sets name every tree"] = sorted(
+            manifests["trainset"] + manifests["testset"]) == labeled
+
+        argv = ["treelearn", "--data_root", data, "--test_plots", "2",
+                "--epochs", "1", "--batch_size", str(LABEL_TRAIN_BATCH),
+                "--bucket", str(TRAIN_POINTS), "--engine", "band",
+                "--conv_dtype", "bfloat16", "--noise_root",
+                os.path.join(data, "noise"), "--save_dir",
+                os.path.join(root, "saves"), "--device", str(device)]
+        log("14c: python -m treemorph_tpu_torch.train.cli " + " ".join(argv))
+        bandconv.GATHER_ROUTES.clear()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        history = cli.main(argv)[2]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        routes = dict(bandconv.GATHER_ROUTES)
+    steps = -(-LABEL_PLOT_TREES // LABEL_TRAIN_BATCH)
+    expected = 2 * BWD_PER_STEP * steps
+    bwd = launches.get("band_conv_bwd", 0)
+    losses = [r[k] for r in history for k in ("train_loss", "val_loss")]
+    record["train"] = {"seconds": secs, "steps": steps, "history": history,
+                       "launches": launches, "gather_routes": routes}
+    log(f"14c training CLI: {secs:.2f} s, {steps} steps, launches "
+        f"{launches}, GATHER_ROUTES {routes}, history {history}")
+    checks["one epoch, losses finite"] = len(history) == 1 and all(
+        math.isfinite(x) for x in losses)
+    checks[f"band_conv_bwd launches {expected}"] = (
+        bwd == expected if not routes else 0 < bwd <= expected)
+    for name, ok in checks.items():
+        log(f"  {'ok ' if ok else 'FAIL'} {name}")
+    log(json.dumps({"preprocess_cli": record}))
+    if not all(checks.values()):
+        raise AssertionError("14c preprocessing chain checks failed")
+    log("phase 14c ok")
+    return bwd, record
+
+
 def pipeline_config(input_dir: str, output_dir: str,
                     model_type: str = "treelearn") -> dict:
     """``configs/pipeline_config.yaml`` as a dict (no YAML parser needed),
@@ -4329,7 +4725,14 @@ def main() -> int:
     log(f"e2e cloud: {len(points)} raw points")
     fwd_record, _ = phase_kernel_vs_plain(points, device)
     phase_stage1_card_vs_cpu(points, device)
-    fwd_launches = phase_end_to_end(points, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = os.path.join(tmp, "plot_cylinders.csv")
+        fwd_launches = phase_end_to_end(points, device, csv_out=csv)
+        t1 = time.perf_counter()
+        phase_jax_checkpoint(points, device)
+        phase_label_plot(points, csv, device)
+        phase_preprocess_cli(device)
+        log(f"phases 14a-14c: {time.perf_counter() - t1:.1f} s")
     with tempfile.TemporaryDirectory() as root:
         t1 = time.perf_counter()
         write_training_plots(root)

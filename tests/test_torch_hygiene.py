@@ -22,10 +22,10 @@ from treemorph_tpu_torch.scripts import exec_pipeline, profile_zband
 PACKAGE = os.path.dirname(treemorph_tpu_torch.__file__)
 REPO = os.path.dirname(PACKAGE)
 #: the JAX side, and the libraries the card's machine lacks (its config
-#: files are read without a YAML library, its tables written without
-#: pandas)
+#: files are read without a YAML library, its tables without pandas, the
+#: JAX package's orbax checkpoints without tensorstore or zstandard)
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "treemorph_tpu",
-             "yaml", "pandas")
+             "yaml", "pandas", "tensorstore", "zstandard")
 
 
 def imported_modules(path):

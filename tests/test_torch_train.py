@@ -502,9 +502,10 @@ def test_training_entry_points_default_to_cuda_and_raise_without_it(
 
 def test_training_paths_not_ported_raise(tmp_path):
     """What still raises, naming its ROADMAP item: data-parallel training
-    (``mesh``), PTv3's z-pack and brick stems in the CLI, and a JAX orbax
-    checkpoint directory (``manifest.ocdbt``, no ``model.pt``) in the
-    pipeline's ``model_dirs``."""
+    (``mesh``) and PTv3's z-pack and brick stems in the CLI; and a broken
+    JAX orbax checkpoint directory (an empty ``manifest.ocdbt``, no
+    ``model.pt``) in the pipeline's ``model_dirs`` raises the orbax
+    reader's ``ValueError`` naming the manifest."""
     from treemorph_tpu_torch.pipeline.run import load_pipeline_models
 
     for engine in ("zpack", "brick"):
@@ -522,5 +523,5 @@ def test_training_paths_not_ported_raise(tmp_path):
     (orbax / "_METADATA").write_text("{}")
     cfg = {"stage1": {"predict_offset": True, "denoise": False},
            "model_dirs": {"treelearn": [str(tmp_path / "offset"), None]}}
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
+    with pytest.raises(ValueError, match="manifest.ocdbt: 0 bytes"):
         load_pipeline_models(cfg, "treelearn", device="cpu")

@@ -4,10 +4,12 @@ Port of ``treemorph_tpu/evaluation/model_loaders.py``: the pipeline's
 fixed hyperparameters (reference ``ModelLoaders.py:31-113``: TreeLearn
 num_blocks=3 dim_feat=4 voxel 0.02; PTv3 dim_feat=4 with features, voxel
 0.02; PointNet2 depth=5 dim_feat=4), :func:`build_model`, the
-:class:`Predictor` the pipeline calls, and :func:`load_model` for the
-port's own checkpoints (:mod:`treemorph_tpu_torch.train.checkpoints`).
-Loading the JAX package's orbax checkpoints is not ported yet and raises
-(ROADMAP.md queue 1 item 13); weights of a flax model go through
+:class:`Predictor` the pipeline calls, and :func:`load_model`, which reads
+both the port's own checkpoints (:mod:`treemorph_tpu_torch.train.checkpoints`,
+``model.pt``) and the JAX package's orbax directories
+(``treemorph_tpu/train/checkpoints.py``: ``manifest.ocdbt`` and
+``_METADATA``), the latter through
+:func:`treemorph_tpu_torch.train.orbax_reader.read_checkpoint` and
 :func:`treemorph_tpu_torch.models.convert.flax_to_state_dict`.
 """
 
@@ -19,10 +21,12 @@ from dataclasses import dataclass
 
 import torch
 
+from ..models.convert import flax_to_state_dict
 from ..models.pointnet2 import PointNet2
 from ..models.ptv3 import PointTransformerWithHeads
 from ..models.treelearn import TreeLearn
 from ..train.checkpoints import MODEL_FILE, load_metadata
+from ..train.orbax_reader import is_orbax_checkpoint, read_checkpoint
 from ..utils.device import resolve_device
 
 # Fixed per-family hyperparameters (reference ModelLoaders.py:31-113)
@@ -96,11 +100,6 @@ def build_model(
     return model.to(device).eval()
 
 
-_ORBAX_TODO = ("{} is an orbax checkpoint of the JAX package: reading "
-               "orbax/OCDBT directories is not ported yet (ROADMAP.md queue "
-               "1 item 13); the port loads its own checkpoints ({})")
-
-
 def _plot_from_name(path: str) -> str | None:
     # the reference's "{Model}_P{n}[suffix]" naming and the training CLI's
     # bare "P{n}" checkpoint directories
@@ -116,8 +115,10 @@ def load_model(
 ) -> dict[str, Predictor]:
     """Per-plot offset ("O_P{n}") and noise ("N_P{n}") predictors from the
     checkpoint directories under each model directory (one per CV plot,
-    with ``P{n}`` in the name, as the training CLI writes them). Metadata
-    manifests override the family defaults. Every directory found is
+    with ``P{n}`` in the name, as the training CLIs of both packages write
+    them): the port's ``model.pt``, or else the JAX package's orbax
+    directory of flax ``{params, batch_stats}``. Metadata manifests
+    override the family defaults where not null. Every directory found is
     loaded, as in the JAX package. Models run on ``device`` (the CUDA
     device unless named; raises without one)."""
     device = resolve_device(device)
@@ -131,19 +132,17 @@ def load_model(
             plot = _plot_from_name(entry)
             if not os.path.isdir(full) or plot is None:
                 continue
-            if not os.path.exists(os.path.join(full, MODEL_FILE)) and (
-                    os.path.exists(os.path.join(full, "manifest.ocdbt"))
-                    or os.path.exists(os.path.join(full, "_METADATA"))):
-                raise NotImplementedError(_ORBAX_TODO.format(full,
-                                                             MODEL_FILE))
             meta = load_metadata(full) or {}
             overrides = {
                 k: v for k, v in meta.items()
                 if k in FAMILY_DEFAULTS[model_type] and v is not None
             }
             model = build_model(model_type, device=device, **overrides)
-            model.load_state_dict(torch.load(
-                os.path.join(full, MODEL_FILE), map_location=device
-            ))
+            own = os.path.join(full, MODEL_FILE)
+            if os.path.exists(own) or not is_orbax_checkpoint(full):
+                state = torch.load(own, map_location=device)
+            else:
+                state = flax_to_state_dict(read_checkpoint(full))
+            model.load_state_dict(state)
             out[f"{prefix}_P{plot}"] = Predictor(model_type, model, device)
     return out

@@ -1,14 +1,18 @@
 """Space-filling-curve codes of grid coordinates: z-order and Hilbert.
 
-Port of ``treemorph_tpu/ops/serialization.py`` (encoders only). The JAX
-package keeps the 3*depth-bit key as a (hi, lo) pair of uint32 words; here
-it is one int64, which orders exactly like the lexicographic (hi, lo) pair
-and equals ``(hi << 32) | lo`` bit for bit. The transposed orders swap x
-and y before encoding.
+Port of ``treemorph_tpu/ops/serialization.py``. The JAX package keeps the
+3*depth-bit key as a (hi, lo) pair of uint32 words; here it is one int64,
+which orders exactly like the lexicographic (hi, lo) pair and equals
+``(hi << 32) | lo`` bit for bit. The transposed orders swap x and y before
+encoding. :func:`serialized_order` gives the (order, inverse) permutations
+of one curve; the host decoders (:func:`decode`, :func:`z_order_decode_np`,
+:func:`hilbert_decode_np`, numpy) invert the codes for tests and
+debugging.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 ORDERS = ("z", "z-trans", "hilbert", "hilbert-trans")
@@ -79,3 +83,72 @@ def encode(
             grid_coord.shape[0], dtype=torch.int32, device=grid_coord.device
         )
     return batch.to(torch.int32), code
+
+
+def serialized_order(
+    grid_coord: torch.Tensor,
+    batch: torch.Tensor | None = None,
+    depth: int = 16,
+    order: str = "z",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(order, inverse) permutations for one curve order: ``order[i]`` is
+    the original index of the i-th point sorted by (batch, code), ties
+    kept in input order; ``inverse`` undoes it."""
+    b, code = encode(grid_coord, batch, depth=depth, order=order)
+    perm = torch.argsort(code, stable=True)
+    perm = perm[torch.argsort(b[perm], stable=True)]
+    inverse = torch.empty_like(perm)
+    inverse[perm] = torch.arange(len(perm), device=perm.device)
+    return perm, inverse
+
+
+def _key_bits(code: np.ndarray, pos: int) -> np.ndarray:
+    return (np.asarray(code, np.int64) >> pos) & 1
+
+
+def z_order_decode_np(code: np.ndarray, depth: int = 16) -> np.ndarray:
+    """(N, 3) int64 grid coordinates of int64 Morton codes."""
+    coords = np.zeros((len(code), 3), dtype=np.int64)
+    for i in range(depth):
+        for dim in range(3):
+            coords[:, dim] |= _key_bits(code, 3 * i + (2 - dim)) << i
+    return coords
+
+
+def hilbert_decode_np(code: np.ndarray, depth: int = 16) -> np.ndarray:
+    """(N, 3) int64 grid coordinates of int64 Hilbert codes (the inverse
+    Skilling transform)."""
+    num_dims = 3
+    n_bits = depth * num_dims
+    binary = np.stack([_key_bits(code, n_bits - 1 - k)
+                       for k in range(n_bits)], axis=1)
+    gray = binary.copy()  # binary -> gray
+    gray[:, 1:] ^= binary[:, :-1]
+    bits = gray.reshape(-1, depth, num_dims).swapaxes(1, 2)  # (N, 3, depth)
+    for bit in range(depth - 1, -1, -1):
+        for dim in range(num_dims - 1, -1, -1):
+            mask = bits[:, dim, bit:bit + 1]
+            lower0 = bits[:, 0, bit + 1:]
+            lowerd = bits[:, dim, bit + 1:]
+            inverted0 = lower0 ^ mask
+            to_flip = (1 - mask) & (inverted0 ^ lowerd)
+            bits[:, dim, bit + 1:] = lowerd ^ to_flip
+            bits[:, 0, bit + 1:] = inverted0 ^ to_flip
+    shifts = np.arange(depth - 1, -1, -1)
+    return (bits << shifts[None, None, :]).sum(axis=-1)
+
+
+def decode(batch: np.ndarray, code: np.ndarray, depth: int = 16,
+           order: str = "z") -> tuple[np.ndarray, np.ndarray]:
+    """Invert :func:`encode` on the host: (grid coordinates (N, 3) int64,
+    batch (N,) int32); the transposed orders undo the x/y swap."""
+    if order not in ORDERS:
+        raise ValueError(f"unknown serialization order {order!r}")
+    code = np.asarray(code, np.int64)
+    if order.startswith("z"):
+        grid = z_order_decode_np(code, depth=depth)
+    else:
+        grid = hilbert_decode_np(code, depth=depth)
+    if order.endswith("-trans"):
+        grid = grid[:, [1, 0, 2]]
+    return grid, np.asarray(batch, np.int32)

@@ -8,8 +8,9 @@ The port's counterpart of the JAX package's ``scripts/exec_pipeline.py``
 schema (``configs/pipeline_config.yaml``). The config is YAML, read by
 :func:`treemorph_tpu_torch.utils.config.load_config` (the subset the
 shipped config uses; no YAML library is needed), or JSON for a ``.json``
-path. The stage-1 models are the port's checkpoints under the config's
-``model_dirs``. Every stage runs on the CUDA device unless ``--device``
+path. The stage-1 models are the checkpoints under the config's
+``model_dirs``: the port's training CLI's, or the JAX package's orbax
+directories. Every stage runs on the CUDA device unless ``--device``
 names another, and raises without one. Prints one line per cloud and
 returns the per-cloud records.
 """

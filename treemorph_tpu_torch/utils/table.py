@@ -6,7 +6,11 @@ Columns are typed the way ``pandas.DataFrame(records)`` types them, and
 :meth:`Table.to_csv` writes the bytes ``DataFrame.to_csv(index=False)``
 writes: float64 in shortest round-trip form, missing values as empty
 fields, other objects through ``str``, quoting as the ``csv`` module's
-QUOTE_MINIMAL, ``\\n`` line ends.
+QUOTE_MINIMAL, ``\\n`` line ends. :meth:`Table.read_csv` reads such a file
+back as ``pandas.read_csv`` types it (int64 where every field is an
+integer, float64 where every field is a number or empty, strings else),
+its header names stripped and unquoted as the JAX package's label
+generation cleans them.
 """
 
 from __future__ import annotations
@@ -43,6 +47,22 @@ def _column(values: list):
     return out
 
 
+def _parse_column(fields: list[str]) -> np.ndarray:
+    """A CSV column typed as pandas types it."""
+    try:
+        return np.array([int(f) for f in fields], dtype=np.int64)
+    except ValueError:
+        pass
+    try:
+        return np.array([float(f) if f.strip() else np.nan for f in fields],
+                        dtype=np.float64)
+    except ValueError:
+        pass
+    out = np.empty(len(fields), dtype=object)
+    out[:] = fields
+    return out
+
+
 class Table:
     """Ordered mapping of column name to a 1-D numpy column."""
 
@@ -62,6 +82,21 @@ class Table:
             name: _column([rec.get(name) for rec in records])
             for name in columns
         })
+
+    @classmethod
+    def read_csv(cls, path: str) -> "Table":
+        """The table of a CSV file with a header row."""
+        with open(path, newline="") as f:
+            rows = list(csv.reader(f))
+        if not rows:
+            raise ValueError(f"{path}: no header row")
+        names = [n.strip().replace('"', "") for n in rows[0]]
+        body = rows[1:]
+        if any(len(r) != len(names) for r in body):
+            raise ValueError(f"{path}: rows differ in length from the "
+                             f"header's {len(names)} fields")
+        return cls({name: _parse_column([r[i] for r in body])
+                    for i, name in enumerate(names)})
 
     @property
     def columns(self) -> list[str]:
