@@ -224,6 +224,39 @@ whose cylinder CSV 14b takes):
      11 finite columns, manifests naming every tree, finite losses,
      ``band_conv_bwd`` launches counted.
 
+Evaluation and tooling (15a-15f; 15b after 14c, on phase 4's cylinders,
+the rest after 13d, on the training plots and 13c's and 13d's
+checkpoints):
+
+15a. ``python -m treemorph_tpu_torch.scripts.evaluate nn`` on the card for
+     TreeLearn (13d's checkpoint, ``--engine band --conv_dtype bfloat16``)
+     and PTv3 (13c's, at the family's defaults) over held-out trees of
+     plot 1, its band and attention launches per tree (non-zero); the same
+     command with ``--device cpu`` on the same trees: ``mean_after``
+     within 1 % of the CPU's, ``shrinkage`` within one percentage point.
+15b. ``evaluate predict`` (phase 4's TreeLearn saved as checkpoints, band,
+     bf16; 63 band launches) and ``evaluate qsm-distance`` of the plot
+     against phase 4's cylinders on the card; the projection's ids and
+     distances card against CPU on every 20th refined point (14b's
+     limits), the CLI's statistics against the same projection.
+15c. ``diagnostics.model_diagnostics`` (``test_model``'s forwards: one
+     offset, two noise) on plot 1's first tree, card against CPU within
+     phase 3's limits; ``test_model``'s figures only where matplotlib is
+     installed (a line says when they are not run).
+15d. A full-width TreeLearn and PointNet2 written as the reference
+     system's ``state_dict`` (:func:`reference_state_dict`), through
+     ``python -m treemorph_tpu_torch.scripts.import_checkpoint`` and
+     ``load_model`` on the card: weights and outputs bit for bit.
+15e. ``utils/flops.py``'s ``mfu_report`` of one serving forward (phase 4's
+     TreeLearn) and one PTv3 forward (7b's cut), each printed on a line
+     ``MFU {json}`` with the card's name and power limit; the band
+     ``kernel_flops`` equal to phase 2's operations for the same forward;
+     outside the log the forward's launches and host synchronizations
+     (``serving_syncs.py``) as on the log's parent commit.
+15f. ``python -m treemorph_tpu_torch.scripts.sanity_check
+     pointtransformerv3`` for SANITY_EPOCHS epochs on the card: the loss
+     falls, the attention forward and backward launches counted.
+
 The last two lines are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``. Float32 matmuls and convolutions run
 without TF32 (set below) so f32 comparisons are full precision.
@@ -507,12 +540,7 @@ def phase_card_and_build():
     from treemorph_tpu_torch import native
     from treemorph_tpu_torch.ops.cuda import build_all
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    log(smi)
+    log(card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     secs = build_all()
@@ -4662,6 +4690,572 @@ def phase_preprocess_cli(device):
     return bwd, record
 
 
+#: 15d: the reference system's state-dict names for the port's modules
+#: (the inverse of ``train/import_torch.py``'s converters, test code):
+#: (port key pattern, reference key) rewrites tried in order, ``{p}`` the
+#: TreeLearn U-Net prefix, and the tensor layout each takes
+_TREELEARN_BLOCK_NAMES = {
+    "MaskedBatchNorm_0": "conv_branch.0", "SubMConv_0.kernel":
+    "conv_branch.2.weight", "MaskedBatchNorm_1": "conv_branch.3",
+    "SubMConv_1.kernel": "conv_branch.5.weight", "shortcut":
+    "i_branch.0.weight",
+}
+_PTV3_BLOCK_NAMES = {
+    "cpe.kernel": "cpe.0.weight", "cpe.bias": "cpe.0.bias",
+    "cpe.Dense_0": "cpe.1", "cpe.LayerNorm_0": "cpe.2", "norm1": "norm1.0",
+    "norm2": "norm2.0", "mlp.Dense_0": "mlp.0.fc1", "mlp.Dense_1":
+    "mlp.0.fc2", "attn.qkv": "attn.qkv", "attn.proj": "attn.proj",
+}
+_HEAD_NAMES = {"Dense_0": "0", "MaskedBatchNorm_0": "1", "BatchNorm_0": "1",
+               "Dense_1": "3"}
+
+
+def _rename(rest: str, table: dict) -> str:
+    """``rest`` with the longest matching module prefix of ``table``
+    renamed."""
+    for old in sorted(table, key=len, reverse=True):
+        if rest == old or rest.startswith(old + "."):
+            return table[old] + rest[len(old):]
+    raise KeyError(rest)
+
+
+def _reference_key(family: str, key: str, n_fp: int = 0) -> str:
+    """The reference system's state-dict key of a port ``key`` (``n_fp``:
+    PointNet2's feature-propagation modules; ``FeaturePropagation_j`` is
+    the reference's ``fp{n_fp - j}``, ``SetAbstraction_j`` its
+    ``sa{j + 1}``)."""
+    import re
+
+    parts = key.split(".")
+    if parts[0] in ("semantic_head", "offset_head"):
+        head = {"semantic_head": "semantic_linear",
+                "offset_head": "offset_linear"}[parts[0]]
+        sub = _rename(".".join(parts[1:]), _HEAD_NAMES)
+        return f"{head}.{'net.' if family == 'pointnet2' else ''}{sub}"
+    if family == "pointnet2":
+        kind, j = parts[0].rsplit("_", 1)
+        layer = int(parts[2].rsplit("_", 1)[1])
+        kind_name, k = (("sa", int(j) + 1) if kind == "SetAbstraction"
+                        else ("fp", n_fp - int(j)))
+        return (f"{kind_name}{k}.mlp_"
+                f"{'convs' if parts[2].startswith('Dense') else 'bns'}."
+                f"{layer}.{parts[3]}")
+    if family == "treelearn":
+        rest = ".".join(parts[1:])
+        if rest.startswith("input_conv."):
+            return "input_conv.0.weight"
+        if rest.startswith("output_norm."):
+            return "output_layer.0." + parts[-1]
+        m = re.match(r"(unet(?:\.u)*)\.(.*)", rest)
+        prefix, sub = m.group(1), m.group(2)
+        block = re.match(r"(block|tail)(\d)\.(.*)", sub)
+        if block:
+            group = "blocks" if block.group(1) == "block" else "blocks_tail"
+            return (f"{prefix}.{group}.block{block.group(2)}."
+                    f"{_rename(block.group(3), _TREELEARN_BLOCK_NAMES)}")
+        return f"{prefix}." + _rename(sub, {
+            "MaskedBatchNorm_0": "conv.0", "down_kernel": "conv.2.weight",
+            "MaskedBatchNorm_1": "deconv.0", "up_kernel": "deconv.2.weight"})
+    rest = ".".join(parts[1:])
+    if rest.startswith("embedding."):
+        return "backbone.embedding.stem." + _rename(
+            rest[len("embedding."):],
+            {"kernel": "conv.weight", "MaskedBatchNorm_0": "norm"})
+    name, sub = rest.split(".", 1)
+    block = re.match(r"(enc|dec)(\d+)_block(\d+)$", name)
+    if block:
+        kind, s, i = block.groups()
+        return (f"backbone.{kind}.{kind}{s}.block{i}."
+                f"{_rename(sub, _PTV3_BLOCK_NAMES)}")
+    if name.endswith("_down"):
+        return f"backbone.enc.{name[:-5]}.down." + _rename(
+            sub, {"proj": "proj", "norm": "norm.0"})
+    return f"backbone.dec.{name[:-3]}.up." + _rename(sub, {
+        "proj": "proj.0", "norm": "proj.1", "proj_skip": "proj_skip.0",
+        "norm_skip": "proj_skip.1"})
+
+
+def reference_state_dict(family: str, model) -> dict:
+    """``model``'s weights (a port ``treelearn``, ``pointnet2`` or
+    ``pointtransformerv3``) as the reference system's ``state_dict`` of
+    numpy arrays: its names, spconv kernels as ``(Cout, k, k, k, Cin)``
+    (KRSC, offsets row-major in (dx, dy, dz)), 1x1 convs and the TreeLearn
+    shortcut as ``(Cout, Cin, 1...)``, linears as they are. The inverse of
+    the port's importer (``train/import_torch.py``), which is what 15d and
+    the CPU tests hold it to."""
+    out = {}
+    n_fp = sum(name.startswith("FeaturePropagation_")
+               for name, _ in model.named_children())
+    for key, value in model.state_dict().items():
+        a = value.detach().cpu().numpy()
+        ref = _reference_key(family, key, n_fp)
+        leaf = key.rsplit(".", 1)[1]
+        if a.ndim == 3:  # (K, Cin, Cout) kernel-offset layout
+            k = round(a.shape[0] ** (1 / 3))
+            a = a.transpose(2, 0, 1).reshape(a.shape[2], k, k, k, a.shape[1])
+        elif leaf == "shortcut":  # (Cin, Cout) 1x1x1 conv
+            a = a.T.reshape(a.shape[1], 1, 1, 1, a.shape[0])
+        elif family == "pointnet2" and ".mlp_convs." in ref and a.ndim == 2:
+            a = a.reshape(*a.shape, *([1, 1] if ref.startswith("sa")
+                                      else [1]))
+        out[ref] = a.copy()
+    return out
+
+
+#: phase 15: trees ``evaluate nn`` takes per family on the card and on the
+#: CPU (the CPU's full-width PTv3 forward on 16,384 points takes seconds),
+#: and the limits of card against CPU: mean_after within 1 % of the CPU's,
+#: shrinkage within one percentage point (the same 1 % of mean_after over
+#: mean_before)
+EVAL_NN_TREES = {"treelearn": 3, "pointtransformerv3": 2}
+EVAL_NN_RTOL = 1e-2
+#: 15f: epochs of the PTv3 sanity check (one train and one eval forward
+#: of the 10,000-point cylinder each)
+SANITY_EPOCHS = 5
+#: 15e: the launches and host synchronizations of one serving forward
+#: (phases 2-4's TreeLearn on the e2e plot) outside the kernel-FLOP log, as
+#: ``serving_syncs.py`` counted them on a checkout of the log's parent
+#: commit (ebad624), the same in both of its runs, on one NVIDIA H100 80GB
+#: HBM3 at 700 W; historical, not measured by this script
+PARENT_SERVING_COUNTS = {
+    "launches": {"band_conv": 21, "band_conv_k27": 21},
+    "syncs": {"cudaStreamSynchronize": 59, "cudaDeviceSynchronize": 1},
+}
+
+
+def has_matplotlib() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
+def run_module(module: str, args: list, timeout=600):
+    """``python -m treemorph_tpu_torch.scripts.{module} args`` from the
+    repository root; raises unless it exits 0. Returns (stdout, seconds
+    with the process start)."""
+    cmd = [sys.executable, "-m", f"treemorph_tpu_torch.scripts.{module}",
+           *args]
+    log("  $ " + " ".join(cmd[1:]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+        raise AssertionError(f"{module} {args[0]} exited {proc.returncode}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def parse_nn_output(stdout: str) -> tuple[dict, dict]:
+    """(summary, {"trees", "launches"}) of ``evaluate nn``'s output."""
+    head, _, tail = stdout.partition("hand kernel launches: ")
+    summary = json.loads(head[head.index("{"):head.rindex("}") + 1])
+    return summary, json.loads(tail.splitlines()[0])
+
+
+def phase_evaluate_nn(root, checkpoints, device):
+    """15a: ``python -m treemorph_tpu_torch.scripts.evaluate nn`` on the
+    card for TreeLearn (13d's checkpoint, ``--engine band --conv_dtype
+    bfloat16``, the bench configuration) and PTv3 (13c's checkpoint at the
+    family's defaults, as 13d's pipeline CLI serves it), over the held-out
+    plot 1 of the training plots; its band and attention launches per tree
+    (non-zero); then the same command with ``--device cpu`` on the same
+    trees: mean_after within EVAL_NN_RTOL of the CPU's, shrinkage within
+    EVAL_NN_RTOL absolute."""
+    from treemorph_tpu_torch.scripts import evaluate
+
+    kernel = {"treelearn": "band_conv", "pointtransformerv3":
+              "window_attention"}
+    record, checks = {}, {}
+    for family, ckpt in checkpoints.items():
+        args = ["nn", family, "--data_root", root, "--test_plot", "1",
+                "--offset_model_dir", ckpt, "--max_trees",
+                str(EVAL_NN_TREES[family])]
+        if family == "treelearn":
+            args += ["--engine", "band", "--conv_dtype", "bfloat16"]
+        stdout, secs = run_module("evaluate", args + ["--device",
+                                                      str(device)])
+        card, launched = parse_nn_output(stdout)
+        per_tree = {k: v / launched["trees"]
+                    for k, v in launched["launches"].items()}
+        t0 = time.perf_counter()
+        cpu = evaluate.main(args + ["--device", "cpu"])
+        cpu_s = time.perf_counter() - t0
+        err_after = abs(card["mean_after"] - cpu["mean_after"])
+        err_shrink = abs(card["shrinkage"] - cpu["shrinkage"])
+        record[family] = {"card": card, "cpu": cpu,
+                          "launches_per_tree": per_tree,
+                          "card_seconds_with_process_start": secs,
+                          "cpu_seconds": cpu_s}
+        log(f"15a {family}: card {json.dumps(card)}; cpu "
+            f"{json.dumps(cpu)}; launches per tree {per_tree} "
+            f"({secs:.1f} s with the process start, CPU {cpu_s:.1f} s)")
+        checks[f"{family}: {EVAL_NN_TREES[family]} trees"] = (
+            launched["trees"] == EVAL_NN_TREES[family])
+        checks[f"{family}: {kernel[family]} launched every tree"] = (
+            per_tree.get(kernel[family], 0) >= 1)
+        checks[f"{family}: mean_after within {EVAL_NN_RTOL} of the CPU's"] = (
+            err_after <= EVAL_NN_RTOL * cpu["mean_after"])
+        checks[f"{family}: shrinkage within {EVAL_NN_RTOL} of the CPU's"] = (
+            err_shrink <= EVAL_NN_RTOL)
+        checks[f"{family}: same points"] = card["n_points"] == cpu["n_points"]
+    report_checks("15a", checks)
+    return record
+
+
+def report_checks(name: str, checks: dict) -> None:
+    for what, ok in checks.items():
+        log(f"  {'ok ' if ok else 'FAIL'} {what}")
+    if not all(checks.values()):
+        raise AssertionError(f"{name} checks failed")
+    log(f"phase {name} ok")
+
+
+def save_port_checkpoint(predictor, directory, meta) -> str:
+    """``predictor``'s weights as the training CLI saves them
+    (``{directory}/P{plot}/model.pt`` and the metadata manifest)."""
+    import torch
+
+    from treemorph_tpu_torch.train.checkpoints import MODEL_FILE
+
+    path = os.path.join(directory, "P4")
+    os.makedirs(path)
+    torch.save({k: v.cpu() for k, v in predictor.model.state_dict().items()},
+               os.path.join(path, MODEL_FILE))
+    with open(path + ".metadata.json", "w") as f:
+        json.dump(meta, f)
+    return directory
+
+
+def phase_evaluate_qsm(points, csv_path, device):
+    """15b: ``evaluate predict`` (phase 4's offset and noise TreeLearn,
+    saved as checkpoints, served with ``--engine band --conv_dtype
+    bfloat16``) on the e2e plot, then ``evaluate qsm-distance`` of the plot
+    and its refined cloud against phase 4's fitted cylinders, on the card.
+    The distances and cylinder ids of ``project_on_qsm``'s projection on
+    the card against the CPU's on every 20th point (14b's limits: ids on
+    LABEL_ID_AGREEMENT of the points, distances within HEIGHT_ATOL of the
+    extent), and the CLI's statistics against the same projection run
+    in-process on the card."""
+    import numpy as np
+    import torch
+
+    from treemorph_tpu_torch.evaluation.model_loaders import FAMILY_DEFAULTS
+    from treemorph_tpu_torch.evaluation.qsm_eval import (
+        compare_distance_distributions,
+        project_on_qsm,
+    )
+    from treemorph_tpu_torch.ops.cuda import LAUNCHES
+    from treemorph_tpu_torch.ops.projection import (
+        closest_cylinder,
+        cylinders_from_table,
+    )
+    from treemorph_tpu_torch.scripts import evaluate
+    from treemorph_tpu_torch.utils.table import Table
+
+    offset, noise = pipeline_models(device)
+    meta = {"model": "treelearn", **FAMILY_DEFAULTS["treelearn"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = [save_port_checkpoint(p, os.path.join(tmp, role), meta)
+                for p, role in ((offset, "offset"), (noise, "noise"))]
+        cloud = os.path.join(tmp, "plot.npy")
+        np.save(cloud, points)
+        manifest = os.path.join(tmp, "manifest.json")
+        with open(manifest, "w") as f:
+            json.dump([cloud], f)
+        out = os.path.join(tmp, "pred")
+        torch.cuda.synchronize()
+        launched = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        evaluate.main(["predict", "treelearn", "--manifest", manifest,
+                       "--offset_model_dir", dirs[0], "--noise_model_dir",
+                       dirs[1], "--outputDir", out, "--save_type", "npy",
+                       "--engine", "band", "--conv_dtype", "bfloat16",
+                       "--device", str(device)])
+        torch.cuda.synchronize()
+        predict_s = time.perf_counter() - t0
+        band = LAUNCHES["band_conv"] - launched.get("band_conv", 0)
+        pred = os.path.join(out, "plot_pred.npy")
+        t0 = time.perf_counter()
+        stats = evaluate.main(["qsm-distance", "--cloud", cloud,
+                               "--pred_cloud", pred, "--qsm_csv", csv_path,
+                               "--device", str(device)])
+        distance_s = time.perf_counter() - t0
+        refined = np.load(pred)
+        denoised = np.load(os.path.join(out, "plot_pred_denoised.npy"))
+    qsm = Table.read_csv(csv_path)
+    card = [project_on_qsm(c, qsm, device=device) for c in (points, refined)]
+    again = compare_distance_distributions(*card)
+    cut = refined[::20]
+    ids, dists = [], []
+    for dev in (device, "cpu"):
+        cyl = cylinders_from_table(qsm, device=dev)
+        i, d, _ = closest_cylinder(
+            torch.from_numpy(np.ascontiguousarray(cut)).to(dev), cyl)
+        ids.append(i.cpu().numpy())
+        dists.append(d.cpu().numpy())
+    extent = float(np.ptp(points, axis=0).max())
+    id_share = float((ids[0] == ids[1]).mean())
+    dist_err = float(np.abs(dists[0] - dists[1]).max())
+    record = {"predict_seconds": predict_s, "qsm_distance_seconds":
+              distance_s, "band_launches": band, "stats": stats,
+              "refined_points": len(refined), "denoised_points":
+              len(denoised), "cylinders": len(qsm), "cpu_cut": len(cut),
+              "id_agreement": id_share, "distance_max_err": dist_err,
+              "extent": extent}
+    log("15b " + json.dumps(record))
+    report_checks("15b", {
+        "refined cloud of every point": len(refined) == len(points),
+        "denoised cloud kept points": 0 < len(denoised) <= len(points),
+        "63 band launches (offset; offset and noise)": band == 63,
+        f"ids on >= {LABEL_ID_AGREEMENT} of the cut": (
+            id_share >= LABEL_ID_AGREEMENT),
+        f"distances within {HEIGHT_ATOL} x extent": (
+            dist_err <= HEIGHT_ATOL * extent),
+        "the CLI's statistics are the projection's": all(
+            abs(stats[k] - again[k]) <= 1e-6 * max(1.0, abs(again[k]))
+            for k in again),
+    })
+    return record
+
+
+def phase_test_model(root, ckpt, device):
+    """15c: ``test_model``'s device work on one held-out labeled tree
+    (plot 1's first, 16,384 points) with 13d's TreeLearn checkpoint (band,
+    bf16) as offset and noise predictor: ``model_diagnostics`` (one
+    ``predict_single`` forward, then ``make_noise_prediction``'s two noise
+    forwards) on the card and on the CPU, the offsets, ``nn_after_mean``
+    and ``offset_mae`` within phase 3's STAGE1_OFFSET_RTOL, the noise
+    masks on STAGE1_ARGMAX_AGREEMENT of the points. The figures only where
+    matplotlib is installed."""
+    import numpy as np
+
+    from treemorph_tpu_torch.evaluation import diagnostics
+    from treemorph_tpu_torch.evaluation.model_loaders import load_model
+    from treemorph_tpu_torch.ops.cuda import LAUNCHES
+
+    with open(os.path.join(root, "plot_1.json")) as f:
+        labeled = np.load(json.load(f)[0])
+    runs, launches = {}, 0
+    for dev in (device, "cpu"):
+        predictor = load_model("treelearn", ckpt, device=dev, engine="band",
+                               conv_dtype="bfloat16")["O_P1"]
+        before = LAUNCHES["band_conv"]
+        t0 = time.perf_counter()
+        runs[str(dev)] = diagnostics.model_diagnostics(
+            predictor, labeled, predictor, device=dev)
+        runs[str(dev)]["seconds"] = time.perf_counter() - t0
+        if dev != "cpu":
+            launches = LAUNCHES["band_conv"] - before
+    card, cpu = runs[str(device)], runs["cpu"]
+    off_err = float(np.abs(card["pred_offsets"] - cpu["pred_offsets"]).max())
+    off_scale = float(np.abs(cpu["pred_offsets"]).max())
+    masks = [float((a == b).mean()) for a, b in zip(card["noise_masks"],
+                                                   cpu["noise_masks"])]
+    metrics = {dev: {k: runs[dev][k] for k in diagnostics.METRICS}
+               for dev in runs}
+    log("15c " + json.dumps({"metrics": metrics, "offsets_max_err": off_err,
+                             "offsets_scale": off_scale,
+                             "noise_mask_agreement": masks,
+                             "band_launches": launches,
+                             "seconds": {d: runs[d]["seconds"]
+                                         for d in runs}}))
+    if has_matplotlib():
+        with tempfile.TemporaryDirectory() as tmp:
+            predictor = load_model("treelearn", ckpt, device=device,
+                                   engine="band",
+                                   conv_dtype="bfloat16")["O_P1"]
+            out = diagnostics.test_model(predictor, labeled, tmp,
+                                         noise_predictor=predictor,
+                                         device=device)
+            log(f"15c figures: {len(out['slice_plots'])} slice, "
+                f"{len(out['noise_plots'])} noise figures written")
+    else:
+        log("15c figures: not run: matplotlib is not installed on this "
+            "machine")
+    report_checks("15c", {
+        f"offsets within {STAGE1_OFFSET_RTOL} x scale":
+            off_err <= STAGE1_OFFSET_RTOL * off_scale,
+        **{f"{k} within {STAGE1_OFFSET_RTOL} of the CPU's":
+           abs(card[k] - cpu[k]) <= STAGE1_OFFSET_RTOL * abs(cpu[k])
+           for k in ("nn_after_mean", "offset_mae")},
+        f"noise masks on >= {STAGE1_ARGMAX_AGREEMENT} of the points":
+            min(masks) >= STAGE1_ARGMAX_AGREEMENT,
+        "63 band launches (offset; noise twice)": launches == 63,
+    })
+    return metrics
+
+
+def phase_import_round_trip(points, device):
+    """15d: a TreeLearn (the pipeline's width) and a PointNet2 (depth 5)
+    of the port with seeded weights, written as the reference system's
+    ``state_dict`` (:func:`reference_state_dict`) to a ``.pt``, through
+    ``python -m treemorph_tpu_torch.scripts.import_checkpoint`` on the
+    card and ``load_model``: the same weights bit for bit, and the same
+    outputs bit for bit on the same cloud (a 20,000-point cut of the plot;
+    PointNet2 on one 4,096-point raster), both forwards under
+    ``torch.use_deterministic_algorithms``."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from treemorph_tpu_torch.evaluation.model_loaders import (
+        Predictor,
+        build_model,
+        load_model,
+    )
+    from treemorph_tpu_torch.pipeline.predict import _pad_flat
+
+    rng = np.random.default_rng(5)
+    cut = points[rng.choice(len(points), 20_000, replace=False)]
+    feats = rng.normal(size=(len(cut), 4)).astype(np.float32)
+    checks, record = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for family, flags in (("treelearn", []),
+                              ("pointnet2", ["--depth", "5"])):
+            model = build_model(family, device=device, seed=7)
+            pt = os.path.join(tmp, f"{family}.pt")
+            torch.save({"state_dict": {
+                k: torch.from_numpy(v)
+                for k, v in reference_state_dict(family, model).items()}},
+                pt)
+            out = os.path.join(tmp, family, f"{family}_O_P3")
+            stdout, secs = run_module("import_checkpoint", [
+                family, pt, out, *flags, "--device", str(device)])
+            loaded = load_model(family, os.path.dirname(out),
+                                device=device)["O_P3"]
+            same_weights = all(
+                torch.equal(v, loaded.model.state_dict()[k])
+                for k, v in model.state_dict().items())
+            if family == "treelearn":
+                args = _pad_flat(cut, feats, device=device)[:4]
+            else:
+                n = 4096
+                args = (torch.from_numpy(cut[None, :n]).to(device),
+                        torch.from_numpy(feats[None, :n]).to(device),
+                        torch.ones((1, n), dtype=torch.bool, device=device))
+            torch.utils.deterministic.fill_uninitialized_memory = False
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                outs = [Predictor(family, m, device)._forward(*args)
+                        for m in (model, loaded.model)]
+            torch.use_deterministic_algorithms(False)
+            torch.utils.deterministic.fill_uninitialized_memory = True
+            same = all(torch.equal(outs[0][k], outs[1][k])
+                       for k in ("offset_predictions",
+                                 "semantic_prediction_logits"))
+            record[family] = {"import_seconds_with_process_start": secs,
+                              "same_weights": same_weights,
+                              "same_outputs": same,
+                              "printed": stdout.strip()}
+            log(f"15d {family}: {stdout.strip()} ({secs:.1f} s); weights "
+                f"identical {same_weights}, outputs identical {same}")
+            checks[f"{family}: weights bit for bit"] = same_weights
+            checks[f"{family}: outputs bit for bit"] = same
+    report_checks("15d", checks)
+    return record
+
+
+def phase_mfu(points, rows, device):
+    """15e: ``utils/flops.py``'s ``mfu_report`` of one TreeLearn serving
+    forward (phase 2-4's: band, bf16, the e2e plot) and one PTv3 forward
+    (the pipeline's PTv3 on 7b's 65,536-point cut): ``torch_flops``,
+    ``kernel_flops``, ``device_ms`` and MFU against the card's bf16 peak.
+    The serving forward's band ``kernel_flops`` must equal the operations
+    phase 2 counts for the same forward's 21 launches (``rows``: 2 x
+    in-window entries x Cin x Cout per conv, times its launches). Outside
+    the log the forward's launches and host synchronizations
+    (``serving_syncs.py``'s count) must be the parent's
+    (PARENT_SERVING_COUNTS), and twice the same."""
+    import numpy as np
+
+    from serving_syncs import forward_counts
+    from treemorph_tpu_torch.pipeline.predict import _pad_flat
+    from treemorph_tpu_torch.utils import flops
+
+    offset, _ = pipeline_models(device)
+    args = _pad_flat(points, np.zeros((len(points), 4), np.float32),
+                     device=device)[:4]
+    offset.predict_flat(*args)
+    outside = [forward_counts(offset, args) for _ in range(2)]
+    serving = flops.mfu_report(offset.predict_flat, args)
+    phase2 = sum(2.0 * r["nnz"] * r["cin"] * r["cout"]
+                 * r["launches_per_forward"] for r in rows
+                 if r["dtype"] == "torch.bfloat16")
+    cloud = ptv3_cloud(points)[:PTV3_CUT]
+    ptv3, _ = ptv3_models(device)
+    ptv3_args = _pad_flat(cloud[:, :3], cloud[:, 7:11], device=device)[:4]
+    ptv3_report = flops.mfu_report(ptv3.predict_flat, ptv3_args)
+    smi = card_line()
+    for name, rep in (("treelearn serving forward", serving),
+                      ("ptv3 forward", ptv3_report)):
+        print("MFU " + json.dumps({"forward": name, "card": smi, **rep}),
+              flush=True)
+    log(f"15e serving forward outside the log: {json.dumps(outside)}; "
+        f"parent {json.dumps(PARENT_SERVING_COUNTS)}")
+    report_checks("15e", {
+        "band kernel_flops = phase 2's operations for 21 launches":
+            serving["kernel_flops_by_tag"].get("band_conv") == phase2,
+        "attention kernel_flops logged":
+            ptv3_report["kernel_flops_by_tag"].get("window_attention", 0) > 0,
+        "21 band launches a forward outside the log":
+            outside[0]["launches"] == {"band_conv": 21, "band_conv_k27": 21},
+        "outside the log twice the same": outside[0] == outside[1],
+        "outside the log as on the parent":
+            outside[0] == PARENT_SERVING_COUNTS,
+        "MFU finite and below 1": all(0 < r["mfu"] < 1
+                                      for r in (serving, ptv3_report)),
+    })
+    return {"treelearn": serving, "ptv3": ptv3_report, "phase2_flops": phase2,
+            "outside": outside}
+
+
+def phase_sanity_check(device):
+    """15f: ``python -m treemorph_tpu_torch.scripts.sanity_check
+    pointtransformerv3`` (its defaults: f32, gather stem, no drop path) on
+    the card for SANITY_EPOCHS epochs, run in-process so that its
+    launches are counted: the train loss falls, and each epoch launches
+    the attention forward 22 times in its train step and 22 in its eval
+    step, and the backward 22 times (and the figure's forward 22 more,
+    where matplotlib is installed)."""
+    from treemorph_tpu_torch.ops.cuda import LAUNCHES
+    from treemorph_tpu_torch.scripts import sanity_check
+
+    before = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    figure = has_matplotlib()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "sanity.png") if figure else ""
+        history = sanity_check.main([
+            "pointtransformerv3", "--epochs", str(SANITY_EPOCHS), "--out",
+            out, "--device", str(device)])
+    secs = time.perf_counter() - t0
+    launches = {k: LAUNCHES[k] - before.get(k, 0)
+                for k in ("window_attention", "window_attention_bwd")}
+    losses = [r["train_loss"] for r in history]
+    log(f"15f: {secs:.1f} s, train losses {losses}, launches {launches}")
+    if not figure:
+        log("15f figure: not run: matplotlib is not installed on this "
+            "machine")
+    report_checks("15f", {
+        "train loss falls": losses[-1] < losses[0],
+        f"{2 * PTV3_BLOCKS} attention forwards an epoch":
+            launches["window_attention"]
+            == PTV3_BLOCKS * (2 * SANITY_EPOCHS + figure),
+        f"{PTV3_BLOCKS} attention backwards an epoch":
+            launches["window_attention_bwd"] == PTV3_BLOCKS * SANITY_EPOCHS,
+    })
+    return {"seconds": secs, "losses": losses, "launches": launches}
+
+
 def pipeline_config(input_dir: str, output_dir: str,
                     model_type: str = "treelearn") -> dict:
     """``configs/pipeline_config.yaml`` as a dict (no YAML parser needed),
@@ -4723,7 +5317,7 @@ def main() -> int:
     phase_card_and_build()
     points = e2e_cloud()
     log(f"e2e cloud: {len(points)} raw points")
-    fwd_record, _ = phase_kernel_vs_plain(points, device)
+    fwd_record, fwd_rows = phase_kernel_vs_plain(points, device)
     phase_stage1_card_vs_cpu(points, device)
     with tempfile.TemporaryDirectory() as tmp:
         csv = os.path.join(tmp, "plot_cylinders.csv")
@@ -4733,6 +5327,9 @@ def main() -> int:
         phase_label_plot(points, csv, device)
         phase_preprocess_cli(device)
         log(f"phases 14a-14c: {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        phase_evaluate_qsm(points, csv, device)
+        phase15_s = time.perf_counter() - t1
     with tempfile.TemporaryDirectory() as root:
         t1 = time.perf_counter()
         write_training_plots(root)
@@ -4777,10 +5374,20 @@ def main() -> int:
         pn2_train_record = phase_pointnet2_train_step(device)
         pn2_cli_record, pn2_ckpt = phase_pointnet2_training_cli(root, device)
         band_cli_record, band_ckpt = phase_ptv3_band_cli(root, device)
+        tl_ckpt = pipeline_treelearn_checkpoint(root, device)
         phase_pipeline_cli(root, {
-            "treelearn": pipeline_treelearn_checkpoint(root, device),
-            "pointnet2": pn2_ckpt, "pointtransformerv3": band_ckpt}, device)
+            "treelearn": tl_ckpt, "pointnet2": pn2_ckpt,
+            "pointtransformerv3": band_ckpt}, device)
         log(f"phases 13a-13d: {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        phase_evaluate_nn(root, {"treelearn": tl_ckpt,
+                                 "pointtransformerv3": band_ckpt}, device)
+        phase_test_model(root, tl_ckpt, device)
+        phase_import_round_trip(points, device)
+        phase_mfu(points, fwd_rows, device)
+        phase_sanity_check(device)
+        phase15_s += time.perf_counter() - t1
+        log(f"phase 15: {phase15_s:.1f} s")
     levels = e2e_levels(points, device)
     profile = profile_rulebooks(device)
     zband_record, _ = phase_zband_vs_plain(profile, levels, device)

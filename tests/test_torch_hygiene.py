@@ -11,13 +11,22 @@ import pytest
 import torch
 
 import treemorph_tpu_torch
+from treemorph_tpu_torch.data import TreeDataset
+from treemorph_tpu_torch.evaluation import diagnostics
 from treemorph_tpu_torch.evaluation.model_loaders import Predictor, build_model
+from treemorph_tpu_torch.evaluation.nn_eval import nn_eval
 from treemorph_tpu_torch.ops.cuda import CSRC_DIR, KERNEL_FUNCTIONS, kernel_names
 from treemorph_tpu_torch.pipeline.predict import predict_single
 from treemorph_tpu_torch.pipeline.run import run_pipeline
 from treemorph_tpu_torch.pipeline.upsample import upsample_device
 from treemorph_tpu_torch.pipeline import upsample
-from treemorph_tpu_torch.scripts import exec_pipeline, profile_zband
+from treemorph_tpu_torch.scripts import (
+    evaluate,
+    exec_pipeline,
+    import_checkpoint,
+    profile_zband,
+    sanity_check,
+)
 
 PACKAGE = os.path.dirname(treemorph_tpu_torch.__file__)
 REPO = os.path.dirname(PACKAGE)
@@ -45,6 +54,7 @@ def port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "time_kernels.py")
     yield os.path.join(REPO, "compare_sass.py")
+    yield os.path.join(REPO, "serving_syncs.py")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -96,7 +106,22 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
                               "stage1": {"model_type": "treelearn"}}),
         lambda: profile_zband.main([]),
         lambda: exec_pipeline.main(["--config", str(config)]),
+        lambda: evaluate.main(["nn", "treelearn", "--data_root",
+                               str(tmp_path), "--offset_model_dir",
+                               str(tmp_path)]),
+        lambda: evaluate.main(["qsm-distance", "--cloud", "c.npy",
+                               "--pred_cloud", "p.npy", "--qsm_csv",
+                               "q.csv"]),
+        lambda: import_checkpoint.main(["treelearn", "ref.pt",
+                                        str(tmp_path / "out")]),
+        lambda: sanity_check.main(["treelearn", "--epochs", "1"]),
+        lambda: nn_eval({"O_P3": cpu_model}, TreeDataset(
+            [], training=False, process_json=False)),
+        lambda: diagnostics.test_model(cpu_model, labeled, str(tmp_path)),
     ]
+    cpu_model = Predictor("treelearn", model, "cpu")
+    labeled = np.zeros((64, 11), np.float32)
+    labeled[:, :3] = cloud
     config = tmp_path / "cfg.json"
     config.write_text('{"general": {"input_dir": "%s", "output_dir": "%s"}, '
                       '"stage1": {"model_type": "treelearn"}}'

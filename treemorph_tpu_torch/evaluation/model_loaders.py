@@ -112,15 +112,17 @@ def load_model(
     offset_model_dir: str | None = None,
     noise_model_dir: str | None = None,
     device=None,
+    **build_overrides,
 ) -> dict[str, Predictor]:
     """Per-plot offset ("O_P{n}") and noise ("N_P{n}") predictors from the
     checkpoint directories under each model directory (one per CV plot,
     with ``P{n}`` in the name, as the training CLIs of both packages write
     them): the port's ``model.pt``, or else the JAX package's orbax
     directory of flax ``{params, batch_stats}``. Metadata manifests
-    override the family defaults where not null. Every directory found is
-    loaded, as in the JAX package. Models run on ``device`` (the CUDA
-    device unless named; raises without one)."""
+    override the family defaults where not null, and ``build_overrides``
+    (an engine, a compute dtype: what a checkpoint does not record) override
+    both. Every directory found is loaded, as in the JAX package. Models run
+    on ``device`` (the CUDA device unless named; raises without one)."""
     device = resolve_device(device)
     model_type = model_type.lower()
     out: dict[str, Predictor] = {}
@@ -137,6 +139,7 @@ def load_model(
                 k: v for k, v in meta.items()
                 if k in FAMILY_DEFAULTS[model_type] and v is not None
             }
+            overrides.update(build_overrides)
             model = build_model(model_type, device=device, **overrides)
             own = os.path.join(full, MODEL_FILE)
             if os.path.exists(own) or not is_orbax_checkpoint(full):

@@ -26,6 +26,7 @@ import ctypes
 
 import torch
 
+from ..utils import flops
 from .cuda import LAUNCHES, check_launch, load_library, stream_handle
 
 #: keys staged per pass in the CUDA kernels (the backward's rows per block
@@ -175,11 +176,30 @@ def _window_attention_cuda(q, k, v, seg, with_lse=False):
     return out, lse
 
 
+def allowed_pair_count(seg: torch.Tensor) -> torch.Tensor:
+    """Allowed (query, key) pairs of the windows ``seg`` (W, K) per head,
+    a device tensor: over windows and segments, the segment's rows
+    squared (each row's run of equal ids in the sorted window, summed)."""
+    s = torch.sort(seg.to(torch.int64), dim=1).values
+    run = (torch.searchsorted(s, s, right=True)
+           - torch.searchsorted(s, s, right=False))
+    return torch.where(s >= 0, run, 0).sum()
+
+
+def _log_flops(tag, q, seg, per_pair):
+    """Log ``per_pair`` x D FLOPs per allowed pair and head of a call
+    (:mod:`..utils.flops`)."""
+    flops.log_kernel_flops(
+        tag, allowed_pair_count(seg) * (per_pair * q.shape[1] * q.shape[3]))
+
+
 def window_attention_fwd(q, k, v, seg):
     """(out, lse) of the forward: the output and each row's log-sum-exp of
     its allowed scaled scores (0 for a row with none), as the backward
     takes them. On CUDA tensors the kernel of ``csrc/window_attention.cu``
     (or raise); CPU tensors take :func:`window_attention_reference`."""
+    if flops.counting():
+        _log_flops("window_attention", q, seg, 4)
     if q.device.type == "cpu":
         return window_attention_reference(q, k, v, seg, return_lse=True)
     if q.device.type != "cuda":
@@ -195,6 +215,8 @@ def window_attention_bwd(q, k, v, seg, g, out, lse):
     :data:`HEAD_DIMS`, K a multiple of :data:`TILE`); raises on anything
     else. One call runs two grids (``dq``, then ``dk`` and ``dv``) and
     counts one launch."""
+    if flops.counting():
+        _log_flops("window_attention_bwd", q, seg, 5)
     if q.device.type != "cuda":
         raise ValueError(f"window_attention_bwd: unsupported device "
                          f"{q.device}")
@@ -248,6 +270,8 @@ class _WindowAttention(torch.autograd.Function):
         q, k, v, seg, *saved = ctx.saved_tensors
         g = g.float().contiguous()
         if q.device.type == "cpu":
+            if flops.counting():
+                _log_flops("window_attention_bwd", q, seg, 5)
             dq, dk, dv = window_attention_bwd_reference(q, k, v, seg, g)
         else:
             dq, dk, dv = window_attention_bwd(q, k, v, seg, g, *saved)
@@ -266,6 +290,8 @@ def window_attention(q, k, v, seg):
     grad mode is off) the forward writes no log-sum-exp."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"window_attention: unsupported device {q.device}")
+    if flops.counting():
+        _log_flops("window_attention", q, seg, 4)
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (q, k, v)):
         return _WindowAttention.apply(q, k, v, seg)

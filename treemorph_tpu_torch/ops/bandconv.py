@@ -56,6 +56,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import flops
 from .cuda import LAUNCHES, check_launch, load_library, stream_handle
 
 TILE = 128  # output rows per kernel block
@@ -203,6 +204,9 @@ def band_conv_padded(
     On a CUDA tensor this launches the kernel of ``csrc/band_conv.cu`` (its
     weight split, then its GEMM) or raises; a CPU tensor takes the plain
     version."""
+    if flops.counting():
+        flops.log_kernel_flops("band_conv", _band_flops(
+            rb_tiles, starts, m, win, feats.shape[1], weights.shape[-1]))
     if feats.device.type == "cpu":
         return band_conv_padded_plain(rb_tiles, starts, feats, weights, m, win)
     if feats.device.type != "cuda":
@@ -243,6 +247,12 @@ def band_conv_padded(
     LAUNCHES["band_conv"] += 1
     LAUNCHES[f"band_conv_k{k}"] += 1  # the same launches, by kernel size
     return out
+
+
+def _band_flops(rb_tiles, starts, m, win, cin, cout) -> torch.Tensor:
+    """The band kernels' analytic FLOPs on a plan (:mod:`..utils.flops`):
+    2 x the in-window rulebook entries x Cin x Cout, a device tensor."""
+    return 2 * in_window(rb_tiles, starts, m, win)[1].sum() * (cin * cout)
 
 
 def _check_plan_args(name, rb_tiles, starts, mp, win):
@@ -337,12 +347,8 @@ def band_conv_bwd_padded(
 
     On a CUDA tensor this runs the forward kernel on ``(grad, w_bwd)`` for
     ``d_feats`` and :func:`band_conv_dw_padded` for ``d_w``; each raises on
-    what its kernel does not take. A CPU tensor takes the plain version.
-    Both kernels take K = 27 and 125."""
-    if grad.device.type == "cpu":
-        return band_conv_bwd_padded_plain(
-            rb_tiles, starts, grad, feats, w_bwd, m, win
-        )
+    what its kernel does not take. CPU tensors take the plain versions
+    through the same two wrappers. Both kernels take K = 27 and 125."""
     k = rb_tiles.shape[1]
     cout, cin = grad.shape[1], feats.shape[1]
     if w_bwd.shape != (k, cout, cin):
@@ -368,6 +374,9 @@ def band_conv_dw_padded(
     On a CUDA tensor this launches ``csrc/band_conv_bwd.cu``, whose
     per-block partial sums are added here, or raises; a CPU tensor takes
     the plain version."""
+    if flops.counting():
+        flops.log_kernel_flops("band_conv_bwd", _band_flops(
+            rb_tiles, starts, m, win, feats.shape[1], grad.shape[1]))
     if grad.device.type == "cpu":
         return band_conv_dw_padded_plain(rb_tiles, starts, grad, feats, m, win)
     if grad.device.type != "cuda":
@@ -742,6 +751,16 @@ def zband_conv_padded_plain(
     return out
 
 
+def _zband_flops(anchors, starts, m, win, e, cout) -> torch.Tensor:
+    """The z-band kernel's analytic FLOPs (:mod:`..utils.flops`): 2 x the
+    found in-window anchors x ksize*Cin (``e``) x Cout, a device
+    tensor."""
+    idx = anchors.to(torch.int64)
+    local = idx - (starts.to(torch.int64) * ZALIGN).T[:, :, None]
+    ok = (idx < m) & (local >= 0) & (local < win)
+    return 2 * ok.sum() * (e * cout)
+
+
 def zband_conv_padded(
     anchors: torch.Tensor,
     starts: torch.Tensor,
@@ -759,6 +778,9 @@ def zband_conv_padded(
     On a CUDA tensor this launches the z-band instance of
     ``csrc/band_conv.cu`` (its weight split, then its GEMM, with the groups
     as the offsets) or raises; a CPU tensor takes the plain version."""
+    if flops.counting():
+        flops.log_kernel_flops("zband_conv", _zband_flops(
+            anchors, starts, m, win, zq.shape[1], w2.shape[-1]))
     if zq.device.type == "cpu":
         return zband_conv_padded_plain(anchors, starts, zq, w2, m, win)
     if zq.device.type != "cuda":

@@ -32,6 +32,7 @@ import ctypes
 
 import torch
 
+from ..utils import flops
 from .cuda import LAUNCHES, check_launch, load_library, stream_handle
 
 SIDE = 6  # brick edge + halo
@@ -75,6 +76,13 @@ def brick_conv_cells(h: torch.Tensor, weights: torch.Tensor,
 
     On a CUDA tensor this launches the kernel of ``csrc/brick_conv.cu`` or
     raises; a CPU tensor takes the plain version."""
+    if flops.counting():
+        # the bricks whose input is not all zero, as the kernel skips the
+        # others (:mod:`..utils.flops`)
+        live = (h != 0).flatten(1).any(dim=1).sum()
+        flops.log_kernel_flops("brick_conv", live * (
+            2 * (64 if core_only else CELLS6) * 27 * h.shape[-1]
+            * weights.shape[-1]))
     if h.device.type == "cpu":
         return brick_conv_cells_plain(h, weights, core_only)
     if h.device.type != "cuda":

@@ -36,6 +36,11 @@ KERNEL_FUNCTIONS: dict[str, tuple[str, ...]] = {
 
 _libs: dict[str, ctypes.CDLL] = {}
 
+#: set by :func:`treemorph_tpu_torch.utils.debug.synchronous_mode`: each
+#: wrapper then synchronizes after its launch, so a kernel's asynchronous
+#: error names that launch rather than a later call
+SYNCHRONOUS = False
+
 
 def reset_launches() -> None:
     LAUNCHES.clear()
@@ -96,6 +101,14 @@ def stream_handle(device) -> int:
 
 
 def check_launch(name: str, rc: int) -> None:
-    """Raise if a launch returned a CUDA error."""
+    """Raise if a launch returned a CUDA error; in synchronous mode, also
+    if the kernel failed while it ran."""
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    if SYNCHRONOUS:
+        import torch
+
+        try:
+            torch.cuda.synchronize()
+        except RuntimeError as err:
+            raise RuntimeError(f"{name} kernel failed: {err}") from err
