@@ -22,7 +22,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 4. End to end at full width: the pipeline's TreeLearn (channels 32, three
    levels, band engine, bf16, voxel_capacity_divisor 2, seeded weights) on
    the ~500k-point synthetic plot, through ``run_pipeline`` (counting the
-   kernel's launches) and once more stage by stage with per-stage seconds.
+   kernel's launches), each stage timed inside that call.
 
 Training (three synthetic plots of 30 labeled trees x 16,384 points, the
 reference's training batch, written to a temporary directory):
@@ -51,7 +51,8 @@ reference's training batch, written to a temporary directory):
    optimizer, and one more step under ``torch.profiler`` (device busy
    share, top operators and kernels). 6d: ``TreeLearn(kernel_size=5,
    engine="band")``: the f32 step band against gather on the card (as
-   6a), the bf16 step card against CPU, and full-width bf16 steps with
+   6a) and the bf16 step card against CPU, on 2 trees x 4,096 points, and
+   full-width bf16 steps on the 30-tree batch with
    their launches counted (``band_conv_bwd``, the K = 125 forward).
 
 PTv3 serving (the pipeline's ``pointtransformerv3`` family at full width,
@@ -72,9 +73,9 @@ seeded weights, f32, on the e2e cloud given seeded per-point features):
     rows that hold a segment, the segment ids, the whole output), the plain
     version and ``scaled_dot_product_attention`` with the same mask.
 7b. Stage 1 on the card against the CPU: the forward ``predict_single``
-    runs, on the cloud's first 65,536 points.
+    runs, on the cloud's first 16,384 points.
 7c. End to end: ``run_pipeline`` with ``model_type: pointtransformerv3``
-    (44 kernel launches: 22 blocks x 2 models), then stage by stage, then
+    (44 kernel launches: 22 blocks x 2 models), its stages timed, then
     one forward under ``torch.profiler`` (device busy share, top operators
     and kernels, and the port's own kernels).
 
@@ -95,8 +96,9 @@ on the training plots above, at the reference's PTv3 batch of 4 trees x
 8b. Training on the card: each of the step's 22 attentions differentiated
     alone through autograd (``window_attention``'s ``autograd.Function``
     and the backward kernel) on the step's own cotangent, against the plain
-    backward; one train step on a 2-tree cut, card against CPU (f32, the
-    same weights and order permutations, ``drop_path`` 0).
+    backward; one train step on a cut of 2 trees x 4,096 points, card
+    against CPU (f32, the same weights and order permutations,
+    ``drop_path`` 0).
 8c. The training CLI at full width: one CV fold, 2 epochs of 15 steps,
     counting both attention kernels' launches (22 backward per step); its
     checkpoint through ``load_model`` serves one ``predict_single``.
@@ -151,7 +153,7 @@ tree, 131,072 points, seeded features):
      where every plan is ``ok``); then ``predict_single`` with both
      predictors on the card, launches counted.
 11c. The same configuration through ``run_pipeline`` on the PTv3 plot,
-     stage by stage; one forward's wall time (median of 3) and one forward
+     its stages timed; one forward's wall time (median of 3) and one forward
      under ``torch.profiler``.
 
 PointNet2 serving (the pipeline's ``pointnet2`` family, depth 5, seeded
@@ -161,7 +163,7 @@ weights, f32), on the e2e cloud cut into 1 m rasters:
      1e-3 of their scale, semantic argmax agreement; the shares of
      identical FPS and ball-query indices.
 12b. The plot through ``run_pipeline`` with ``model_type: pointnet2`` (one
-     (60, max_pts) minibatch per model), then stage by stage, with peak
+     (60, max_pts) minibatch per model), its stages timed, with peak
      device memory.
 12c. Exact FPS at the first set abstraction's shape (CUDA events), and one
      minibatch forward under ``torch.profiler``: wall, device busy share,
@@ -191,10 +193,11 @@ Training the other families (13a-13d, on the training plots above):
      kernel), every band plan's ``ok`` and GATHER_ROUTES; the 22
      ``band_conv_bwd`` calls of one bf16 card step, each against its plain
      version on the step's own and on random cotangents; one f32 step band
-     against gather on the card, one bf16 step card against CPU (2-tree
-     cut); the step split and one step profiled.
+     against gather on the card, one bf16 step card against CPU (2 trees
+     x 4,096 points); the step split and one step profiled.
 13d. ``python -m treemorph_tpu_torch.scripts.exec_pipeline --config``
-     once per family (JSON for TreeLearn, YAML for PointNet2 and PTv3),
+     once per family, the three processes started together (JSON for
+     TreeLearn, YAML for PointNet2 and PTv3),
      ``model_dirs`` naming the checkpoints of 6b, 13b and 13c, on one
      held-out tree with stage 2's target lowered: points kept, cylinders,
      the CSV written.
@@ -213,12 +216,14 @@ whose cylinder CSV 14b takes):
      upsampled, > 0 cylinders, 42 band launches a ``predict_single``);
      the reader's and ``load_model``'s seconds.
 14b. The plot labeled against phase 4's fitted cylinders:
-     ``generate_offset_cloud`` and ``add_features`` on the card (twice)
-     and on the CPU; ids, offsets, normals and heights card against CPU;
+     ``generate_offset_cloud`` and ``add_features`` on the card (twice),
+     then on a seeded 65,536-point cut on the card and on the CPU: ids,
+     offsets, normals and heights card against CPU on the cut;
      seconds, pairs per second, peak device memory, the projection's
      bound.
-14c. ``python -m treemorph_tpu_torch.scripts.preprocess`` ``label``,
-     ``noise`` (both on the card) and ``split`` over 30 raw synthetic
+14c. ``python -m treemorph_tpu_torch.scripts.preprocess`` ``label`` and
+     ``noise`` (both on the card, started together), then ``split`` (its
+     ``main``, in-process) over 30 raw synthetic
      trees and their QSM CSVs, then the TreeLearn training CLI (band,
      bf16, ``--noise_root``) for one epoch on what they wrote: files of
      11 finite columns, manifests naming every tree, finite losses,
@@ -248,7 +253,8 @@ checkpoints):
      ``python -m treemorph_tpu_torch.scripts.import_checkpoint`` and
      ``load_model`` on the card: weights and outputs bit for bit.
 15e. ``utils/flops.py``'s ``mfu_report`` of one serving forward (phase 4's
-     TreeLearn) and one PTv3 forward (7b's cut), each printed on a line
+     TreeLearn) and one PTv3 forward (the cloud's first 65,536 points),
+     each printed on a line
      ``MFU {json}`` with the card's name and power limit; the band
      ``kernel_flops`` equal to phase 2's operations for the same forward;
      outside the log the forward's launches and host synchronizations
@@ -256,6 +262,47 @@ checkpoints):
 15f. ``python -m treemorph_tpu_torch.scripts.sanity_check
      pointtransformerv3`` for SANITY_EPOCHS epochs on the card: the loss
      falls, the attention forward and backward launches counted.
+
+PTv3's reference-partitioning options and the non-default conv engines
+(16a-16f; 16c after 6d, on its 30-tree batch; 16a, 16b and 16e after 8d;
+16f after 10c; 16d after 11b):
+
+16a. PTv3 with ``pad_per_element`` at full width: the serving forward card
+     against CPU (``num_elements`` 1, 7b's limits, a 16,384-point cut); the
+     attention inputs of one forward on that layout, each shape's kernel
+     against its plain version (dead windows and slots logged, dead rows
+     exactly 0); each of a 4-tree train step's 22 attention calls
+     (``num_elements`` 4, its own cotangents), the backward kernel against
+     its plain version; launches: 22 forward in a ``predict_single``, 22
+     forward and 22 backward in the step; one f32 step card against CPU on
+     2 trees x 1,024 points and one block a stage (8b's limits; the CPU
+     bounds the cut).
+16b. PTv3 with RPE, ``pad_per_element`` and PDNorm (BatchNorms and
+     LayerNorms, conditions TreeSet / Other, condition 1), without and with
+     ``adaptive`` (a seeded context): three steps at 2 x 16,384 on the card
+     (the loss falls; peak device memory; 4 trees overflow the card with
+     RPE), the eval forward card against CPU on 2 trees x 1,024 points at
+     one block a stage, and (adaptive) one step card against CPU there.
+     Attention with the RPE
+     bias takes the plain version on every device, as the JAX package
+     routes it (the kernels take no bias): no attention launch.
+16c. The pipeline's TreeLearn width (seeded, f32, voxel capacity P / 2) on
+     the zpack, pencil and brick (``F.conv3d`` with TF32 off, and x-slab)
+     engines: the plot's forward against the gather engine on the card, a
+     10,000-point cut card against CPU, seconds beside the gather and band
+     engines', dropped voxels; one f32 step at 30 x 16,384 per engine
+     against the gather step (6a's limits; brick at 5 trees: at 10 the
+     x-slab step's dense bricks overflow the card).
+16d. The bench PTv3 configuration with ``stem_engine="zpack"`` on the
+     bench tree's first 32,768 points (token cap P / 2): card against CPU
+     (11b's bf16 limit), no band launch, 22
+     attention launches, no overflow; against the band stem, logged.
+16e. The training CLI for one epoch on a cut of the training plots:
+     ``treelearn --engine`` zpack, pencil, brick, and ``pointtransformerv3
+     --engine zpack --dedup_divisor 4`` (attention launches counted).
+16f. The plot's level 0 in 8^3 tiles: ``tile_subm_conv`` (``F.conv3d``
+     and 27 slices) against the gather conv; the octant-run rulebook equal
+     to ``build_rulebook`` (k = 3, 5).
 
 The last two lines are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``. Float32 matmuls and convolutions run
@@ -399,10 +446,16 @@ STAGE1_ARGMAX_AGREEMENT = 0.999
 #: stage 2's target size (configs/pipeline_config.yaml)
 MIN_POINTS = 1_000_000
 
-#: PTv3: attention blocks per forward (encoder 2+2+2+6+2, decoder 2+2+2+2)
-#: and the cut of the e2e cloud stage 1 is compared on, card against CPU
+#: PTv3: attention blocks per forward (encoder 2+2+2+6+2, decoder 2+2+2+2),
+#: the cut of the e2e cloud its kernels and MFU are measured on, and the
+#: cut stage 1 is compared on, card against CPU (the CPU's forward of the
+#: larger cut took 28 s)
 PTV3_BLOCKS = 22
-PTV3_CUT = 65_536
+PTV3_CUT, PTV3_CPU_CUT = 65_536, 16_384
+#: points of each of the 2 trees of a PTv3 train step card against CPU:
+#: f32 (8b) and the band configuration's bf16 (13c); the CPU's f32 step on
+#: whole trees took 36 s, its bf16 step 41 s (27 s on 8,192 points)
+PTV3_CPU_STEP_POINTS = 4096
 #: card vs CPU PTv3 forward, f32 throughout: the same roundings in another
 #: sum order (cuBLAS, atomic pooled sums) through 22 blocks
 PTV3_OFFSET_RTOL = 1e-3
@@ -469,8 +522,12 @@ PTV3_BENCH = dict(pool_shrink=2, dedup_divisor=4, dedup_tokens=True,
 PTV3_BENCH_OFFSET_RTOL = 1e-2
 
 
+#: the script's start; every log line opens with the seconds since then
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {msg}", flush=True)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -535,20 +592,29 @@ def pipeline_models(device):
 
 
 def phase_card_and_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
 
     from treemorph_tpu_torch import native
-    from treemorph_tpu_torch.ops.cuda import build_all
+    from treemorph_tpu_torch.ops.cuda import build_all, kernel_names
 
     log(card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
-    secs = build_all()
-    t0 = time.perf_counter()
-    native.load()
-    log(f"phase 1 ok: nvcc build {secs:.2f} s, g++ build "
-        f"{time.perf_counter() - t0:.2f} s")
-    log_register_use()
+    log(f"CPUs {len(os.sched_getaffinity(0))}, torch threads "
+        f"{torch.get_num_threads()} (the CPU references)")
+    with ThreadPoolExecutor() as pool:
+        t0 = time.perf_counter()
+        reports = {n: pool.submit(ptxas_report, n) for n in kernel_names()}
+        secs = build_all()
+        t1 = time.perf_counter()
+        native.load()
+        log(f"phase 1 ok: nvcc build {secs:.2f} s, g++ build "
+            f"{time.perf_counter() - t1:.2f} s")
+        log_register_use({n: f.result() for n, f in reports.items()})
+    log(f"  register report {time.perf_counter() - t0:.1f} s, compiled "
+        f"beside the build")
 
 
 def kernel_label(mangled: str) -> str:
@@ -576,26 +642,23 @@ def kernel_label(mangled: str) -> str:
     return mangled[:60]
 
 
-def log_register_use():
+def ptxas_report(name: str) -> str:
+    """ptxas's report of ``csrc/{name}.cu`` (``nvcc -Xptxas -v -c``)."""
+    from treemorph_tpu_torch.ops.cuda import CSRC_DIR, _nvcc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        return subprocess.run(
+            [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "-Xptxas", "-v", "-c", "-o",
+             os.path.join(tmp, "k.o"), os.path.join(CSRC_DIR, f"{name}.cu")],
+            capture_output=True, text=True, check=True).stderr
+
+
+def log_register_use(reports: dict):
     """Registers, shared memory and spills of every kernel instantiation as
-    ptxas reports them (``nvcc -Xptxas -v -c``, one process per source, all
-    started together)."""
+    ptxas reports them (``reports``: :func:`ptxas_report` by source)."""
     import re
-    from concurrent.futures import ThreadPoolExecutor
 
-    from treemorph_tpu_torch.ops.cuda import CSRC_DIR, _nvcc, kernel_names
-
-    def report(name):
-        with tempfile.TemporaryDirectory() as tmp:
-            return subprocess.run(
-                [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                 "-std=c++17", "-O3", "-Xptxas", "-v", "-c", "-o",
-                 os.path.join(tmp, "k.o"), os.path.join(CSRC_DIR, f"{name}.cu")],
-                capture_output=True, text=True, check=True).stderr
-
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor() as pool:
-        reports = dict(zip(kernel_names(), pool.map(report, kernel_names())))
     for name, text in reports.items():
         entry, spills = "", ""
         for line in text.splitlines():
@@ -607,7 +670,6 @@ def log_register_use():
             elif "Used" in line and entry:
                 log(f"  ptxas {name}: {entry}: {line.split(':', 1)[1].strip()}"
                     f"; {spills}")
-    log(f"  register report {time.perf_counter() - t0:.1f} s")
 
 
 def level_sets(coords, batch_ids, valid, batch_size, capacity):
@@ -860,8 +922,9 @@ class _RetryCounter(logging.Handler):
 def plot_end_to_end(cloud, model_type, models, device, kernel, per_forward,
                     overflow_routes=None, csv_out=None):
     """``run_pipeline`` on ``cloud`` with ``model_type``'s offset and noise
-    predictors ``models``, then the same stages one by one, timed, with the
-    run's peak device memory. Checks the run and that ``kernel`` launched
+    predictors ``models``, each of its three stages timed inside that call
+    (the device synchronized at each stage's ends), with the run's peak
+    device memory. Checks the run and that ``kernel`` launched
     ``per_forward`` times in each forward, less the calls that
     ``overflow_routes`` (a counter the run adds to, such as the band convs'
     ``GATHER_ROUTES``) sent elsewhere (``kernel`` None: a family whose
@@ -871,12 +934,24 @@ def plot_end_to_end(cloud, model_type, models, device, kernel, per_forward,
     import torch
 
     from treemorph_tpu_torch.ops.cuda import LAUNCHES, reset_launches
-    from treemorph_tpu_torch.pipeline.predict import make_predictions
-    from treemorph_tpu_torch.pipeline.qsm import QSMParams, fit_qsm
-    from treemorph_tpu_torch.pipeline.run import run_pipeline
-    from treemorph_tpu_torch.pipeline.upsample import upsample
+    from treemorph_tpu_torch.pipeline import run as pipeline_run
 
     offset_model, noise_model = models
+    stage_s = {}
+
+    def timed(stage, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stage_s[stage] = stage_s.get(stage, 0.0) + time.perf_counter() - t
+            return out
+        return call
+
+    stages = {"stage1": "make_predictions", "upsample": "upsample",
+              "qsm": "fit_qsm"}
+    saved = {attr: getattr(pipeline_run, attr) for attr in stages.values()}
     predict_log = logging.getLogger("treemorph_tpu_torch.pipeline.predict")
     retries = _RetryCounter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -891,8 +966,15 @@ def plot_end_to_end(cloud, model_type, models, device, kernel, per_forward,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
         reset_launches()
+        for stage, attr in stages.items():
+            setattr(pipeline_run, attr, timed(stage, saved[attr]))
         t0 = time.perf_counter()
-        results = run_pipeline(cfg, offset_model, noise_model, device=device)
+        try:
+            results = pipeline_run.run_pipeline(cfg, offset_model,
+                                                noise_model, device=device)
+        finally:
+            for attr, fn in saved.items():
+                setattr(pipeline_run, attr, fn)
         e2e_s = time.perf_counter() - t0
         peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
         predict_log.removeHandler(retries)
@@ -926,28 +1008,16 @@ def plot_end_to_end(cloud, model_type, models, device, kernel, per_forward,
             raise AssertionError(f"{model_type} end-to-end checks failed")
         if csv_out is not None:
             shutil.copyfile(csv, csv_out)
-
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        refined = make_predictions(cloud, model_type, offset_model,
-                                   noise_model, device=device)
-        t1 = time.perf_counter()
-        upsampled = upsample(refined, min_points=MIN_POINTS, device=device)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        df, _, _, _ = fit_qsm(upsampled, params=QSMParams(seed=0),
-                              output_base=os.path.join(tmp, "staged"))
-        t3 = time.perf_counter()
         record = {
             "model_type": model_type,
             "e2e_raw_points": len(cloud),
-            "e2e_stage1_kept_points": len(refined),
-            "e2e_upsampled_points": len(upsampled),
-            "e2e_cylinders": len(df),
-            "e2e_stage1_seconds": t1 - t0,
-            "e2e_upsample_seconds": t2 - t1,
-            "e2e_qsm_seconds": t3 - t2,
-            "e2e_plot_seconds": t3 - t0,
+            "e2e_stage1_kept_points": len(stage1),
+            "e2e_upsampled_points": results[0]["points"],
+            "e2e_cylinders": results[0]["cylinders"],
+            "e2e_stage1_seconds": stage_s.get("stage1", 0.0),
+            "e2e_upsample_seconds": stage_s.get("upsample", 0.0),
+            "e2e_qsm_seconds": stage_s.get("qsm", 0.0),
+            "e2e_plot_seconds": results[0]["seconds"],
             "run_pipeline_seconds": e2e_s,
             "run_pipeline_peak_memory_gb": peak_gb,
         }
@@ -1643,10 +1713,10 @@ def ptv3_cloud(points):
     return cloud
 
 
-def ptv3_models(device):
-    """Offset and noise predictors of the pipeline's PTv3 (seeded weights);
-    the noise model's semantic head prefers class 0 (keep), as
-    ``pipeline_models`` does for TreeLearn."""
+def ptv3_models(device, **overrides):
+    """Offset and noise predictors of the pipeline's PTv3 (seeded weights,
+    ``overrides`` to its options); the noise model's semantic head prefers
+    class 0 (keep), as ``pipeline_models`` does for TreeLearn."""
     import torch
 
     from treemorph_tpu_torch.evaluation.model_loaders import (
@@ -1654,7 +1724,8 @@ def ptv3_models(device):
         build_model,
     )
 
-    model = build_model("pointtransformerv3", device=device, seed=0)
+    model = build_model("pointtransformerv3", device=device, seed=0,
+                        **overrides)
     noise = model.clone()
     with torch.no_grad():
         noise.semantic_head.Dense_1.bias.copy_(torch.tensor([5.0, -5.0]))
@@ -1916,18 +1987,19 @@ def phase_attention_vs_plain(cloud, device):
     return record, rows
 
 
-def phase_ptv3_card_vs_cpu(cloud, device):
+def phase_ptv3_card_vs_cpu(cloud, device, name="phase 7b", cut=PTV3_CPU_CUT,
+                           **overrides):
     """The forward ``predict_single`` runs (offset model: offsets and
-    logits), on the card and on the CPU, on the cloud's first PTV3_CUT
-    points."""
+    logits), on the card and on the CPU, on the cloud's first ``cut``
+    points (``overrides``: the model's options)."""
     import numpy as np
 
     from treemorph_tpu_torch.pipeline.predict import _pad_flat
 
-    cut = cloud[:PTV3_CUT]
+    cut = cloud[:cut]
     outs = []
     for dev in (device, "cpu"):
-        offset_model, _ = ptv3_models(dev)
+        offset_model, _ = ptv3_models(dev, **overrides)
         coords, f, b, v, n = _pad_flat(cut[:, :3], cut[:, 7:11], device=dev)
         t0 = time.perf_counter()
         res = offset_model.predict_flat(coords, f, b, v)
@@ -1950,7 +2022,8 @@ def phase_ptv3_card_vs_cpu(cloud, device):
     balanced = float(((margin["card"] > median)
                       == (margin["cpu"] > median)).mean())
     finite = all(np.isfinite(o[k]).all() for o in outs for k in o)
-    log(f"PTv3 stage 1 card vs cpu on {len(cut)} points: offsets max |err| "
+    log(f"{name}: PTv3 {overrides or ''} stage 1 card vs cpu on "
+        f"{len(cut)} points: offsets max |err| "
         f"{off_err:.3e} (scale {off_scale:.3e}, limit {PTV3_OFFSET_RTOL} x "
         f"scale), noise argmax agreement {agree:.5f} (class 1 on "
         f"{(margin['cpu'] > 0).mean():.3f}), {balanced:.5f} at the median "
@@ -1958,7 +2031,7 @@ def phase_ptv3_card_vs_cpu(cloud, device):
     if not (finite and off_err <= PTV3_OFFSET_RTOL * off_scale
             and min(agree, balanced) >= STAGE1_ARGMAX_AGREEMENT):
         raise AssertionError("PTv3 stage 1 on the card disagrees with the CPU")
-    log("phase 7b ok")
+    log(f"{name} ok")
 
 
 def profile_forward(predictor, cloud, top=10):
@@ -2052,28 +2125,31 @@ def ptv3_training_batch(root: str, device, trees=PTV3_TRAIN_TREES):
     return to_device(batch, device)
 
 
-def ptv3_training_model(device, drop_path=0.3):
+def ptv3_training_model(device, drop_path=0.3, **overrides):
     """The training CLI's PTv3 (full width, dim_feat 4, features, voxel
-    0.02, f32) with seeded weights, on ``device``."""
+    0.02, f32; ``overrides`` to its options) with seeded weights, on
+    ``device``."""
     from treemorph_tpu_torch.models.ptv3 import PointTransformerWithHeads
     from treemorph_tpu_torch.train.families import init_ptv3
 
     model = PointTransformerWithHeads(dim_feat=4, use_feats=True,
-                                      voxel_size=0.02, drop_path=drop_path)
+                                      voxel_size=0.02, drop_path=drop_path,
+                                      **overrides)
     return init_ptv3(model, 0).to(device)
 
 
-def capture_ptv3_step(batch, device):
+def capture_ptv3_step(batch, device, **overrides):
     """The forward and backward of one full-width PTv3 train step (the
-    family's ``forward_fn`` on step generator seed 0, the x50 loss); per
-    ``window_attention`` call, its inputs (q, k, v, seg) and the output
-    cotangent the step's backward gave it."""
+    family's ``forward_fn`` on step generator seed 0, the x50 loss;
+    ``overrides``: the model's options); per ``window_attention`` call, its
+    inputs (q, k, v, seg) and the output cotangent the step's backward gave
+    it."""
     import torch
 
     from treemorph_tpu_torch.ops import attention
     from treemorph_tpu_torch.train import families, harness
 
-    model = ptv3_training_model(device)
+    model = ptv3_training_model(device, **overrides)
     calls = []
     kernel = attention.window_attention
 
@@ -2253,16 +2329,16 @@ def phase_attention_bwd_vs_plain(calls, device):
     return record, rows
 
 
-def ptv3_one_step(batch, device):
+def ptv3_one_step(batch, device, **overrides):
     """Loss and parameter gradients (clipped as the step clips them) of one
     ``make_train_step`` of the training PTv3 at ``drop_path`` 0 on
     ``batch``, on ``device``, with step generator seed 1 (the same order
-    permutations on every device)."""
+    permutations on every device); ``overrides``: the model's options."""
     import torch
 
     from treemorph_tpu_torch.train import families, harness
 
-    model = ptv3_training_model(device, drop_path=0.0)
+    model = ptv3_training_model(device, drop_path=0.0, **overrides)
     state = harness.TrainState(model, harness.make_optimizer(model))
     step = harness.make_train_step(*families.ptv3_family())
     _, metrics = step(state, batch.map(lambda a: a.to(device)), 1e-2,
@@ -2311,12 +2387,14 @@ def phase_ptv3_train_checks(root, calls, device):
     if launches != len(calls):
         raise AssertionError("the backward kernel did not run for every "
                              "attention")
-    cut = ptv3_training_batch(root, "cpu", 2)
+    cut = ptv3_training_batch(root, "cpu", 2).map(
+        lambda a: a[:, :PTV3_CPU_STEP_POINTS].contiguous())
     t0 = time.perf_counter()
     card = ptv3_one_step(cut, device)
     t1 = time.perf_counter()
     cpu = ptv3_one_step(cut, "cpu")
-    log(f"  2-tree step: card {t1 - t0:.2f} s, CPU "
+    log(f"  2-tree step ({PTV3_CPU_STEP_POINTS} points a tree): card "
+        f"{t1 - t0:.2f} s, CPU "
         f"{time.perf_counter() - t1:.2f} s")
     compare_steps("PTv3 train step, card vs CPU, f32", card, cpu,
                   PTV3_STEP_LOSS_RTOL, PTV3_STEP_GRAD_RTOL)
@@ -3252,7 +3330,8 @@ def compare_forwards(label, a, b):
 
 def phase_bench_card_vs_cpu(cloud, device):
     """11b: the bench configuration's forward on the card and on the CPU,
-    the same seeded weights, on the bench tree. bf16 (the configuration):
+    the same seeded weights, on the bench tree. bf16 (the configuration;
+    the CPU's forward is the offset model's inside its ``predict_single``):
     offsets within PTV3_BENCH_OFFSET_RTOL of their scale, the keep decision
     of ``predict_single``'s noise model agreeing on >= 99.9 % of points (its
     ``predict_single`` run below); the
@@ -3272,8 +3351,7 @@ def phase_bench_card_vs_cpu(cloud, device):
     from treemorph_tpu_torch.ops.cuda import LAUNCHES, reset_launches
     from treemorph_tpu_torch.pipeline.predict import predict_single
 
-    card, cpu = bench_forward(cloud, device), bench_forward(cloud, "cpu")
-    bf16 = compare_forwards("bench PTv3 bf16, card vs cpu", card, cpu)
+    card = bench_forward(cloud, device)
     floor = compare_forwards(
         "bench PTv3 bf16, card vs card with every weight moved by 1e-6",
         bench_forward(cloud, device, perturb=1e-6), card)
@@ -3283,12 +3361,26 @@ def phase_bench_card_vs_cpu(cloud, device):
                                          compute_dtype="float32"))
 
     refined, keep, launches, retries = {}, {}, None, _RetryCounter()
+    cpu = {}
     predict_log = logging.getLogger("treemorph_tpu_torch.pipeline.predict")
     for dev in (device, "cpu"):
         offset, noise = ptv3_bench_models(dev)
         if dev == device:
             offset_model = offset
+        offset_forward = offset.predict_flat
         noise_forward = noise.predict_flat
+
+        def offset_recording(*args, forward=offset_forward):
+            # the CPU offset model's forward, as bench_forward returns it:
+            # the bf16 reference of the card's forward above
+            res = forward(*args)
+            cpu.update({
+                **{k: res[k][:len(cloud)].float().cpu().numpy()
+                   for k in ("offset_predictions",
+                             "semantic_prediction_logits")},
+                "dedup_overflow": int(res["dedup_overflow"]),
+                "pool_overflow": int(res["pool_overflow"])})
+            return res
 
         def recording(*args, dev=dev, forward=noise_forward):
             # the noise model's logits: predict_single keeps class 0
@@ -3297,6 +3389,8 @@ def phase_bench_card_vs_cpu(cloud, device):
             keep[dev] = logits.float().cpu().numpy().argmax(1) == 0
             return res
 
+        if dev == "cpu":
+            offset.predict_flat = offset_recording
         noise.predict_flat = recording
         predict_log.addHandler(retries)
         if dev == device:
@@ -3316,6 +3410,8 @@ def phase_bench_card_vs_cpu(cloud, device):
             f"{len(cloud)} points kept, routed to the gather engine "
             f"{dict(bandconv.GATHER_ROUTES)}, retries so far "
             f"{retries.retries}, all launches {dict(LAUNCHES)}")
+    bf16 = compare_forwards("bench PTv3 bf16, card vs cpu (the CPU's "
+                            "forward inside its predict_single)", card, cpu)
     walls = forward_walls(offset_model, cloud)
     keep_agreement = float((keep[device] == keep["cpu"]).mean())
     both = keep[device] & keep["cpu"]
@@ -3386,7 +3482,7 @@ def forward_walls(predictor, cloud, reps=3) -> list:
 
 def phase_bench_end_to_end(cloud, device, reps=3):
     """11c: the bench configuration through ``run_pipeline`` on the PTv3
-    plot (band launches counted), stage by stage; the wall time of one
+    plot (band launches counted), its stages timed; the wall time of one
     forward (host clock around synchronized work, median of ``reps``); one
     forward under ``torch.profiler``."""
     from treemorph_tpu_torch.ops import bandconv
@@ -3401,9 +3497,15 @@ def phase_bench_end_to_end(cloud, device, reps=3):
     log("phase 11c ok")
 
 
+#: 6d's steps card against CPU (and in float64) take the first points of
+#: 2 trees of the batch: on whole trees the CPU's two steps took 23-36 s
+K5_CUT_POINTS = 4096
+
+
 def phase_k5_train_step(batch, capacity, device, plans_ok):
     """6d: ``TreeLearn(kernel_size=5, engine="band")`` training, every conv
-    5x5x5 (K = 125). One f32 train step on a 2-tree cut, band engine
+    5x5x5 (K = 125). One f32 train step on a cut of 2 trees x
+    K5_CUT_POINTS points, band engine
     against gather engine on the card (held as 6a holds K = 27), both
     logged against the same step in float64 on the CPU; the bf16 band step
     card against CPU; then full-width bf16 steps on the 30-tree batch,
@@ -3416,7 +3518,7 @@ def phase_k5_train_step(batch, capacity, device, plans_ok):
     from treemorph_tpu_torch.ops.cuda import LAUNCHES, reset_launches
     from treemorph_tpu_torch.train import families, harness
 
-    cut = batch.map(lambda a: a[:2])
+    cut = batch.map(lambda a: a[:2, :K5_CUT_POINTS].contiguous())
     compare_engine_steps(
         one_train_step(cut, "band", "float32", device, 5),
         one_train_step(cut, "gather", "float32", device, 5),
@@ -3637,7 +3739,7 @@ def raster_minibatch(points):
 
 def phase_pointnet2_end_to_end(points, device):
     """12b: the plot through ``run_pipeline`` with the pointnet2 family,
-    then stage by stage, with peak device memory; 12c: exact FPS at the
+    its stages timed, with peak device memory; 12c: exact FPS at the
     first set abstraction's shape timed with CUDA events, and one
     minibatch forward under ``torch.profiler`` with the spans on the
     device of FPS, the ball queries, the 3-NN interpolations, the MLPs
@@ -4178,12 +4280,14 @@ def phase_ptv3_band_cli(root, device):
                   "(atomic sum order; logged, not a gate)",
                   ptv3_band_step(batch, device, "float32"), band, 1.0, 1.0,
                   ptv3_zero_grad)
-    cut = ptv3_training_batch(root, "cpu", 2)
+    cut = ptv3_training_batch(root, "cpu", 2).map(
+        lambda a: a[:, :PTV3_CPU_STEP_POINTS].contiguous())
     t0 = time.perf_counter()
     card = ptv3_band_step(cut, device, "bfloat16")
     t1 = time.perf_counter()
     cpu = ptv3_band_step(cut, "cpu", "bfloat16")
-    log(f"  2-tree bf16 step: card {t1 - t0:.2f} s, CPU "
+    log(f"  2-tree bf16 step ({PTV3_CPU_STEP_POINTS} points a tree): "
+        f"card {t1 - t0:.2f} s, CPU "
         f"{time.perf_counter() - t1:.2f} s")
     compare_steps("13c PTv3 band configuration, card vs CPU, bf16", card,
                   cpu, STEP_LOSS_RTOL, PTV3_BF16_GRAD_RTOL, ptv3_zero_grad)
@@ -4279,7 +4383,7 @@ def phase_pipeline_cli(root, checkpoints, device):
     inp = os.path.join(root, "pipeline_in")
     os.makedirs(inp, exist_ok=True)
     np.save(os.path.join(inp, "tree.npy"), np.load(tree))
-    record, checks = {}, {}
+    record, checks, calls = {}, {}, []
     for family, ckpt in checkpoints.items():
         cfg = pipeline_config(inp, os.path.join(root, "pipeline_out"),
                               family)
@@ -4294,29 +4398,25 @@ def phase_pipeline_cli(root, checkpoints, device):
             text = yaml_text(cfg) + "\n"
         with open(path, "w") as f:
             f.write(text)
-        cmd = [sys.executable, "-m",
-               "treemorph_tpu_torch.scripts.exec_pipeline", "--config", path,
-               "--device", str(device)]
-        log("pipeline CLI: " + " ".join(cmd[1:]))
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                              timeout=600)
-        secs = time.perf_counter() - t0
-        if proc.returncode != 0:
-            log(proc.stderr[-4000:])
-            raise AssertionError(f"13d: exec_pipeline {family} exited "
-                                 f"{proc.returncode}")
-        m = re.search(r"tree\.npy: (\d+) pts, (\d+) cylinders",
-                      proc.stdout)
+        calls.append(("exec_pipeline",
+                      ["--config", path, "--device", str(device)]))
+    # one process per family, all started together
+    runs = run_modules(calls)
+    for family, (_, args), (stdout, secs, stderr) in zip(checkpoints, calls,
+                                                         runs):
+        m = re.search(r"tree\.npy: (\d+) pts, (\d+) cylinders", stdout)
         csv = os.path.join(root, "pipeline_out", family,
                            "tree_qsm_depth_cylinders.csv")
         points, cylinders = (int(m.group(1)), int(m.group(2))) if m else (0,
                                                                           0)
         record[family] = {"seconds": secs, "points": points,
                           "cylinders": cylinders,
-                          "config": os.path.splitext(path)[1][1:]}
-        log(f"13d {family}: {proc.stdout.strip()} ({secs:.1f} s with the "
-            f"process start)")
+                          "config": os.path.splitext(args[1])[1][1:]}
+        log(f"13d {family}: {stdout.strip()} ({secs:.1f} s with the "
+            f"process start, the three started together)")
+        if not cylinders:
+            log(f"13d {family}: no cylinder; the process's stderr ends "
+                f"{stderr[-3000:]}")
         checks[f"{family}: points kept"] = points > 0
         checks[f"{family}: cylinders"] = cylinders > 0
         checks[f"{family}: CSV written"] = os.path.exists(csv)
@@ -4341,6 +4441,10 @@ JAX_CHECKPOINT = os.path.join(REPO, "tests", "data", "jax_treelearn_P3")
 #: whose two smallest covariance eigenvalues nearly tie has no settled
 #: normal); relative heights within HEIGHT_ATOL
 LABEL_ID_AGREEMENT = 0.999
+#: 14b's card-against-CPU comparison runs on this many points of the plot
+#: (seeded, in the plot's order): the CPU's projection of the whole plot
+#: took 39 s
+LABEL_CPU_POINTS = 65_536
 LABEL_OFFSET_RTOL = 1e-4
 NORMAL_MIN_DOT, NORMAL_AGREEMENT = 0.999, 0.999
 HEIGHT_ATOL = 1e-6
@@ -4478,8 +4582,9 @@ def phase_label_plot(points, csv_path, device):
     """14b: phase 4's raw plot labeled against the cylinders its stage 3
     fitted: ``generate_offset_cloud`` (the (N, M) projection in 4,096-point
     tiles) and ``add_features`` (normals from the 15-NN covariance, relative
-    height), on the card (twice: the first call and a second one) and on
-    the CPU; ids, offsets, normals and heights held card against CPU;
+    height), on the card (twice: the first call and a second one); then on
+    a seeded cut of LABEL_CPU_POINTS points on the card and on the CPU:
+    ids, offsets, normals and heights held card against CPU;
     seconds, point-cylinder pairs per second and peak device memory."""
     import numpy as np
     import torch
@@ -4499,40 +4604,47 @@ def phase_label_plot(points, csv_path, device):
     log(f"14b: {len(points)} points x {len(qsm)} cylinders = {pairs} "
         f"point-cylinder pairs; the projection's bound {bound_ms:.4f} ms "
         f"({bound_by})")
-    out, record = {}, {"points": len(points), "cylinders": len(qsm),
-                       "pairs": pairs, "projection_bound_ms": bound_ms,
-                       "projection_bound_by": bound_by}
-    for dev, runs in ((device, 2), ("cpu", 1)):
-        for run in range(runs):
-            card = dev != "cpu"
-            if card:
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats(dev)
-            t0 = time.perf_counter()
-            labeled = generate_offset_cloud(points, qsm, device=dev)
-            if card:
-                torch.cuda.synchronize()
-                proj_peak = torch.cuda.max_memory_allocated(dev) / 1e9
-                torch.cuda.reset_peak_memory_stats(dev)
-            t1 = time.perf_counter()
-            full = add_features(labeled, device=dev)
-            if card:
-                torch.cuda.synchronize()
-                feat_peak = torch.cuda.max_memory_allocated(dev) / 1e9
-            t2 = time.perf_counter()
-            tag = f"{'card' if card else 'cpu'}{run if card else ''}"
-            record[tag] = {
-                "projection_seconds": t1 - t0,
-                "pairs_per_second": pairs / (t1 - t0),
-                "features_seconds": t2 - t1,
-                **({"projection_peak_gb": proj_peak,
-                    "features_peak_gb": feat_peak} if card else {}),
-            }
-            log(f"14b {tag}: {json.dumps(record[tag])}")
-        out[dev != "cpu"] = full
-    card, cpu = out[True], out[False]
+    rng = np.random.default_rng(14)
+    cut = points[np.sort(rng.choice(len(points), LABEL_CPU_POINTS,
+                                    replace=False))]
+    record = {"points": len(points), "cylinders": len(qsm), "pairs": pairs,
+              "projection_bound_ms": bound_ms, "projection_bound_by":
+              bound_by, "cpu_cut_points": len(cut)}
+    # the whole plot twice on the card (timed), then the cut on the card
+    # and on the CPU (compared)
+    out = []
+    for tag, dev, cloud in (("card0", device, points),
+                            ("card1", device, points),
+                            ("card_cut", device, cut),
+                            ("cpu_cut", "cpu", cut)):
+        card = dev != "cpu"
+        if card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        labeled = generate_offset_cloud(cloud, qsm, device=dev)
+        if card:
+            torch.cuda.synchronize()
+            proj_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            torch.cuda.reset_peak_memory_stats(dev)
+        t1 = time.perf_counter()
+        out.append(add_features(labeled, device=dev))
+        if card:
+            torch.cuda.synchronize()
+            feat_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        t2 = time.perf_counter()
+        cloud_pairs = len(cloud) * len(qsm)
+        record[tag] = {
+            "projection_seconds": t1 - t0,
+            "pairs_per_second": cloud_pairs / (t1 - t0),
+            "features_seconds": t2 - t1,
+            **({"projection_peak_gb": proj_peak,
+                "features_peak_gb": feat_peak} if card else {}),
+        }
+        log(f"14b {tag}: {json.dumps(record[tag])}")
+    plot, card, cpu = out[1], out[2], out[3]
     same = card[:, 6] == cpu[:, 6]
-    extent = float(np.ptp(points, axis=0).max())
+    extent = float(np.ptp(cut, axis=0).max())
     off_err = float(np.abs(card[same, 3:6] - cpu[same, 3:6]).max())
     dots = np.abs((card[:, 7:10] * cpu[:, 7:10]).sum(axis=1))
     height_err = float(np.abs(card[:, 10] - cpu[:, 10]).max())
@@ -4541,8 +4653,8 @@ def phase_label_plot(points, csv_path, device):
                   normal_agreement=float((dots >= NORMAL_MIN_DOT).mean()),
                   normal_min_dot=float(dots.min()), height_max_err=height_err)
     checks = {
-        "11 finite columns": card.shape == (len(points), 11)
-        and bool(np.isfinite(card).all()),
+        "11 finite columns": plot.shape == (len(points), 11)
+        and bool(np.isfinite(plot).all()),
         f"ids agree on >= {LABEL_ID_AGREEMENT}":
             same.mean() >= LABEL_ID_AGREEMENT,
         f"offsets within {LABEL_OFFSET_RTOL} x extent":
@@ -4586,7 +4698,8 @@ def write_raw_training_trees(raw_dir, qsm_dir):
 
 def phase_preprocess_cli(device):
     """14c: ``python -m treemorph_tpu_torch.scripts.preprocess`` ``label``
-    (on the card), ``noise`` (on the card) and ``split`` over raw synthetic
+    and ``noise`` (on the card; two processes started together), then its
+    ``main`` with ``split`` in this process, over raw synthetic
     trees and their QSMs, then the TreeLearn training CLI (band engine,
     bf16, the noise clouds as ``--noise_root``) for one epoch on what they
     wrote: every labeled and noise file (N, 11) and finite, the manifests
@@ -4600,6 +4713,7 @@ def phase_preprocess_cli(device):
 
     from treemorph_tpu_torch.ops import bandconv
     from treemorph_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from treemorph_tpu_torch.scripts import preprocess as preprocess_cli
     from treemorph_tpu_torch.train import cli
 
     record, checks = {}, {}
@@ -4617,22 +4731,18 @@ def phase_preprocess_cli(device):
                       os.path.join(data, "noise"), "--device", str(device)],
             "split": ["--data_root", data],
         }
-        for command, args in commands.items():
-            cmd = [sys.executable, "-m",
-                   "treemorph_tpu_torch.scripts.preprocess", command, *args]
-            log("14c: " + " ".join(cmd[1:]))
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, cwd=REPO, capture_output=True,
-                                  text=True, timeout=600)
-            record[command] = {"seconds": time.perf_counter() - t0,
-                               "stdout": proc.stdout.strip()}
-            log(f"14c {command}: {proc.stdout.strip()} "
-                f"({record[command]['seconds']:.1f} s with the process "
-                "start)")
-            if proc.returncode != 0:
-                log(proc.stderr[-4000:])
-                raise AssertionError(f"14c: preprocess {command} exited "
-                                     f"{proc.returncode}")
+        # label and noise read only the raw trees and QSMs: two processes
+        # started together; split (file lists alone) in this one
+        runs = run_modules([("preprocess", [c, *commands[c]])
+                            for c in ("label", "noise")])
+        for command, (stdout, secs, _) in zip(("label", "noise"), runs):
+            record[command] = {"seconds": secs, "stdout": stdout.strip()}
+            log(f"14c {command}: {stdout.strip()} ({secs:.1f} s with the "
+                "process start)")
+        log("14c: preprocess split " + " ".join(commands["split"]))
+        t0 = time.perf_counter()
+        preprocess_cli.main(["split", *commands["split"]])
+        record["split"] = {"seconds": time.perf_counter() - t0}
         for kind in ("cloud", "noise"):
             names = sorted(os.listdir(os.path.join(data, kind)))
             arrays = [np.load(os.path.join(data, kind, n)) for n in names]
@@ -4705,6 +4815,7 @@ _PTV3_BLOCK_NAMES = {
     "cpe.Dense_0": "cpe.1", "cpe.LayerNorm_0": "cpe.2", "norm1": "norm1.0",
     "norm2": "norm2.0", "mlp.Dense_0": "mlp.0.fc1", "mlp.Dense_1":
     "mlp.0.fc2", "attn.qkv": "attn.qkv", "attn.proj": "attn.proj",
+    "attn.rpe_table": "attn.rpe.rpe_table",
 }
 _HEAD_NAMES = {"Dense_0": "0", "MaskedBatchNorm_0": "1", "BatchNorm_0": "1",
                "Dense_1": "3"}
@@ -4839,7 +4950,7 @@ def card_line() -> str:
 def run_module(module: str, args: list, timeout=600):
     """``python -m treemorph_tpu_torch.scripts.{module} args`` from the
     repository root; raises unless it exits 0. Returns (stdout, seconds
-    with the process start)."""
+    with the process start, stderr)."""
     cmd = [sys.executable, "-m", f"treemorph_tpu_torch.scripts.{module}",
            *args]
     log("  $ " + " ".join(cmd[1:]))
@@ -4849,7 +4960,19 @@ def run_module(module: str, args: list, timeout=600):
     if proc.returncode != 0:
         log(proc.stderr[-4000:])
         raise AssertionError(f"{module} {args[0]} exited {proc.returncode}")
-    return proc.stdout, time.perf_counter() - t0
+    return proc.stdout, time.perf_counter() - t0, proc.stderr
+
+
+def run_modules(calls: list, timeout=600) -> list:
+    """Each ``(module, args)`` of ``calls`` through :func:`run_module`, all
+    started together; their (stdout, seconds, stderr) in order. Raises if any
+    fails, after every one has ended."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(calls)) as pool:
+        futures = [pool.submit(run_module, module, args, timeout)
+                   for module, args in calls]
+    return [f.result() for f in futures]
 
 
 def parse_nn_output(stdout: str) -> tuple[dict, dict]:
@@ -4870,23 +4993,34 @@ def phase_evaluate_nn(root, checkpoints, device):
     EVAL_NN_RTOL absolute."""
     from treemorph_tpu_torch.scripts import evaluate
 
+    from concurrent.futures import ThreadPoolExecutor
+
     kernel = {"treelearn": "band_conv", "pointtransformerv3":
               "window_attention"}
-    record, checks = {}, {}
+    record, checks, family_args = {}, {}, {}
     for family, ckpt in checkpoints.items():
         args = ["nn", family, "--data_root", root, "--test_plot", "1",
                 "--offset_model_dir", ckpt, "--max_trees",
                 str(EVAL_NN_TREES[family])]
         if family == "treelearn":
             args += ["--engine", "band", "--conv_dtype", "bfloat16"]
-        stdout, secs = run_module("evaluate", args + ["--device",
-                                                      str(device)])
+        family_args[family] = args
+    # the card's processes run while this one evaluates on the CPU
+    with ThreadPoolExecutor(1) as pool:
+        card_runs = pool.submit(run_modules, [
+            ("evaluate", args + ["--device", str(device)])
+            for args in family_args.values()])
+        cpu_runs = {}
+        for family, args in family_args.items():
+            t0 = time.perf_counter()
+            cpu_runs[family] = (evaluate.main(args + ["--device", "cpu"]),
+                                time.perf_counter() - t0)
+    for (family, args), (stdout, secs, _) in zip(family_args.items(),
+                                                 card_runs.result()):
         card, launched = parse_nn_output(stdout)
         per_tree = {k: v / launched["trees"]
                     for k, v in launched["launches"].items()}
-        t0 = time.perf_counter()
-        cpu = evaluate.main(args + ["--device", "cpu"])
-        cpu_s = time.perf_counter() - t0
+        cpu, cpu_s = cpu_runs[family]
         err_after = abs(card["mean_after"] - cpu["mean_after"])
         err_shrink = abs(card["shrinkage"] - cpu["shrinkage"])
         record[family] = {"card": card, "cpu": cpu,
@@ -4895,7 +5029,8 @@ def phase_evaluate_nn(root, checkpoints, device):
                           "cpu_seconds": cpu_s}
         log(f"15a {family}: card {json.dumps(card)}; cpu "
             f"{json.dumps(cpu)}; launches per tree {per_tree} "
-            f"({secs:.1f} s with the process start, CPU {cpu_s:.1f} s)")
+            f"({secs:.1f} s with the process start, CPU {cpu_s:.1f} s; "
+            f"all four run together)")
         checks[f"{family}: {EVAL_NN_TREES[family]} trees"] = (
             launched["trees"] == EVAL_NN_TREES[family])
         checks[f"{family}: {kernel[family]} launched every tree"] = (
@@ -5118,17 +5253,23 @@ def phase_import_round_trip(points, device):
     feats = rng.normal(size=(len(cut), 4)).astype(np.float32)
     checks, record = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
+        models, calls = {}, []
         for family, flags in (("treelearn", []),
                               ("pointnet2", ["--depth", "5"])):
-            model = build_model(family, device=device, seed=7)
+            model = models[family] = build_model(family, device=device,
+                                                 seed=7)
             pt = os.path.join(tmp, f"{family}.pt")
             torch.save({"state_dict": {
                 k: torch.from_numpy(v)
                 for k, v in reference_state_dict(family, model).items()}},
                 pt)
             out = os.path.join(tmp, family, f"{family}_O_P3")
-            stdout, secs = run_module("import_checkpoint", [
-                family, pt, out, *flags, "--device", str(device)])
+            calls.append(("import_checkpoint", [
+                family, pt, out, *flags, "--device", str(device)]))
+        # both imports started together
+        for (family, model), (_, cmd), (stdout, secs, _) in zip(
+                models.items(), calls, run_modules(calls)):
+            out = cmd[2]
             loaded = load_model(family, os.path.dirname(out),
                                 device=device)["O_P3"]
             same_weights = all(
@@ -5167,7 +5308,8 @@ def phase_import_round_trip(points, device):
 def phase_mfu(points, rows, device):
     """15e: ``utils/flops.py``'s ``mfu_report`` of one TreeLearn serving
     forward (phase 2-4's: band, bf16, the e2e plot) and one PTv3 forward
-    (the pipeline's PTv3 on 7b's 65,536-point cut): ``torch_flops``,
+    (the pipeline's PTv3 on the cloud's first 65,536 points):
+    ``torch_flops``,
     ``kernel_flops``, ``device_ms`` and MFU against the card's bf16 peak.
     The serving forward's band ``kernel_flops`` must equal the operations
     phase 2 counts for the same forward's 21 launches (``rows``: 2 x
@@ -5254,6 +5396,642 @@ def phase_sanity_check(device):
             launches["window_attention_bwd"] == PTV3_BLOCKS * SANITY_EPOCHS,
     })
     return {"seconds": secs, "losses": losses, "launches": launches}
+
+
+#: phase 16: PTv3's reference-partitioning options and the non-default
+#: conv engines. The PDNorm conditions (the reference's prompt names are
+#: its datasets'; two here, condition 1 selected) and the context's width
+#: (PDNormSpec's default). 16a's step trains on the reference's PTv3 batch
+#: of OPTIONS_TRAIN_TREES trees; 16b's RPE steps on OPTIONS_RPE_TREES of
+#: them (at 4 the biased plain attention's saved scores and indices peaked
+#: at 82.9 GB with plain PDNorm and overflowed the card with the adaptive
+#: one); each card against CPU check runs on the first OPTIONS_CPU_POINTS
+#: points of the first OPTIONS_CPU_TREES trees (the CPU's full-width steps
+#: bound the phase's time, as in 8b)
+OPTIONS_CONDITIONS = ("TreeSet", "Other")
+OPTIONS_CONTEXT = 256
+OPTIONS_TRAIN_TREES, OPTIONS_RPE_TREES = PTV3_TRAIN_TREES, 2
+OPTIONS_CPU_TREES, OPTIONS_CPU_POINTS = 2, 1024
+#: the card against CPU steps' depth: one block a stage at full width (the
+#: CPU's time goes into each block's 1024-row windows, whatever the points)
+OPTIONS_CPU_DEPTHS = dict(enc_depths=(1, 1, 1, 1, 1), dec_depths=(1, 1, 1, 1))
+#: points of 16a's serving forward card against CPU, and of 16c's cut
+ENGINE_CPU_CUT = 10_000
+#: 16d: the bench tree's first points, card against CPU, and their token
+#: cap P / 2 (at the bench's P / 4 the cut's tokens overflow it: 2,112
+#: points in the first chip run of phase 16)
+ZPACK_CPU_CUT, ZPACK_DEDUP_DIVISOR = 32_768, 2
+#: card steps whose losses must fall (the same batch, lr 1e-3)
+OPTIONS_STEPS, OPTIONS_LR = 3, 1e-3
+#: TreeLearn engines of 16c (engine, brick schedule)
+ENGINE_CASES = (("zpack", "conv"), ("pencil", "conv"), ("brick", "conv"),
+                ("brick", "xslab"))
+#: TreeLearn engines card against CPU, and against the gather engine on
+#: the card, f32: sum order through three levels (and atomic voxel means)
+TREELEARN_F32_RTOL = 1e-4
+#: the 30-tree step's pencil cap, 3 M / 2 rows (the JAX package's "2 is
+#: safe in practice"; 3 M at M ~ 370k level-0 rows does not fit the card's
+#: 80 GB in a train step)
+ENGINE_PENCIL_DIVISOR = 2
+#: the brick steps' trees: at 30 the dense halo'd bricks (M / 4 of them,
+#: 216 cells each) and what autograd keeps of them overflow the card (10:
+#: 58 GB on F.conv3d, over 79 GB on the x-slab schedule)
+ENGINE_BRICK_TREES = 5
+#: 16f: tiles of 8^3 at the plot's level 0, capped at TILE_CAP
+TILE, TILE_CAP = 8, 8192
+
+
+def pad_layout_counts(seg) -> dict:
+    """Windows, wholly dead windows and dead slots of a per-element
+    attention layout ``seg`` (W, K)."""
+    dead = seg < 0
+    return {"windows": int(seg.shape[0]),
+            "dead_windows": int(dead.all(1).sum()),
+            "dead_slots": int(dead.sum()), "slots": int(seg.numel())}
+
+
+def attention_bound_ms(q, seg, per_pair, out_rows) -> tuple[float, str]:
+    """The f32-rate bound of one attention call (forward ``per_pair`` = 4,
+    backward 5 multiply-add FLOPs per D, allowed pair and head): q, k, v
+    of the rows that hold a segment read once, ``out_rows`` (W, H, K, D)
+    f32 tensors written once."""
+    w, h, kk, d = q.shape
+    live = int((seg >= 0).sum())
+    nbytes = (3 * live * h * d * q.element_size() + w * kk * 4
+              + out_rows * w * h * kk * d * 4)
+    return bound(nbytes, per_pair * d * h * allowed_pair_count(seg))
+
+
+def phase_pad_per_element(cloud, root, device):
+    """16a: PTv3 with ``pad_per_element`` at full width. The serving
+    forward card against CPU (7b's cut and limits, num_elements 1); the
+    attention inputs of one forward on that layout, each shape's kernel
+    against its plain version (forward), and the backward kernel against
+    its plain version on each of a full-width 4-tree train step's 22 calls
+    (num_elements 4, its own cotangents), within KERNEL_RTOL of scale, with
+    dead windows and slots; launches: 22 forward in a ``predict_single``,
+    22 forward and 22 backward in a train step; one f32 step card against
+    CPU on the CPU cut (:func:`cpu_cut`). Returns the sub-records of the
+    forward and backward kernels' records for this layout."""
+    import torch
+
+    from treemorph_tpu_torch.ops import attention
+    from treemorph_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from treemorph_tpu_torch.pipeline.predict import predict_single
+
+    t0 = time.perf_counter()
+    pad1 = dict(pad_per_element=True, num_elements=1)
+    phase_ptv3_card_vs_cpu(cloud, device, "phase 16a serving",
+                           PTV3_CPU_CUT, **pad1)
+    cut = cloud[:PTV3_CUT]
+    offset_model, _ = ptv3_models(device, **pad1)
+    torch.cuda.synchronize()
+    reset_launches()
+    predict_single(cut, offset_model, None, device=device)
+    torch.cuda.synchronize()
+    serve_launches = LAUNCHES["window_attention"]
+    captured, _ = capture_attention_inputs(offset_model, cut)
+    fwd = {"launches": serve_launches, "ms": 0.0, "plain_ms": 0.0,
+           "bound_ms": 0.0, "worst_err_over_scale": 0.0, "shapes": []}
+    for shape, ((q, k, v, seg), count) in sorted(captured.items()):
+        out = attention.window_attention(q, k, v, seg)
+        ref = attention.window_attention_reference(q, k, v, seg)
+        rel = share_of_scale(f"16a window_attention {shape}", out, ref,
+                             KERNEL_RTOL)
+        if not bool((out[(seg < 0)[:, None, :, None].expand_as(out)] == 0)
+                    .all()):
+            raise AssertionError(f"16a {shape}: dead slots not 0")
+        ms = cuda_ms(lambda: attention.window_attention(q, k, v, seg), 10)
+        plain = cuda_ms(lambda: attention.window_attention_reference(
+            q, k, v, seg), 2)
+        bnd, by = attention_bound_ms(q, seg, 4, 1)
+        row = dict(shape=list(shape), calls=count, **pad_layout_counts(seg),
+                   err_over_scale=rel, ms=ms, plain_ms=plain, bound_ms=bnd,
+                   bound_by=by)
+        log("16a forward " + json.dumps(row))
+        fwd["shapes"].append(row)
+        fwd["worst_err_over_scale"] = max(fwd["worst_err_over_scale"], rel)
+        for key, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", bnd)):
+            fwd[key] += count * val
+
+    # the packed layout's kernel on the same cut, for comparison
+    packed, _ = capture_attention_inputs(ptv3_models(device)[0], cut)
+    fwd["packed_ms"] = sum(
+        count * cuda_ms(lambda a=args: attention.window_attention(*a), 10)
+        for args, count in packed.values())
+    del packed
+    batch = ptv3_training_batch(root, device, OPTIONS_TRAIN_TREES)
+    pad4 = dict(pad_per_element=True, num_elements=OPTIONS_TRAIN_TREES)
+    torch.cuda.synchronize()
+    reset_launches()
+    calls = capture_ptv3_step(batch, device, **pad4)
+    torch.cuda.synchronize()
+    step_launches = dict(LAUNCHES)
+    bwd = {"launches": step_launches.get("window_attention_bwd", 0),
+           "forward_launches": step_launches.get("window_attention", 0),
+           "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "worst_err_over_scale": 0.0}
+    dead = {"dead_windows": 0, "windows": 0, "dead_slots": 0, "slots": 0}
+    for q, k, v, seg, g in calls:
+        out, lse = attention.window_attention_fwd(q, k, v, seg)
+        grads = attention.window_attention_bwd(q, k, v, seg, g, out, lse)
+        refs = attention.window_attention_bwd_reference(q, k, v, seg, g)
+        for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+            bwd["worst_err_over_scale"] = max(
+                bwd["worst_err_over_scale"], share_of_scale(
+                    f"16a window_attention_bwd {tuple(q.shape)} {name}",
+                    got, ref, KERNEL_RTOL))
+        bwd["ms"] += cuda_ms(lambda: attention.window_attention_bwd(
+            q, k, v, seg, g, out, lse), 5)
+        bwd["plain_ms"] += cuda_ms(
+            lambda: attention.window_attention_bwd_reference(
+                q, k, v, seg, g), 1)
+        bwd["bound_ms"] += attention_bound_ms(q, seg, 5, 3)[0]
+        for key, val in pad_layout_counts(seg).items():
+            dead[key] += val
+    bwd.update(dead)
+    del calls
+    log("16a backward on the 4-tree step's layout: " + json.dumps(bwd))
+    if not (serve_launches == PTV3_BLOCKS
+            and bwd["launches"] == bwd["forward_launches"] == PTV3_BLOCKS):
+        raise AssertionError(f"16a launches: serving {serve_launches}, "
+                             f"step {step_launches}, expected {PTV3_BLOCKS}")
+    cut2 = cpu_cut(root)
+    pad2 = dict(pad_per_element=True, num_elements=OPTIONS_CPU_TREES,
+                **OPTIONS_CPU_DEPTHS)
+    t1 = time.perf_counter()
+    card = ptv3_one_step(cut2, device, **pad2)
+    t2 = time.perf_counter()
+    cpu = ptv3_one_step(cut2, "cpu", **pad2)
+    log(f"  16a step on {OPTIONS_CPU_TREES} trees x {OPTIONS_CPU_POINTS} "
+        f"points, one block a stage (the CPU's time bounds the cut): card "
+        f"{t2 - t1:.2f} s, CPU {time.perf_counter() - t2:.2f} s")
+    compare_steps("16a PTv3 pad_per_element train step, card vs CPU, f32",
+                  card, cpu, PTV3_STEP_LOSS_RTOL, PTV3_STEP_GRAD_RTOL)
+    log(f"phase 16a ok ({card_line()}): the hand attention kernels on the "
+        f"per-element layout, forward {fwd['ms']:.3f} ms per serving "
+        f"forward of {PTV3_CUT} points ({fwd['launches']} launches; plain "
+        f"{fwd['plain_ms']:.3f}, bound {fwd['bound_ms']:.3f}, the packed "
+        f"layout {fwd['packed_ms']:.3f}), backward {bwd['ms']:.3f} ms per "
+        f"4-tree step ({bwd['launches']} launches; plain "
+        f"{bwd['plain_ms']:.3f}, bound {bwd['bound_ms']:.3f}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    return fwd, bwd
+
+
+def cpu_cut(root):
+    """The card-against-CPU batch of phase 16: the first OPTIONS_CPU_POINTS
+    points of the first OPTIONS_CPU_TREES trees of the training batch, on
+    the CPU."""
+    batch = ptv3_training_batch(root, "cpu", OPTIONS_CPU_TREES)
+    return batch.map(lambda a: a[:, :OPTIONS_CPU_POINTS].contiguous())
+
+
+def options_model(device, adaptive, trees, **overrides):
+    """The training PTv3 at full width with ``pad_per_element`` over
+    ``trees`` elements, RPE, and PDNorm on BatchNorms and LayerNorms
+    (OPTIONS_CONDITIONS; ``adaptive`` with an OPTIONS_CONTEXT context),
+    ``drop_path`` 0, seeded weights; ``overrides``: other options."""
+    from treemorph_tpu_torch.models.ptv3 import PDNormSpec
+
+    spec = PDNormSpec(bn=True, ln=True, conditions=OPTIONS_CONDITIONS,
+                      adaptive=adaptive, context_channels=OPTIONS_CONTEXT)
+    return ptv3_training_model(device, drop_path=0.0, pad_per_element=True,
+                               num_elements=trees, enable_rpe=True,
+                               pdnorm=spec, **overrides)
+
+
+def options_steps(model, batch, device, context, steps, lr=OPTIONS_LR):
+    """``steps`` train steps of ``model`` on ``batch`` under condition 1
+    (and ``context``), each with the order permutations of generator seed
+    1 (the same on every device), the x50 loss, the harness's clip and
+    AdamW; returns the losses and the first step's gradients."""
+    import torch
+
+    from treemorph_tpu_torch.models.ptv3 import draw_order_perms, ptv3_loss
+    from treemorph_tpu_torch.train import families, harness
+
+    flat = families._flatten_padded(batch.map(lambda a: a.to(device)))
+    args = (flat["coords"], flat["feats"], flat["batch_ids"],
+            flat["mask_valid"])
+    optimizer = harness.make_optimizer(model)
+    ctx = None if context is None else context.to(device)
+    losses, grads = [], None
+    for _ in range(steps):
+        perms = draw_order_perms(torch.Generator().manual_seed(1),
+                                 len(model.backbone.enc_depths))
+        optimizer.zero_grad(set_to_none=True)
+        out = model.train()(*args, order_perms=perms, condition=1,
+                            context=ctx)
+        loss, _ = ptv3_loss(out, flat)
+        (loss * harness.LOSS_BACKWARD_SCALE).backward()
+        if grads is None:
+            grads = {n: (p.grad if p.grad is not None
+                         else torch.zeros_like(p)).detach().cpu().clone()
+                     for n, p in model.named_parameters()}
+        harness.optimizer_step(optimizer, lr)
+        losses.append(float(loss.detach()))
+    return losses, grads
+
+
+def phase_rpe_pdnorm(root, device):
+    """16b: PTv3 with RPE, ``pad_per_element`` and PDNorm (BatchNorms and
+    LayerNorms, conditions OPTIONS_CONDITIONS, condition 1), without and
+    with ``adaptive`` (a seeded context): OPTIONS_STEPS steps on the card
+    at OPTIONS_RPE_TREES trees x 16,384 points, the loss falling, peak
+    device memory; the eval forward's offsets card against CPU on the CPU
+    cut, and (adaptive, which holds every option) one step card against
+    CPU there (loss and every gradient). RPE's biased attention takes the
+    plain version on every device, as in the JAX package (the kernels take
+    no bias): no attention kernel launches."""
+    import numpy as np
+    import torch
+
+    from treemorph_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from treemorph_tpu_torch.train import families
+
+    t0 = time.perf_counter()
+    batch = ptv3_training_batch(root, device, OPTIONS_RPE_TREES)
+    cut = cpu_cut(root)
+    context = torch.randn(OPTIONS_CONTEXT,
+                          generator=torch.Generator().manual_seed(20))
+    record = {}
+    for adaptive in (False, True):
+        label = f"16b RPE + pad_per_element + PDNorm (adaptive {adaptive})"
+        ctx = context if adaptive else None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launches()
+        t1 = time.perf_counter()
+        model = options_model(device, adaptive, OPTIONS_RPE_TREES)
+        losses, _ = options_steps(model, batch, device, ctx, OPTIONS_STEPS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated(device) / 1e9
+        launches = dict(LAUNCHES)
+        del model
+        torch.cuda.empty_cache()
+        cpu_s = None
+        if adaptive:
+            card = options_steps(options_model(
+                device, adaptive, OPTIONS_CPU_TREES, **OPTIONS_CPU_DEPTHS),
+                cut, device, ctx, 1)
+            t2 = time.perf_counter()
+            cpu = options_steps(options_model(
+                "cpu", adaptive, OPTIONS_CPU_TREES, **OPTIONS_CPU_DEPTHS),
+                cut, "cpu", ctx, 1)
+            cpu_s = time.perf_counter() - t2
+            compare_steps(f"{label}, step on {OPTIONS_CPU_TREES} trees x "
+                          f"{OPTIONS_CPU_POINTS} points, one block a stage, "
+                          f"card vs CPU, f32",
+                          (card[0][0], card[1]), (cpu[0][0], cpu[1]),
+                          PTV3_STEP_LOSS_RTOL, PTV3_STEP_GRAD_RTOL)
+        outs = []
+        for dev in (device, "cpu"):
+            model = options_model(dev, adaptive, OPTIONS_CPU_TREES,
+                                  **OPTIONS_CPU_DEPTHS).eval()
+            flat = families._flatten_padded(cut.map(lambda a: a.to(dev)))
+            with torch.inference_mode():
+                out = model(flat["coords"], flat["feats"],
+                            flat["batch_ids"], flat["mask_valid"],
+                            condition=1,
+                            context=None if ctx is None else ctx.to(dev))
+            valid = flat["mask_valid"].cpu().numpy()
+            outs.append(out["offset_predictions"].float().cpu().numpy()
+                        [valid])
+        err = float(np.abs(outs[0] - outs[1]).max())
+        scale = float(np.abs(outs[1]).max())
+        row = {"adaptive": adaptive, "trees": OPTIONS_RPE_TREES,
+               "trees_cut_from": OPTIONS_TRAIN_TREES, "losses": losses,
+               "seconds": secs, "peak_gb": peak,
+               "cpu_trees": OPTIONS_CPU_TREES,
+               "cpu_points_per_tree": OPTIONS_CPU_POINTS,
+               "cpu_step_seconds": cpu_s,
+               "eval_offset_err_over_scale": err / scale,
+               "launches": launches}
+        log(f"{label} ({card_line()}; {OPTIONS_RPE_TREES} of the batch's "
+            f"{OPTIONS_TRAIN_TREES} trees: the card holds no more with "
+            f"RPE): " + json.dumps(row))
+        checks = {
+            "losses finite and falling": all(np.isfinite(losses))
+            and losses[-1] < losses[0],
+            f"eval offsets card vs CPU within {PTV3_OFFSET_RTOL} x scale":
+                err <= PTV3_OFFSET_RTOL * scale and np.isfinite(outs[0]).all(),
+            "no attention kernel launch (RPE takes the plain version on "
+            "every device, the JAX package's own routing: no kernel takes "
+            "a bias)":
+                launches.get("window_attention", 0) == 0,
+        }
+        for name, ok in checks.items():
+            log(f"  {'ok ' if ok else 'FAIL'} {name}")
+        if not all(checks.values()):
+            raise AssertionError(f"{label} failed")
+        record[f"adaptive_{adaptive}"] = row
+    log(f"phase 16b ok: {time.perf_counter() - t0:.1f} s")
+    return record
+
+
+def engine_model(base, engine, impl="conv"):
+    """A TreeLearn like ``base`` on ``engine`` (``impl``: the brick
+    schedule) with its weights: the gather names, renamed to the brick
+    blocks' (``bn0``, ``conv0``, ...) for the brick engine."""
+    from treemorph_tpu_torch.models.treelearn import TreeLearn
+
+    model = TreeLearn(**dict(base.config, engine=engine, brick_impl=impl))
+    state = base.state_dict()
+    if engine == "brick":
+        state = {brick_name(k): v for k, v in state.items()}
+    model.load_state_dict(state)
+    ref = next(base.parameters())
+    return model.to(ref.device).train(base.training)
+
+
+def brick_name(key: str) -> str:
+    """The brick engine's name of a gather TreeLearn's parameter."""
+    import re
+
+    m = re.match(r"(.*\.(?:block|tail)\d+)\.(.*)", key)
+    if not m or ".input_conv" in key:
+        return key
+    sub = {"MaskedBatchNorm_0": "bn0", "MaskedBatchNorm_1": "bn1",
+           "SubMConv_0.kernel": "conv0", "SubMConv_1.kernel": "conv1"}
+    rest = m.group(2)
+    for old, new in sub.items():
+        if rest == old or rest.startswith(old + "."):
+            return f"{m.group(1)}.{new}{rest[len(old):]}"
+    return key
+
+
+def treelearn_forward(model, points, device):
+    """The offset forward ``predict_single`` runs of ``model`` on
+    ``points`` (no features): outputs, the dropped voxels and the seconds
+    of a second call (host clock, synchronized)."""
+    import numpy as np
+    import torch
+
+    from treemorph_tpu_torch.evaluation.model_loaders import Predictor
+    from treemorph_tpu_torch.pipeline.predict import _pad_flat
+
+    pred = Predictor("treelearn", model, device)
+    args = _pad_flat(points, np.zeros((len(points), 4), np.float32),
+                     device=device)
+    n = args[-1]
+    pred.predict_flat(*args[:4])
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pred.predict_flat(*args[:4])
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    out = {k: res[k][:n].float().cpu().numpy()
+           for k in ("offset_predictions", "semantic_prediction_logits")}
+    out.update(seconds=time.perf_counter() - t0,
+               dropped_voxels=int(res["dropped_voxels"]))
+    return out
+
+
+def engine_agreement(label, a, b, rtol) -> dict:
+    """Offsets of ``a`` against ``b`` within ``rtol`` of b's scale, and the
+    noise head's argmax at b's median margin on >= 99.9 % (raises)."""
+    row = compare_forwards(label, a, b)
+    if not (row["finite"] and row["offset_err_over_scale"] <= rtol
+            and row["median_margin_agreement"] >= STAGE1_ARGMAX_AGREEMENT):
+        raise AssertionError(f"{label} disagree")
+    return row
+
+
+def engine_step(batch, capacity, engine, impl, device):
+    """Loss and gradients (gather names) of one f32 ``make_train_step`` of
+    the training TreeLearn (the CLI's level-0 ``capacity``) on ``engine``,
+    from the gather model's seeded weights; the pencil engine at
+    ``pencil_divisor`` ENGINE_PENCIL_DIVISOR."""
+    import torch
+
+    from treemorph_tpu_torch.train import families, harness
+
+    base = training_model(capacity, batch.batch_size, "gather", "float32")
+    model = engine_model(base, engine, impl)
+    if engine == "pencil":
+        model = model.clone(pencil_divisor=ENGINE_PENCIL_DIVISOR)
+    model = model.to(device)
+    state = harness.TrainState(model, harness.make_optimizer(model))
+    step = harness.make_train_step(*families.treelearn_family())
+    _, metrics = step(state, batch.map(lambda a: a.to(device)), 1e-2)
+    params = dict(model.named_parameters())
+    grads = {}
+    for name in base.state_dict():
+        p = params.get(brick_name(name) if engine == "brick" else name)
+        if p is not None:
+            grads[name] = (p.grad if p.grad is not None
+                           else torch.zeros_like(p)).cpu()
+    return float(metrics["loss"]), grads
+
+
+def phase_treelearn_engines(points, batch, capacity, device):
+    """16c: the pipeline's TreeLearn width (seeded weights, f32,
+    ``voxel_capacity_divisor`` 2) on each engine of ENGINE_CASES: the
+    plot's offset forward on the card against the gather engine's, and a
+    ENGINE_CPU_CUT-point cut card against CPU (TREELEARN_F32_RTOL of scale, the
+    argmax at the median margin), with seconds beside the gather and band
+    engines' and the dropped voxels; then one f32 train step at 30 x
+    16,384 per engine against the gather step on the card (ENGINE_*), at
+    the CLI's level-0 ``capacity``."""
+    import numpy as np
+    import torch
+
+    from treemorph_tpu_torch.evaluation.model_loaders import build_model
+
+    t0 = time.perf_counter()
+    base = build_model("treelearn", voxel_capacity_divisor=2,
+                       engine="gather", conv_dtype="float32", device="cpu",
+                       seed=0)
+    rng = np.random.default_rng(3)
+    cut = points[rng.choice(len(points), min(ENGINE_CPU_CUT, len(points)),
+                            replace=False)]
+    gather = treelearn_forward(base.to(device), points, device)
+    band = treelearn_forward(engine_model(base, "band"), points, device)
+    rows = {"gather": gather["seconds"], "band": band["seconds"]}
+    for engine, impl in ENGINE_CASES:
+        name = engine if engine != "brick" else f"brick-{impl}"
+        model = engine_model(base, engine, impl)
+        card = treelearn_forward(model, points, device)
+        engine_agreement(f"16c {name} vs gather on the card, plot", card,
+                         gather, TREELEARN_F32_RTOL)
+        card_cut = treelearn_forward(model, cut, device)
+        cpu_cut = treelearn_forward(model.to("cpu"), cut, "cpu")
+        engine_agreement(f"16c {name} card vs CPU, {len(cut)}-point cut",
+                         card_cut, cpu_cut, TREELEARN_F32_RTOL)
+        rows[name] = card["seconds"]
+        log(f"  16c {name}: forward {card['seconds']:.4f} s on the card "
+            f"(gather {gather['seconds']:.4f}, band f32 "
+            f"{band['seconds']:.4f}), dropped voxels "
+            f"{card['dropped_voxels']} (plot), {card_cut['dropped_voxels']} "
+            f"card / {cpu_cut['dropped_voxels']} CPU (cut, level caps)")
+        # the random cut barely coarsens, so its level caps drop voxels on
+        # every engine alike; the plot's drop none
+        if card["dropped_voxels"] or (card_cut["dropped_voxels"]
+                                      != cpu_cut["dropped_voxels"]):
+            raise AssertionError(f"16c {name} dropped voxels")
+    bricks = batch.map(lambda a: a[:ENGINE_BRICK_TREES])
+    gather_steps = {
+        False: engine_step(batch, capacity, "gather", "conv", device),
+        True: engine_step(bricks, None, "gather", "conv", device)}
+    for engine, impl in ENGINE_CASES:
+        cut = engine == "brick"
+        torch.cuda.reset_peak_memory_stats(device)
+        t1 = time.perf_counter()
+        step = engine_step(bricks if cut else batch, None if cut else
+                           capacity, engine, impl, device)
+        torch.cuda.synchronize()
+        trees = ENGINE_BRICK_TREES if cut else batch.batch_size
+        log(f"  16c {engine}-{impl} step on {trees} trees x 16,384 points"
+            f"{' (cut: the card holds no more on this engine)' if cut else ''}"
+            f": {time.perf_counter() - t1:.2f} s with its set-up, peak "
+            f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+        compare_steps(f"16c train step, {engine}-{impl} vs gather on the "
+                      f"card, f32, {trees} trees", step, gather_steps[cut],
+                      ENGINE_LOSS_RTOL, ENGINE_RTOL)
+    log(f"phase 16c ok ({card_line()}): forward seconds on the plot "
+        f"{json.dumps(rows)} (brick-conv: F.conv3d with cuDNN's TF32 off "
+        f"for the call, forward and backward); "
+        f"{time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def phase_ptv3_zpack(cloud, device):
+    """16d: the bench PTv3 configuration with ``stem_engine="zpack"`` on
+    the bench tree's first ZPACK_CPU_CUT points (bf16, tokens,
+    ``dedup_divisor`` 4; the CPU's forward bounds the cut): card against CPU
+    within PTV3_BENCH_OFFSET_RTOL of scale, no band launch and 22
+    attention launches a forward, no overflow; against the band stem on
+    the card, logged (the engines round the weights differently: z-pack
+    to bf16 as the gather engine, the band kernel in three bf16 pieces)."""
+    from treemorph_tpu_torch.ops.cuda import LAUNCHES
+
+    t0 = time.perf_counter()
+    cloud = cloud[:ZPACK_CPU_CUT]
+    card = bench_forward(cloud, device, stem_engine="zpack",
+                         dedup_divisor=ZPACK_DEDUP_DIVISOR)
+    attn = LAUNCHES["window_attention"]
+    cpu = bench_forward(cloud, "cpu", stem_engine="zpack",
+                        dedup_divisor=ZPACK_DEDUP_DIVISOR)
+    band = bench_forward(cloud, device, dedup_divisor=ZPACK_DEDUP_DIVISOR)
+    row = compare_forwards("16d zpack stem, card vs CPU, bf16", card, cpu)
+    compare_forwards("16d zpack stem against the band stem, card", card,
+                     band)
+    checks = {
+        f"offsets within {PTV3_BENCH_OFFSET_RTOL} x scale":
+            row["finite"]
+            and row["offset_err_over_scale"] <= PTV3_BENCH_OFFSET_RTOL,
+        "no band launch, 22 attention launches":
+            card["k125"] == card["k27"] == 0 and attn == PTV3_BLOCKS,
+        "no dedup or pool overflow": all(
+            o[k] == 0 for o in (card, cpu)
+            for k in ("dedup_overflow", "pool_overflow")),
+    }
+    for name, ok in checks.items():
+        log(f"  {'ok ' if ok else 'FAIL'} {name}")
+    if not all(checks.values()):
+        raise AssertionError("16d: the z-pack stem failed")
+    log(f"phase 16d ok ({card_line()}): zpack forward {card['seconds']:.3f}"
+        f" s, band {band['seconds']:.3f} s on the card; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_engine_clis(root, device):
+    """16e: the training CLI, one epoch each, on a cut of the training
+    plots (plot 1's first 4 trees held out, 8 of plot 2 to train on):
+    TreeLearn with ``--engine`` zpack, pencil and brick (f32, 8 trees a
+    step), and PTv3 with ``--engine zpack --dedup_divisor 4`` (4 trees a
+    step; both attention kernels' launches counted): finite losses, the
+    checkpoints written."""
+    import math
+
+    import torch
+
+    from treemorph_tpu_torch.ops.cuda import LAUNCHES, reset_launches
+    from treemorph_tpu_torch.train import cli
+
+    t0 = time.perf_counter()
+    sub = os.path.join(root, "engines")
+    os.makedirs(sub, exist_ok=True)
+    for plot, trees in ((1, 4), (2, 8)):
+        with open(os.path.join(root, f"plot_{plot}.json")) as f:
+            paths = json.load(f)[:trees]
+        with open(os.path.join(sub, f"plot_{plot}.json"), "w") as f:
+            json.dump(paths, f)
+    runs = [("treelearn", e, ["--batch_size", "8", "--conv_dtype",
+                              "float32"]) for e in ("zpack", "pencil",
+                                                    "brick")]
+    runs.append(("pointtransformerv3", "zpack",
+                 ["--batch_size", "4", "--dedup_divisor", "4"]))
+    record = {}
+    for model, engine, extra in runs:
+        save = os.path.join(sub, f"saves_{model}_{engine}")
+        argv = [model, "--data_root", sub, "--test_plots", "1", "--epochs",
+                "1", "--bucket", str(TRAIN_POINTS), "--engine", engine,
+                "--save_dir", save, "--device", str(device), *extra]
+        torch.cuda.synchronize()
+        reset_launches()
+        t1 = time.perf_counter()
+        (rec,) = cli.main(argv)[1]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        launches = dict(LAUNCHES)
+        ok = (math.isfinite(rec["train_loss"]) and math.isfinite(
+            rec["val_loss"]) and os.path.exists(os.path.join(
+                save, f"{model}_CV", "P1", "model.pt")))
+        if model == "pointtransformerv3":
+            steps = 2  # 8 training trees, 4 a step
+            ok = ok and launches.get("window_attention_bwd", 0) == (
+                PTV3_BLOCKS * steps)
+        log(f"  16e python -m treemorph_tpu_torch.train.cli "
+            f"{' '.join(argv)}: {secs:.2f} s, losses {rec['train_loss']:.5f}"
+            f" / {rec['val_loss']:.5f}, launches {launches}")
+        if not ok:
+            raise AssertionError(f"16e {model} --engine {engine} failed")
+        record[f"{model}_{engine}_seconds"] = secs
+    log(f"phase 16e ok: {time.perf_counter() - t0:.1f} s")
+    return record
+
+
+def phase_tiles_and_runs(levels, device):
+    """16f: the plot's level-0 voxels in 8^3 tiles (cap TILE_CAP, none
+    dropped): ``tile_subm_conv`` (``F.conv3d`` in f32, and 27 slices)
+    against the gather conv within AUTOGRAD_RTOL of scale; the octant-run
+    rulebook equal to ``build_rulebook`` at k = 3 and 5."""
+    import torch
+
+    from treemorph_tpu_torch.ops import tiles
+    from treemorph_tpu_torch.ops.sparse import (
+        _subm_conv_impl,
+        build_rulebook,
+        build_rulebook_runs,
+    )
+
+    c, v = levels[0]
+    gen = torch.Generator(device=device).manual_seed(21)
+    feats = torch.randn((c.shape[0], 16), device=device, generator=gen)
+    feats = feats * v[:, None]
+    w = torch.randn((27, 16, 16), device=device, generator=gen) / 20.0
+    ts = tiles.build_tiles(c, v, TILE_CAP, tile=TILE)
+    ref = _subm_conv_impl(torch.float32, feats, w, build_rulebook(c, v), v)
+    errs = {}
+    for impl in ("conv", "slice"):
+        out = tiles.tile_subm_conv(tiles.to_dense(feats, ts, TILE), w, ts,
+                                   impl=impl)
+        errs[impl] = share_of_scale(
+            f"16f tile_subm_conv {impl}", tiles.from_dense(out, ts, v)[v],
+            ref[v], AUTOGRAD_RTOL)
+    same = {k: bool(torch.equal(build_rulebook_runs(c, v, k),
+                                build_rulebook(c, v, k))) for k in (3, 5)}
+    log(f"16f: {int(ts.num_tiles)} tiles of {TILE}^3 over {int(v.sum())} "
+        f"voxels (overflow {int(ts.overflow)}), tile conv against gather "
+        f"{errs}; run-table rulebook equal {same}")
+    if int(ts.overflow) or not all(same.values()):
+        raise AssertionError("16f: tiles overflowed or the run-table "
+                             "rulebook differs")
+    log("phase 16f ok")
 
 
 def pipeline_config(input_dir: str, output_dir: str,
@@ -5346,6 +6124,10 @@ def main() -> int:
         split = phase_step_split(batch, capacity, device)
         k5_launches = phase_k5_train_step(batch, capacity, device,
                                           bwd125_record["plans_ok"])
+        t16 = time.perf_counter()
+        engine_seconds = phase_treelearn_engines(points, batch, capacity,
+                                                 device)
+        phase16_s = time.perf_counter() - t16
         del batch
         log(json.dumps({**per_step, **split, **cli_record}))
         log(json.dumps({"k125": per_step125}))
@@ -5370,6 +6152,11 @@ def main() -> int:
         ptv3_split = phase_ptv3_step_split(ptv3_batch, device)
         log(json.dumps({**ptv3_split, **ptv3_cli_record}))
         del ptv3_batch
+        t16 = time.perf_counter()
+        pad_fwd, pad_bwd = phase_pad_per_element(cloud, root, device)
+        options_record = phase_rpe_pdnorm(root, device)
+        cli16_record = phase_engine_clis(root, device)
+        phase16_s += time.perf_counter() - t16
         t1 = time.perf_counter()
         pn2_train_record = phase_pointnet2_train_step(device)
         pn2_cli_record, pn2_ckpt = phase_pointnet2_training_cli(root, device)
@@ -5397,9 +6184,19 @@ def main() -> int:
     brick_record, _ = phase_brick_vs_plain(levels, device)
     brick_launches = phase_brick_autograd(levels, device)
     phase_brick_engine(levels, device)
+    t16 = time.perf_counter()
+    phase_tiles_and_runs(levels, device)
+    phase16_s += time.perf_counter() - t16
     bench_cloud = bench_tree_cloud()
     bench_records, _ = phase_bench_kernels(bench_cloud, device)
     bench_launches = phase_bench_card_vs_cpu(bench_cloud, device)
+    t16 = time.perf_counter()
+    phase_ptv3_zpack(bench_cloud, device)
+    phase16_s += time.perf_counter() - t16
+    log(f"phase 16: {phase16_s:.1f} s")
+    log(json.dumps({"phase16": {"treelearn_engine_seconds": engine_seconds,
+                                "options": options_record,
+                                **cli16_record}}))
     del bench_cloud
     phase_bench_end_to_end(ptv3_cloud(points), device)
     phase_pointnet2_card_vs_cpu(points, device)
@@ -5415,6 +6212,12 @@ def main() -> int:
     per_step = band_cli_record["ptv3_band_launches_per_step"]
     band_path = ("ptv3 training CLI, --engine band --dedup_divisor 4 "
                  "--conv_dtype bfloat16, one train step (13c)")
+    path16 = ("ptv3 pad_per_element (16a): a predict_single forward; a "
+              "4-tree train step")
+    attn_record["pad_per_element"] = {**pad_fwd,
+                                      "launches_counted_on": path16}
+    attn_bwd_record["pad_per_element"] = {**pad_bwd,
+                                          "launches_counted_on": path16}
     for record, keys in ((fwd_record, ("band_conv_k125", "band_conv_k27")),
                          (bwd_record, ("band_conv_bwd",)),
                          (attn_record, ("window_attention",)),

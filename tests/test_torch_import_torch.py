@@ -119,6 +119,20 @@ def test_converter_matches_jax_and_inverts_the_reference_naming(family):
     assert_same_state(got, model.state_dict())
 
 
+def test_ptv3_rpe_table_converts_as_jax():
+    """A PTv3 with RPE: the reference's ``attn.rpe.rpe_table`` of every
+    block converts, through either package, to the port's ``rpe_table``
+    (3 * 25 rows at K = 64, one column per head)."""
+    model = build_model("pointtransformerv3", device="cpu", seed=2,
+                        enable_rpe=True, **TINY)
+    sd = reference_state_dict("pointtransformerv3", model)
+    tables = [k for k in sd if k.endswith("attn.rpe.rpe_table")]
+    assert len(tables) == 3 and sd[tables[0]].shape == (75, 2)
+    got = timport.convert_ptv3(sd, model)
+    assert_same_state(got, via_jax("pointtransformerv3", sd, model))
+    assert_same_state(got, model.state_dict())
+
+
 @pytest.mark.parametrize("family", sorted(CONFIGS))
 def test_structural_mismatch_raises(family):
     """Checked against the port model's own state dict: a missing

@@ -394,9 +394,11 @@ def test_predict_single_matches_jax(models):
 
 def test_build_model_and_options_off_the_path():
     """``build_model`` gives the pipeline's PTv3 (the family defaults and
-    the JAX package's widths) with seeded weights; the options still to be
-    ported raise, naming their ROADMAP item (the dedup options and the
-    band stem are ported: ``test_torch_ptv3_bench.py``)."""
+    the JAX package's widths) with seeded weights; the options off the
+    pipeline's path build and serve on the CPU: the z-pack stem, and
+    the reference-partitioning options (their parity tests:
+    ``test_torch_ptv3_options.py``, ``test_torch_engines.py``; the dedup
+    options and the band stem: ``test_torch_ptv3_bench.py``)."""
     model = build_model("pointtransformerv3", device="cpu", seed=0, **TINY)
     again = build_model("pointtransformerv3", device="cpu", seed=0, **TINY)
     assert not model.training
@@ -406,12 +408,18 @@ def test_build_model_and_options_off_the_path():
         assert torch.equal(a, b), name
     kernel = model.backbone.embedding.kernel
     assert abs(float(kernel.detach().std()) * np.sqrt(125 * 4) - 1) < 0.1
-    for option, item in ((dict(stem_engine="zpack"), "queue 1 item 17"),
-                         (dict(enable_rpe=True), "queue 1 item 11d"),
-                         (dict(pad_per_element=True), "queue 1 item 11d"),
-                         (dict(pdnorm=object()), "queue 1 item 11d")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-            tptv3.PointTransformerWithHeads(**option)
+    c, f, b, v = two_element_batch(0)
+    spec = tptv3.PDNormSpec(bn=True, ln=True, conditions=("TreeSet",))
+    for option in (dict(stem_engine="zpack", dedup_divisor=4),
+                   dict(enable_rpe=True),
+                   dict(pad_per_element=True, num_elements=2),
+                   dict(pdnorm=spec)):
+        built = build_model("pointtransformerv3", device="cpu", seed=0,
+                            **option, **TINY)
+        with torch.inference_mode():
+            out = built(t(c), t(f), t(b), t(v))
+        assert np.isfinite(out["offset_predictions"].numpy()).all(), option
+        assert all(built.config[k] == val for k, val in option.items())
     with pytest.raises(ValueError, match="dedup_tokens needs"):
         tptv3.PointTransformerWithHeads(dedup_tokens=True)
     for option in (dict(dedup_divisor=4), dict(stem_engine="band"),

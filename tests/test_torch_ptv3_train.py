@@ -379,8 +379,9 @@ def test_band_dedup_train_step_matches_jax(monkeypatch):
 def test_cli_trains_ptv3_band_dedup_on_cpu(tmp_path, monkeypatch):
     """The CLI's ``--engine band --dedup_divisor 4`` (tiny widths, as
     :func:`test_cli_trains_ptv3_on_cpu`) builds the model in that
-    configuration and trains one epoch; ``pencil`` still means gather, and
-    the z-pack and brick stems raise."""
+    configuration and trains one epoch; ``pencil`` means gather, ``zpack``
+    is the z-pack stem, and ``brick`` trains on the gather path, as the
+    JAX package's PTv3 takes every other engine name."""
     built = []
     model_cls = tptv3.PointTransformerWithHeads
 
@@ -406,5 +407,9 @@ def test_cli_trains_ptv3_band_dedup_on_cpu(tmp_path, monkeypatch):
               None)
     assert built[-1]["stem_engine"] == "gather"
     for engine in ("zpack", "brick"):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            cli.main(base + ["--engine", engine])
+        cli.build(cli.parse_args(base + ["--engine", engine]), 2, VOXEL,
+                  None)
+        assert built[-1]["stem_engine"] == engine
+    histories = cli.main(base + ["--engine", "zpack", "--dedup_divisor",
+                                 "4"])
+    assert np.isfinite(histories[1][0]["train_loss"])

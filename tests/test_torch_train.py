@@ -502,16 +502,20 @@ def test_training_entry_points_default_to_cuda_and_raise_without_it(
 
 def test_training_paths_not_ported_raise(tmp_path):
     """What still raises, naming its ROADMAP item: data-parallel training
-    (``mesh``) and PTv3's z-pack and brick stems in the CLI; and a broken
+    (``mesh``); PTv3's z-pack and brick stems in the CLI no longer do (the
+    CLI builds PTv3 on the z-pack stem, and on the gather path for brick,
+    as the JAX package's PTv3 takes any other engine name); and a broken
     JAX orbax checkpoint directory (an empty ``manifest.ocdbt``, no
     ``model.pt``) in the pipeline's ``model_dirs`` raises the orbax
     reader's ``ValueError`` naming the manifest."""
     from treemorph_tpu_torch.pipeline.run import load_pipeline_models
 
     for engine in ("zpack", "brick"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(["pointtransformerv3", "--data_root", str(tmp_path),
-                      "--engine", engine, "--device", "cpu"])
+        args = cli.parse_args(["pointtransformerv3", "--data_root",
+                               str(tmp_path), "--engine", engine,
+                               "--device", "cpu"])
+        model, _, _ = cli.build(args, 2, 0.02, None)
+        assert model.config["stem_engine"] == engine
     fwd, loss = families.treelearn_family()
     for make in (harness.make_train_step, harness.make_accum_steps,
                  harness.make_eval_step):

@@ -211,5 +211,28 @@ def test_band_engine_bf16_forward_matches_jax():
 
 
 def test_engines_not_ported_raise():
-    with pytest.raises(NotImplementedError):
-        TreeLearn(engine="pencil", **SMALL)
+    """An engine the JAX package does not have raises; every engine it has
+    builds and serves, on the gather engine's weights (pencil and z-pack
+    share its parameter names) within 1e-5 of its outputs' scale (the
+    engines' parity with JAX: ``test_torch_engines.py``)."""
+    with pytest.raises(ValueError, match="unknown TreeLearn engine"):
+        TreeLearn(engine="tiles", **SMALL)
+    with pytest.raises(ValueError, match="brick_impl"):
+        TreeLearn(engine="brick", brick_impl="pallas", **SMALL)
+    _, variables = jax_model_and_variables("gather", "float32")
+    c, f, b, v = padded_inputs(7, 1500, 36)
+    with torch.inference_mode():
+        want = port_model(variables, "gather", "float32")(
+            t(c), t(f), t(b), t(v))["offset_predictions"].numpy()
+        for engine in ("zpack", "pencil"):
+            got = port_model(variables, engine, "float32")(
+                t(c), t(f), t(b), t(v))["offset_predictions"].numpy()
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=1e-5 * np.abs(want).max())
+        brick = TreeLearn(engine="brick", **SMALL).reset_parameters(
+            torch.Generator().manual_seed(0)).eval()
+        names = set(brick.state_dict())
+        assert "backbone.unet.block0.conv0" in names
+        assert "backbone.unet.block0.SubMConv_0.kernel" not in names
+        out = brick(t(c), t(f), t(b), t(v))["offset_predictions"]
+        assert np.isfinite(out.numpy()).all()

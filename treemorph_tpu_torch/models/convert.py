@@ -22,15 +22,23 @@ by joining it with dots. Leaves map as follows (the inverse of
   (flax momentum m is torch momentum 1 - m, except in PointNet2's
   ``BatchNorm``, which keeps flax's m).
 
+PTv3's reference-partitioning options need no rule of their own either:
+the RPE ``rpe_table`` ``(3 * rpe_num, H)`` is a leaf kept as it is; a
+PDNorm's ``norm{i}`` (or ``norm``) children are LayerNorms or BatchNorms,
+and its ``modulation`` a ``Dense``. Nor does TreeLearn's brick engine,
+whose blocks' ``conv0`` / ``conv1`` kernels are ``(27, Cin, Cout)`` leaves
+and ``bn0`` / ``bn1`` BatchNorms.
+
 PointNet2's modules keep flax's automatic names (``SetAbstraction_i``,
 ``SetAbstractionMsg_0``, ``PointwiseMLP_i``, ``Dense_i``, ``BatchNorm_i``,
 ``FeaturePropagation_j``) and the heads' ``semantic_head`` /
 ``offset_head``, so its leaves need no rule of their own.
 
 Every conv engine takes its kernels as (K, Cin, Cout) in kernel-offset
-order: the gather, band and z-band engines (``ops/sparse.py``,
-``ops/bandconv.py``) and the brick engine and brick conv (``ops/bricks.py``,
-``ops/brick_conv.py``). So no engine adds a layout here.
+order: the gather, z-pack, band and z-band engines (``ops/sparse.py``,
+``ops/bandconv.py``), the pencil engine (``ops/pencil.py``), the brick
+engine and brick conv (``ops/bricks.py``, ``ops/brick_conv.py``) and the
+tiles (``ops/tiles.py``). So no engine adds a layout here.
 
 Inputs are nested dicts of numpy arrays (``jax.device_get`` of the
 variables); nothing here imports JAX.

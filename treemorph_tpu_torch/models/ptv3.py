@@ -35,6 +35,12 @@ The options of the JAX package's fast configuration (``bench.py``'s PTv3):
   engine. The port's own ``band_viable`` routes each conv: it admits every
   width, where the JAX package sends deep wide levels to the gather engine
   by its VMEM budget; both engines compute the same function.
+- ``stem_engine="zpack"``: the same convs take the z-pack engine
+  (:class:`~..ops.sparse.ZPlan`) where the band engine would take its
+  plans, with the JAX package's rule: the k=5 stem over unique voxels or
+  tokens, level 0's xCPEs over unique voxels or tokens, and every pooled
+  level. Over plain points level 0 keeps the gather engine. Any other
+  engine name takes the gather engine everywhere, as in the JAX package.
 
 Module and parameter names follow the flax tree (``backbone.enc0_block0.
 attn.qkv``, ``cpe.LayerNorm_0``, ``enc1_down.norm``, ...), so
@@ -42,14 +48,25 @@ attn.qkv``, ``cpe.LayerNorm_0``, ``enc1_down.norm``, ...), so
 the other. Sort keys are one int64 ``batch << 48 | code``, whose stable
 sort is the JAX package's lexsort of ``(batch, hi, lo)``.
 
+The options of the reference's own partitioning (off by default, as there):
+
+- ``pad_per_element`` (with ``num_elements``): attention windows never
+  straddle batch elements (:func:`element_pad_layout`, the reference's
+  ``get_padding_and_inverse``); the hand kernels run on that layout.
+- ``enable_rpe``: a relative positional bias per window and head from the
+  ``rpe_table`` parameter. Attention with a bias takes the plain version
+  (:func:`_rpe_attention`), on every device, as the JAX package routes it:
+  the kernels take no bias.
+- ``pdnorm`` (:class:`PDNormSpec`): the stem, pooling and unpooling
+  BatchNorms (``bn``) and the blocks' and xCPEs' LayerNorms (``ln``) become
+  :class:`PDNorm`, which selects one norm per ``condition`` and, with
+  ``adaptive``, scales and shifts it from a ``context`` vector.
+
 Training (``model.train()``) takes its randomness from the caller, as the
 JAX model takes rngs: one permutation of the four orders per stage
 (``order_perms``, drawn by :func:`draw_order_perms`), applied where the
 level is serialized, and a ``torch.Generator`` on the model's device for
 the blocks' stochastic depth (:class:`DropPath`).
-
-Not ported (``NotImplementedError``, naming the ROADMAP item): the z-pack
-stem, RPE, per-element window padding and PDNorm.
 """
 
 from __future__ import annotations
@@ -67,6 +84,7 @@ from ..ops.serialization import encode
 from ..ops.sparse import (
     build_dedup,
     build_rulebook,
+    build_zplan,
     dedup_sort_perm,
     rulebook_subset_columns,
     subm_conv_apply,
@@ -82,15 +100,10 @@ CODE_BITS = 3 * DEPTH
 #: hidden width of the blocks' MLPs over their channels
 MLP_RATIO = 4
 
-#: conv engines of ``stem_engine`` that are ported
-STEM_ENGINES = ("gather", "band")
-
-_NOT_PORTED = {
-    "stem_engine": "ROADMAP.md queue 1 item 17",
-    "enable_rpe": "ROADMAP.md queue 1 item 11d",
-    "pad_per_element": "ROADMAP.md queue 1 item 11d",
-    "pdnorm": "ROADMAP.md queue 1 item 11d",
-}
+#: the ``stem_engine`` values with a path of their own, which re-store the
+#: pooled levels in lex order; the JAX model checks no name, and any other
+#: takes the gather engine
+LEX_ENGINES = ("band", "zpack")
 
 
 def _bn(channels: int) -> MaskedBatchNorm:
@@ -132,6 +145,80 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator) -> None:
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
                           generator=generator)
+
+
+class PDNormSpec(NamedTuple):
+    """Point-Prompt-Training conditional norms (reference ``PDNorm``,
+    blocks.py:272-311; the ``pdnorm_*`` flags of PointTransformerV3.py:
+    288-330, off in the reference's defaults)."""
+
+    bn: bool = False  # wrap the stem, pooling and unpooling BatchNorms
+    ln: bool = False  # wrap the blocks' and xCPEs' LayerNorms
+    conditions: tuple = ("ScanNet", "S3DIS", "Structured3D")
+    decouple: bool = True  # one norm per condition
+    adaptive: bool = False  # SiLU + Linear modulation from a context
+    context_channels: int = 256
+
+
+class PDNorm(nn.Module):
+    """Conditional norm (reference blocks.py:272-311): with ``decouple``
+    one norm per condition (``norm{i}``, all in the ``state_dict``), of
+    which only the one of ``condition`` runs and, a BatchNorm, updates its
+    running statistics; else one ``norm``. With ``adaptive`` a
+    ``modulation`` Linear on ``silu(context)`` gives a shift and a scale:
+    ``y * (1 + scale) + shift``, masked to the valid rows. ``context`` is
+    (context_channels,) or rows of it that broadcast against (P, C)."""
+
+    def __init__(self, num_features: int, kind: str = "bn",
+                 conditions=PDNormSpec.conditions, decouple: bool = True,
+                 adaptive: bool = False, context_channels: int = 256):
+        super().__init__()
+        make = _bn if kind == "bn" else _ln
+        self.kind = kind
+        self.decouple = decouple
+        self.adaptive = adaptive
+        self.num_conditions = len(conditions)
+        if decouple:
+            for i in range(len(conditions)):
+                self.add_module(f"norm{i}", make(num_features))
+        else:
+            self.norm = make(num_features)
+        if adaptive:
+            self.modulation = nn.Linear(context_channels, 2 * num_features)
+
+    def forward(self, x, valid, condition: int = 0, context=None):
+        if self.decouple:
+            if not 0 <= condition < self.num_conditions:
+                raise ValueError(f"PDNorm condition {condition} of "
+                                 f"{self.num_conditions}")
+            norm = getattr(self, f"norm{condition}")
+        else:
+            norm = self.norm
+        y = norm(x, valid) if self.kind == "bn" else norm(x)
+        if self.adaptive:
+            if context is None:
+                raise ValueError("adaptive PDNorm needs a context")
+            shift, scale = self.modulation(F.silu(context)).chunk(2, dim=-1)
+            y = (y * (1.0 + scale) + shift) * valid[:, None]
+        return y
+
+
+def _norm(kind: str, channels: int, pdnorm: PDNormSpec | None):
+    """A BatchNorm (``kind="bn"``) or LayerNorm (``"ln"``), a
+    :class:`PDNorm` where ``pdnorm`` wraps that kind."""
+    if pdnorm is not None and getattr(pdnorm, kind):
+        return PDNorm(channels, kind, pdnorm.conditions, pdnorm.decouple,
+                      pdnorm.adaptive, pdnorm.context_channels)
+    return _bn(channels) if kind == "bn" else _ln(channels)
+
+
+def _run_norm(norm, x, valid, cond):
+    """Apply a norm of :func:`_norm`; ``cond`` is (condition, context)."""
+    if isinstance(norm, PDNorm):
+        return norm(x, valid, *cond)
+    if isinstance(norm, MaskedBatchNorm):
+        return norm(x, valid)
+    return norm(x)
 
 
 class PointSet(NamedTuple):
@@ -231,21 +318,140 @@ class DropPath(nn.Module):
         return x * mask / keep
 
 
+def element_pad_layout(batch: torch.Tensor, valid: torch.Tensor,
+                       num_elements: int, patch: int):
+    """Per-element window layout (the reference's
+    ``get_padding_and_inverse``, blocks.py:400-455), over rows in a
+    serialized order, where each element's valid rows are contiguous.
+
+    Element b with n_b rows gets ``ceil(n_b / K) * K`` of the P + B*K
+    slots. When n_b > K its tail window's slots past n_b copy the previous
+    window's rows at the same positions (blocks.py:429-438) and attend as
+    real keys; when n_b <= K they stay dead (the reference's short varlen
+    sequence: the same attention). A slot's element is the first whose
+    range holds it (``argmax`` of a (P + B*K, B) mask, as in the JAX
+    package). Returns ``(pad_src, slot_seg, unpad)``: the row feeding each
+    slot (clipped; dead slots have ``slot_seg == -1``), the element of each
+    slot (int32), and the slot of each row (valid rows)."""
+    p = batch.shape[0]
+    dev = batch.device
+    seg_ids = torch.where(valid & (batch < num_elements), batch,
+                          num_elements).to(torch.int64)
+    n = torch.zeros(num_elements + 1, dtype=torch.int64, device=dev)
+    n = n.index_add_(0, seg_ids, valid.to(torch.int64))[:num_elements]
+    m = -(-n // patch) * patch  # K-aligned allotment, 0 for an empty one
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    start_src = torch.cat([zero, torch.cumsum(n, 0)[:-1]])
+    start_pad = torch.cat([zero, torch.cumsum(m, 0)[:-1]])
+
+    p_pad = p + num_elements * patch
+    j = torch.arange(p_pad, device=dev)
+    within = (j[:, None] >= start_pad[None]) & (
+        j[:, None] < (start_pad + m)[None])
+    owned = within.any(dim=1)
+    ele = torch.argmax(within.to(torch.int32), dim=1)
+    r = j - start_pad[ele]
+    n_e = n[ele]
+    real = r < n_e
+    replicated = owned & ~real & (n_e > patch)
+    src = torch.where(real, start_src[ele] + r,
+                      torch.where(replicated, start_src[ele] + r - patch, 0))
+    alive = owned & (real | replicated)
+    pad_src = src.clamp(0, p - 1)
+    slot_seg = torch.where(alive, ele, -1).to(torch.int32)
+
+    pos = torch.arange(p, device=dev)
+    # each row's element: the number of element ends at or before it
+    pe = (pos[:, None] >= (start_src + n)[None]).sum(dim=1)
+    pe = pe.clamp(0, num_elements - 1)
+    unpad = (pos - start_src[pe] + start_pad[pe]).clamp(0, p_pad - 1)
+    return pad_src, slot_seg, unpad
+
+
+def rpe_bound(patch: int) -> int:
+    """The reference RPE table's bound (blocks.py:318-321), its expression
+    kept as written: 31 at K = 1024 (float rounding), not 32."""
+    return int((4 * patch) ** (1 / 3) * 2)
+
+
+class _RPEBias(torch.autograd.Function):
+    """The RPE bias ``table[idx_x] + table[idx_y] + table[idx_z]`` (w, K, K,
+    H) of the index tensor (w, K, K, 3). Its gradient sums the cotangent
+    into each table row with one ``bincount`` per head and axis (autograd
+    of the gathers would scatter-add through ``index_put``, ~9x slower on
+    the CPU for a table of ~100 rows)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return (table[idx[..., 0]] + table[idx[..., 1]]) + table[idx[..., 2]]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        g = g.reshape(-1, g.shape[-1])
+        d = 0
+        for a in range(3):
+            flat = idx[..., a].reshape(-1)
+            d = d + torch.stack([
+                torch.bincount(flat, weights=g[:, h], minlength=ctx.rows)
+                for h in range(g.shape[1])], dim=1)
+        return d, None
+
+
+def _rpe_attention(q, k, v, seg, grid_w, table, pos_bnd):
+    """Window attention with the RPE score bias (JAX :416-438): for each
+    pair of a window the clipped relative grid offset indexes one row of
+    ``table`` (3 * rpe_num, H) per axis, and the three rows sum to the
+    pair's bias per head (:class:`_RPEBias`). The plain version takes it,
+    chunk by chunk over windows (the plain attention's chunks), since
+    neither hand kernel takes a bias: the JAX package routes RPE attention
+    to its plain version on every backend too."""
+    w_count, h, kk, _ = q.shape
+    rpe_num = 2 * pos_bnd + 1
+    axis = torch.arange(3, dtype=torch.int32, device=q.device) * rpe_num
+    step = max(1, attention._PLAIN_CHUNK_ELEMENTS // (h * kk * kk))
+    outs = []
+    for w0 in range(0, w_count, step):
+        sl = slice(w0, w0 + step)
+        gw = grid_w[sl].to(torch.int32)  # int32 indices: half the memory
+        rel = gw[:, :, None, :] - gw[:, None, :, :]  # (w, K, K, 3)
+        idx = rel.clamp(-pos_bnd, pos_bnd) + pos_bnd + axis
+        bias = _RPEBias.apply(table, idx)
+        outs.append(attention.window_attention_reference(
+            q[sl], k[sl], v[sl], seg[sl], bias=bias.permute(0, 3, 1, 2)))
+    return torch.cat(outs)
+
+
 class SerializedAttention(nn.Module):
     """Masked window attention over one serialized order (reference
     blocks.py:336-507): windows of ``patch_size`` consecutive rows of the
-    sorted order, pairs of different batch elements (or padding) masked."""
+    sorted order, pairs of different batch elements (or padding) masked.
+    With ``pad_per_element`` the windows are those of
+    :func:`element_pad_layout`; with ``enable_rpe`` the scores take the
+    relative positional bias (:func:`_rpe_attention`)."""
 
     def __init__(self, channels: int, num_heads: int, patch_size: int,
-                 order_index: int, compute_dtype: str = "float32"):
+                 order_index: int, compute_dtype: str = "float32",
+                 pad_per_element: bool = False, num_elements=None,
+                 enable_rpe: bool = False):
         super().__init__()
         self.channels = channels
         self.num_heads = num_heads
         self.patch_size = patch_size
         self.order_index = order_index
         self.compute_dtype = compute_dtype
+        self.pad_per_element = pad_per_element
+        self.num_elements = num_elements
         self.qkv = nn.Linear(channels, 3 * channels)
         self.proj = nn.Linear(channels, channels)
+        if enable_rpe:
+            self.rpe_bound = rpe_bound(patch_size)
+            self.rpe_table = nn.Parameter(
+                torch.zeros(3 * (2 * self.rpe_bound + 1), num_heads))
+        else:
+            self.rpe_table = None
 
     def forward(self, ps: PointSet):
         c, h, k = self.channels, self.num_heads, self.patch_size
@@ -258,14 +464,32 @@ class SerializedAttention(nn.Module):
         inverse = ps.inverses[self.order_index]
 
         qkv = _dense(self.qkv, ps.feat, dt).to(dt)[order]
-        seg = torch.where(ps.valid[order], ps.batch[order], -1)
-        seg = seg.to(torch.int32).reshape(p // k, k)
-        qkv = qkv.reshape(p // k, k, 3, h, d)
+        grid = ps.grid_coord[order] if self.rpe_table is not None else None
+        if self.pad_per_element:
+            pad_src, seg, unpad = element_pad_layout(
+                ps.batch[order], ps.valid[order], self.num_elements, k)
+            qkv = qkv[pad_src]
+            if grid is not None:
+                grid = grid[pad_src]
+        else:
+            seg = torch.where(ps.valid[order], ps.batch[order], -1)
+            seg = seg.to(torch.int32)
+        p_eff = qkv.shape[0]
+        seg = seg.reshape(p_eff // k, k)
+        qkv = qkv.reshape(p_eff // k, k, 3, h, d)
         q, kk, v = (qkv[:, :, i].transpose(1, 2).contiguous()
                     for i in range(3))  # (W, H, K, D) each
-        out = attention.window_attention(q, kk, v, seg)
-        out = out.transpose(1, 2).reshape(p, c)[inverse]
-        return _dense(self.proj, out, dt)
+        if self.rpe_table is not None:
+            out = _rpe_attention(q, kk, v, seg, grid.reshape(p_eff // k, k, 3),
+                                 self.rpe_table, self.rpe_bound)
+        else:
+            out = attention.window_attention(q, kk, v, seg)
+        out = out.transpose(1, 2).reshape(p_eff, c)
+        if self.pad_per_element:
+            # invalid rows read clipped slots: zero them, as the packed
+            # layout leaves them
+            out = out[unpad] * ps.valid[order][:, None]
+        return _dense(self.proj, out[inverse], dt)
 
 
 class FeedForward(nn.Module):
@@ -321,23 +545,26 @@ def _level_conv(feat, kernel, rulebook, valid, dt, dedup=None):
 class CPE(nn.Module):
     """xCPE: submanifold conv (k=3, bias) + linear + LayerNorm (reference
     Block.cpe, blocks.py:562-572). The conv's engine follows its
-    ``rulebook`` (a rulebook: gather; a ``BandPlan``: band). With
-    ``dedup`` the conv runs once per unique voxel and broadcasts to the
-    voxel's points; the linear and the LayerNorm stay per point."""
+    ``rulebook`` (a rulebook: gather; a ``BandPlan``: band; a ``ZPlan``:
+    zpack). With ``dedup`` the conv runs once per unique voxel and
+    broadcasts to the voxel's points; the linear and the LayerNorm stay per
+    point."""
 
-    def __init__(self, channels: int, compute_dtype: str = "float32"):
+    def __init__(self, channels: int, compute_dtype: str = "float32",
+                 pdnorm: PDNormSpec | None = None):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.kernel = nn.Parameter(torch.empty(27, channels, channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.Dense_0 = nn.Linear(channels, channels)
-        self.LayerNorm_0 = _ln(channels)
+        self.LayerNorm_0 = _norm("ln", channels, pdnorm)
 
-    def forward(self, feat, rulebook, valid, dedup=None):
+    def forward(self, feat, rulebook, valid, dedup=None, cond=(0, None)):
         dt = _conv_dtype(self.compute_dtype)
         x = _level_conv(feat, self.kernel, rulebook, valid, dt, dedup)
         x = x + self.bias * valid[:, None]
-        return self.LayerNorm_0(_dense(self.Dense_0, x, dt))
+        return _run_norm(self.LayerNorm_0, _dense(self.Dense_0, x, dt),
+                         valid, cond)
 
 
 class PTv3Block(nn.Module):
@@ -345,22 +572,25 @@ class PTv3Block(nn.Module):
 
     def __init__(self, channels: int, num_heads: int, patch_size: int,
                  order_index: int, drop_path: float = 0.0,
-                 compute_dtype: str = "float32"):
+                 compute_dtype: str = "float32", pad_per_element=False,
+                 num_elements=None, enable_rpe=False, pdnorm=None):
         super().__init__()
-        self.cpe = CPE(channels, compute_dtype)
-        self.norm1 = _ln(channels)
-        self.attn = SerializedAttention(channels, num_heads, patch_size,
-                                        order_index, compute_dtype)
-        self.norm2 = _ln(channels)
+        self.cpe = CPE(channels, compute_dtype, pdnorm)
+        self.norm1 = _norm("ln", channels, pdnorm)
+        self.attn = SerializedAttention(
+            channels, num_heads, patch_size, order_index, compute_dtype,
+            pad_per_element, num_elements, enable_rpe)
+        self.norm2 = _norm("ln", channels, pdnorm)
         self.mlp = FeedForward(channels, compute_dtype)
         self.drop_path = DropPath(drop_path)
 
     def forward(self, ps: PointSet, rulebook, generator=None,
-                dedup=None) -> PointSet:
-        feat = ps.feat + self.cpe(ps.feat, rulebook, ps.valid, dedup)
-        x = self.attn(ps._replace(feat=self.norm1(feat)))
+                dedup=None, cond=(0, None)) -> PointSet:
+        feat = ps.feat + self.cpe(ps.feat, rulebook, ps.valid, dedup, cond)
+        x = self.attn(ps._replace(
+            feat=_run_norm(self.norm1, feat, ps.valid, cond)))
         feat = feat + self.drop_path(x, generator)
-        x = self.mlp(self.norm2(feat))
+        x = self.mlp(_run_norm(self.norm2, feat, ps.valid, cond))
         return ps._replace(feat=feat + self.drop_path(x, generator))
 
 
@@ -385,12 +615,13 @@ class SerializedPooling(nn.Module):
     ``cap`` rows (cluster ids are contiguous from 0; clusters past the cap
     are dropped, masked, and counted in the returned overflow)."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, pdnorm=None):
         super().__init__()
         self.proj = nn.Linear(in_channels, out_channels)
-        self.norm = _bn(out_channels)
+        self.norm = _norm("bn", out_channels, pdnorm)
 
-    def forward(self, ps: PointSet, cap: int, order_perm=None):
+    def forward(self, ps: PointSet, cap: int, order_perm=None,
+                cond=(0, None)):
         p = ps.feat.shape[0]
         dev = ps.feat.device
         order0 = ps.orders[0]
@@ -429,7 +660,8 @@ class SerializedPooling(nn.Module):
                               s_cluster_c, cap + 1, -1)[:cap]
         batch = torch.where(coarse_valid, batch, INVALID_BATCH)
 
-        feat = _gelu(self.norm(feat, coarse_valid)) * coarse_valid[:, None]
+        feat = _run_norm(self.norm, feat, coarse_valid, cond)
+        feat = _gelu(feat) * coarse_valid[:, None]
 
         # pooled curve codes: the cluster head's codes one level up
         first = torch.searchsorted(s_cluster, torch.arange(cap, device=dev))
@@ -447,44 +679,59 @@ class SerializedUnpooling(nn.Module):
     """Skip-join unpooling (reference blocks.py:732-767)."""
 
     def __init__(self, in_channels: int, skip_channels: int,
-                 out_channels: int):
+                 out_channels: int, pdnorm=None):
         super().__init__()
         self.proj = nn.Linear(in_channels, out_channels)
-        self.norm = _bn(out_channels)
+        self.norm = _norm("bn", out_channels, pdnorm)
         self.proj_skip = nn.Linear(skip_channels, out_channels)
-        self.norm_skip = _bn(out_channels)
+        self.norm_skip = _norm("bn", out_channels, pdnorm)
 
-    def forward(self, coarse_feat, coarse_valid, fine: PointSet, cluster):
-        x = _gelu(self.norm(self.proj(coarse_feat), coarse_valid))
-        skip = _gelu(self.norm_skip(self.proj_skip(fine.feat), fine.valid))
+    def forward(self, coarse_feat, coarse_valid, fine: PointSet, cluster,
+                cond=(0, None)):
+        x = _gelu(_run_norm(self.norm, self.proj(coarse_feat), coarse_valid,
+                            cond))
+        skip = _gelu(_run_norm(self.norm_skip, self.proj_skip(fine.feat),
+                               fine.valid, cond))
         cap = x.shape[0]
         up = x[cluster.clamp(max=cap - 1)] * (cluster < cap)[:, None]
         return fine._replace(feat=(skip + up) * fine.valid[:, None])
 
 
 class Embedding(nn.Module):
-    """k=5 submanifold conv stem + BN + GELU (reference blocks.py:770-800)
-    over a prebuilt k=5 rulebook. ``engine="band"`` builds a band plan over
-    it (:func:`~..ops.bandconv.choose_band_plan`; the rows must be
-    lex-sorted: unique voxels or tokens); with ``dedup`` the conv runs once
-    per unique voxel and broadcasts to the voxel's points."""
+    """k=5 submanifold conv stem + BN + GELU (reference blocks.py:770-800).
+    ``engine="band"`` builds a band plan over the prebuilt k=5 rulebook
+    (:func:`~..ops.bandconv.choose_band_plan`), ``engine="zpack"`` a
+    :class:`~..ops.sparse.ZPlan` over the rows (both need lex-sorted rows:
+    unique voxels or tokens); the gather engine takes the rulebook, or
+    builds one when none is given. With ``dedup`` the conv runs once per
+    unique voxel and broadcasts to the voxel's points."""
 
     def __init__(self, in_channels: int, channels: int,
-                 compute_dtype: str = "float32", engine: str = "gather"):
+                 compute_dtype: str = "float32", engine: str = "gather",
+                 pdnorm=None):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.engine = engine
         self.kernel = nn.Parameter(torch.empty(125, in_channels, channels))
-        self.MaskedBatchNorm_0 = _bn(channels)
+        self.MaskedBatchNorm_0 = _norm("bn", channels, pdnorm)
 
-    def forward(self, ps: PointSet, rulebook, dedup=None) -> PointSet:
+    def forward(self, ps: PointSet, rulebook, dedup=None,
+                cond=(0, None)) -> PointSet:
         dt = _conv_dtype(self.compute_dtype)
+        if dedup is not None:
+            rows, valid = dedup.coords, dedup.valid
+        else:
+            rows = torch.cat([ps.batch[:, None], ps.grid_coord], dim=1)
+            valid = ps.valid
+        if self.engine == "zpack":
+            rulebook = build_zplan(rows, valid, 5)
+        elif rulebook is None:
+            rulebook = build_rulebook(rows, valid, 5)
         if self.engine == "band":
             _, cin, cout = self.kernel.shape
-            rows = dedup.valid if dedup is not None else ps.valid
-            rulebook = choose_band_plan(rulebook, rows, cin, cout, dt)
+            rulebook = choose_band_plan(rulebook, valid, cin, cout, dt)
         x = _level_conv(ps.feat, self.kernel, rulebook, ps.valid, dt, dedup)
-        x = self.MaskedBatchNorm_0(x, ps.valid)
+        x = _run_norm(self.MaskedBatchNorm_0, x, ps.valid, cond)
         return ps._replace(feat=_gelu(x) * ps.valid[:, None])
 
 
@@ -506,7 +753,8 @@ def token_capacity(p_in: int, divisor: int, patch: int) -> int:
 
 class PointTransformerV3(nn.Module):
     """The backbone (reference PointTransformerV3.py:261-457), with the
-    dedup and conv-engine options of the module docstring."""
+    dedup, conv-engine and reference-partitioning options of the module
+    docstring."""
 
     def __init__(self, in_channels=4, enc_depths=(2, 2, 2, 6, 2),
                  enc_channels=(32, 64, 128, 256, 512),
@@ -515,10 +763,18 @@ class PointTransformerV3(nn.Module):
                  dec_channels=(64, 64, 128, 256), dec_num_head=(4, 4, 8, 16),
                  dec_patch_size=(1024,) * 4, drop_path=0.3, grid_size=0.02,
                  pool_shrink=2, compute_dtype="float32", dedup_divisor=None,
-                 dedup_tokens=False, stem_engine="gather"):
+                 dedup_tokens=False, stem_engine="gather",
+                 pad_per_element=False, num_elements=None, enable_rpe=False,
+                 pdnorm=None):
         super().__init__()
         if dedup_tokens and not dedup_divisor:
             raise ValueError("dedup_tokens needs dedup_divisor")
+        if dedup_tokens and pad_per_element:
+            raise ValueError(
+                "dedup_tokens changes window partitioning; use one of "
+                "pad_per_element (parity) or dedup_tokens (speed)")
+        if pad_per_element and num_elements is None:
+            raise ValueError("pad_per_element needs num_elements")
         self.enc_depths = tuple(enc_depths)
         self.dec_depths = tuple(dec_depths)
         self.enc_channels = tuple(enc_channels)
@@ -532,11 +788,15 @@ class PointTransformerV3(nn.Module):
         self.stem_engine = stem_engine
         n_orders = len(DEFAULT_ORDERS)
         num_stages = len(self.enc_depths)
+        attn = dict(pad_per_element=pad_per_element,
+                    num_elements=num_elements, enable_rpe=enable_rpe,
+                    pdnorm=pdnorm)
         # the stem takes the chosen engine over unique voxels or tokens
         # (lex-sorted rows); over plain points, the gather engine
         self.embedding = Embedding(
             in_channels, enc_channels[0], compute_dtype,
-            stem_engine if dedup_divisor or dedup_tokens else "gather")
+            stem_engine if dedup_divisor or dedup_tokens else "gather",
+            pdnorm)
         total_enc = sum(self.enc_depths)
         enc_dp = [drop_path * i / max(total_enc - 1, 1)
                   for i in range(total_enc)]
@@ -544,11 +804,11 @@ class PointTransformerV3(nn.Module):
         for s in range(num_stages):
             if s > 0:
                 self.add_module(f"enc{s}_down", SerializedPooling(
-                    enc_channels[s - 1], enc_channels[s]))
+                    enc_channels[s - 1], enc_channels[s], pdnorm))
             for i in range(self.enc_depths[s]):
                 self.add_module(f"enc{s}_block{i}", PTv3Block(
                     enc_channels[s], enc_num_head[s], enc_patch_size[s],
-                    i % n_orders, enc_dp[dp_i], compute_dtype))
+                    i % n_orders, enc_dp[dp_i], compute_dtype, **attn))
                 dp_i += 1
         total_dec = sum(self.dec_depths)
         dec_dp = [drop_path * i / max(total_dec - 1, 1)
@@ -557,13 +817,13 @@ class PointTransformerV3(nn.Module):
             coarse_ch = (enc_channels[-1] if s == num_stages - 2
                          else dec_channels[s + 1])
             self.add_module(f"dec{s}_up", SerializedUnpooling(
-                coarse_ch, enc_channels[s], dec_channels[s]))
+                coarse_ch, enc_channels[s], dec_channels[s], pdnorm))
             dp_slice = dec_dp[sum(self.dec_depths[:s]):
                               sum(self.dec_depths[:s + 1])][::-1]
             for i in range(self.dec_depths[s]):
                 self.add_module(f"dec{s}_block{i}", PTv3Block(
                     dec_channels[s], dec_num_head[s], dec_patch_size[s],
-                    i % n_orders, dp_slice[i], compute_dtype))
+                    i % n_orders, dp_slice[i], compute_dtype, **attn))
 
     def _tokens(self, coord, feat, batch, valid):
         """Token mode's inputs: one token per occupied voxel (the voxel's
@@ -583,33 +843,40 @@ class PointTransformerV3(nn.Module):
                 dd.valid, dd.coords[:, 1:].to(torch.int64), dd)
 
     def _level_rulebook(self, s, ps, rb5, dd):
-        """Level ``s``'s k=3 rulebook (level 0: the stem's, sliced), as a
-        band plan where the engine is band and the rows are lex-sorted:
-        unique voxels or tokens at level 0, every pooled level."""
+        """Level ``s``'s k=3 xCPE structure over lex-sorted rows (unique
+        voxels or tokens at level 0, every pooled level): a ``ZPlan`` for
+        the zpack engine, a band plan over the rulebook for the band
+        engine; else the rulebook (level 0: the stem's, sliced, where it
+        built one)."""
         dt = _conv_dtype(self.compute_dtype)
-        if s == 0:
+        lex = s > 0 or self.dedup_tokens or dd is not None
+        rows = (dd.coords if dd is not None
+                else torch.cat([ps.batch[:, None], ps.grid_coord], dim=1))
+        valid = dd.valid if dd is not None else ps.valid
+        if self.stem_engine == "zpack" and lex:
+            return build_zplan(rows, valid, 3)
+        if s == 0 and rb5 is not None:
             rulebook = rb5[:, rulebook_subset_columns(5, 3)]
         else:
-            coords4 = torch.cat([ps.batch[:, None], ps.grid_coord], dim=1)
-            rulebook = build_rulebook(coords4, ps.valid, 3)
-        lex = s > 0 or self.dedup_tokens or dd is not None
+            rulebook = build_rulebook(rows, valid, 3)
         if self.stem_engine != "band" or not lex:
             return rulebook
         # the level's widest xCPE: its encoder's, or its decoder's
         width = max(self.enc_channels[s],
                     self.dec_channels[s] if s < len(self.dec_channels)
                     else 0)
-        valid = dd.valid if dd is not None else ps.valid
         return choose_band_plan(rulebook, valid, width, width, dt)
 
     def forward(self, coord, feat, batch, valid, order_perms=None,
-                generator=None):
+                generator=None, condition: int = 0, context=None):
         """``order_perms``: one permutation of the orders per stage (or
         None: unshuffled); ``generator``: the stochastic depth's, needed in
-        train mode when ``drop_path`` > 0. Returns the last level and the
+        train mode when ``drop_path`` > 0; ``condition`` and ``context``:
+        the PDNorms' (:class:`PDNorm`). Returns the last level and the
         diagnostics ``dedup_overflow`` (points whose voxel missed the dedup
         cap), ``token_v2u`` (token mode: each point's token, the cap where
         it has none; else None) and ``pool_overflow``."""
+        cond = (condition, context)
         num_stages = len(self.enc_depths)
         perms = (list(order_perms) if order_perms is not None
                  else [None] * num_stages)
@@ -631,9 +898,12 @@ class PointTransformerV3(nn.Module):
             dd = build_dedup(coords4, ps.valid, cap=cap)
             coords4 = dd.coords
         # one k=5 rulebook serves the stem and, sliced to its central 3^3
-        # columns, the level-0 xCPEs
-        rb5 = build_rulebook(coords4, ps.valid if dd is None else dd.valid, 5)
-        ps = self.embedding(ps, rb5, dd)
+        # columns, the level-0 xCPEs (the zpack engine builds plans)
+        rb5 = None
+        if self.stem_engine != "zpack":
+            rb5 = build_rulebook(coords4,
+                                 ps.valid if dd is None else dd.valid, 5)
+        ps = self.embedding(ps, rb5, dd, cond)
 
         # (fine level, cluster, fine level's rulebook, its dedup)
         skips = []
@@ -646,9 +916,9 @@ class PointTransformerV3(nn.Module):
                                      self.enc_patch_size[s],
                                      self.pool_shrink)
                 coarse, cluster, over = getattr(self, f"enc{s}_down")(
-                    ps, cap, perms[s])
+                    ps, cap, perms[s], cond)
                 pool_overflow = pool_overflow + over
-                if self.stem_engine == "band":
+                if self.stem_engine in LEX_ENGINES:
                     coarse, cluster = _lex_permute_level(coarse, cluster)
                 skips.append((ps, cluster, rulebook, level_dd))
                 ps = coarse
@@ -656,14 +926,15 @@ class PointTransformerV3(nn.Module):
             level_dd = dd if s == 0 else None
             rulebook = self._level_rulebook(s, ps, rb5, level_dd)
             for i in range(self.enc_depths[s]):
-                ps = getattr(self, f"enc{s}_block{i}")(ps, rulebook,
-                                                       generator, level_dd)
+                ps = getattr(self, f"enc{s}_block{i}")(
+                    ps, rulebook, generator, level_dd, cond)
         for s in reversed(range(num_stages - 1)):
             fine, cluster, rulebook, level_dd = skips.pop()
-            ps = getattr(self, f"dec{s}_up")(ps.feat, ps.valid, fine, cluster)
+            ps = getattr(self, f"dec{s}_up")(ps.feat, ps.valid, fine, cluster,
+                                             cond)
             for i in range(self.dec_depths[s]):
-                ps = getattr(self, f"dec{s}_block{i}")(ps, rulebook,
-                                                       generator, level_dd)
+                ps = getattr(self, f"dec{s}_block{i}")(
+                    ps, rulebook, generator, level_dd, cond)
         zero = torch.zeros((), dtype=torch.int64, device=feat.device)
         overflow = next((d.overflow for d in (dd, token_dd) if d is not None),
                         zero)
@@ -680,10 +951,12 @@ class PointTransformerWithHeads(nn.Module):
     Returns per-point predictions (padding rows are not zeroed, as in the
     JAX package) and the capacity diagnostics ``dedup_overflow`` (points
     whose voxel missed the level-0 or token dedup cap) and
-    ``pool_overflow``. ``dedup_divisor``, ``dedup_tokens`` and
-    ``stem_engine`` (``"gather"`` or ``"band"``) are the backbone's options
-    (module docstring); in token mode the heads run on the tokens and their
-    predictions are broadcast to the points."""
+    ``pool_overflow``. ``dedup_divisor``, ``dedup_tokens``,
+    ``stem_engine``, ``pad_per_element`` (with ``num_elements``, the batch
+    elements a forward holds at most), ``enable_rpe`` and ``pdnorm`` (a
+    :class:`PDNormSpec`) are the backbone's options (module docstring); in
+    token mode the heads run on the tokens and their predictions are
+    broadcast to the points."""
 
     def __init__(self, dim_feat=4, use_feats=False, voxel_size=0.02,
                  enc_depths=(2, 2, 2, 6, 2),
@@ -694,21 +967,12 @@ class PointTransformerWithHeads(nn.Module):
                  dec_patch_size=(1024,) * 4, drop_path=0.3, pool_shrink=2,
                  compute_dtype="float32", dedup_divisor=None,
                  dedup_tokens=False, stem_engine="gather", enable_rpe=False,
-                 pad_per_element=False, pdnorm=None):
+                 pad_per_element=False, num_elements=None, pdnorm=None):
         super().__init__()
-        off_path = dict(stem_engine=stem_engine == "zpack",
-                        enable_rpe=enable_rpe,
-                        pad_per_element=pad_per_element,
-                        pdnorm=pdnorm is not None)
-        for name, on in off_path.items():
-            if on:
-                raise NotImplementedError(
-                    f"PTv3 option {name} is not ported yet ({_NOT_PORTED[name]})"
-                )
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {compute_dtype!r}")
-        if stem_engine not in STEM_ENGINES:
-            raise ValueError(f"stem_engine {stem_engine!r}")
+        if pdnorm is not None:
+            pdnorm = PDNormSpec(*pdnorm)
         self.config = dict(
             dim_feat=dim_feat, use_feats=use_feats, voxel_size=voxel_size,
             enc_depths=tuple(enc_depths), enc_channels=tuple(enc_channels),
@@ -719,7 +983,9 @@ class PointTransformerWithHeads(nn.Module):
             dec_patch_size=tuple(dec_patch_size), drop_path=drop_path,
             pool_shrink=pool_shrink, compute_dtype=compute_dtype,
             dedup_divisor=dedup_divisor, dedup_tokens=dedup_tokens,
-            stem_engine=stem_engine,
+            stem_engine=stem_engine, enable_rpe=enable_rpe,
+            pad_per_element=pad_per_element, num_elements=num_elements,
+            pdnorm=pdnorm,
         )
         self.use_feats = use_feats
         self.backbone = PointTransformerV3(
@@ -728,7 +994,8 @@ class PointTransformerWithHeads(nn.Module):
             dec_patch_size, drop_path=drop_path, grid_size=voxel_size,
             pool_shrink=pool_shrink, compute_dtype=compute_dtype,
             dedup_divisor=dedup_divisor, dedup_tokens=dedup_tokens,
-            stem_engine=stem_engine,
+            stem_engine=stem_engine, pad_per_element=pad_per_element,
+            num_elements=num_elements, enable_rpe=enable_rpe, pdnorm=pdnorm,
         )
         head = dec_channels[0] if len(enc_depths) > 1 else enc_channels[0]
         self.semantic_head = MLPHead(head, 2)
@@ -737,7 +1004,8 @@ class PointTransformerWithHeads(nn.Module):
     def reset_parameters(self, generator: torch.Generator | None = None):
         """flax's initializers: fan-in normals for the conv kernels,
         lecun normals for ``Dense`` kernels with zero biases, LayerNorm and
-        BN scale 1, bias 0, statistics (0, 1), and the MLP heads' inits."""
+        BN scale 1, bias 0, statistics (0, 1), the RPE tables' normal of
+        std 0.02 truncated at +-2 std, and the MLP heads' inits."""
         with torch.no_grad():
             for mod in self.backbone.modules():
                 if isinstance(mod, (Embedding, CPE)):
@@ -749,6 +1017,10 @@ class PointTransformerWithHeads(nn.Module):
                     mod.bias.zero_()
                 elif isinstance(mod, (MaskedBatchNorm, nn.LayerNorm)):
                     mod.reset_parameters()
+                elif (isinstance(mod, SerializedAttention)
+                      and mod.rpe_table is not None):
+                    nn.init.trunc_normal_(mod.rpe_table, std=0.02, a=-0.04,
+                                          b=0.04, generator=generator)
             self.semantic_head.reset_parameters(generator)
             self.offset_head.reset_parameters(generator)
         return self
@@ -762,13 +1034,14 @@ class PointTransformerWithHeads(nn.Module):
         return model.to(ref.device).train(self.training)
 
     def forward(self, coords, feats, batch_ids, valid, order_perms=None,
-                generator=None) -> dict:
+                generator=None, condition: int = 0, context=None) -> dict:
         """``order_perms`` and ``generator``: the training randomness, as
-        :meth:`PointTransformerV3.forward` takes it."""
+        :meth:`PointTransformerV3.forward` takes it; ``condition`` and
+        ``context``: the PDNorms'."""
         if not self.use_feats:
             feats = torch.ones_like(feats)
         ps, diag = self.backbone(coords, feats, batch_ids, valid,
-                                 order_perms, generator)
+                                 order_perms, generator, condition, context)
         feat = ps.feat
         sem = self.semantic_head(feat, ps.valid)
         off = self.offset_head(feat, ps.valid)

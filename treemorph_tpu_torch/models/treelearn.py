@@ -15,9 +15,26 @@ Module and parameter names follow the flax tree (``block0``,
 the other by path. Submanifold kernels keep the JAX layout
 ``(K, Cin, Cout)`` in kernel-offset order (dz fastest).
 
-Engines: ``"gather"`` (rulebook gather-matmul convs) and ``"band"`` (the
-band conv kernel, :mod:`treemorph_tpu_torch.ops.bandconv`). Rulebook
-lookups are exact, so there is no ``verify_coords`` switch.
+Engines (``engine``), as the JAX package's:
+
+- ``"gather"``: rulebook gather-matmul convs (:mod:`..ops.sparse`);
+- ``"band"``: the band conv kernel (:mod:`..ops.bandconv`);
+- ``"zpack"``: z-packed rows over the same blocks (:class:`..ops.sparse.
+  ZPlan`);
+- ``"pencil"``: z-pencil rows, 9 row gathers and banded matmuls per conv
+  (:mod:`..ops.pencil`), the level's features held in the pencil layout
+  through its residual blocks; pencils capped at ``3 M //
+  pencil_divisor``;
+- ``"brick"``: dense 4^3 bricks (:mod:`..ops.bricks`, ``brick_impl``
+  ``"conv"`` or ``"xslab"``), bricks capped at ``M // brick_divisor``.
+
+zpack, pencil and brick serve 3x3x3 kernels; at another ``kernel_size``
+they take the gather engine, as in the JAX package. Voxels that the pencil
+and brick caps drop are counted in the outputs' ``dropped_voxels``. The
+pencil blocks' parameters carry the gather blocks' names (one checkpoint
+serves gather, band, zpack and pencil); the brick blocks' are the JAX
+package's own (``bn0``, ``conv0``, ``bn1``, ``conv1``). Rulebook lookups
+are exact, so there is no ``verify_coords`` switch.
 """
 
 from __future__ import annotations
@@ -28,9 +45,17 @@ import torch
 from torch import nn
 
 from ..ops.bandconv import choose_band_plan
+from ..ops.bricks import brick_subm_conv, brickize, from_dense, to_dense
+from ..ops.pencil import (
+    build_pencils,
+    from_pencil,
+    pencil_conv_apply,
+    to_pencil,
+)
 from ..ops.sparse import (
     build_downsample,
     build_rulebook,
+    build_zplan,
     down_conv_apply,
     inverse_conv_apply,
     subm_conv_apply,
@@ -38,8 +63,8 @@ from ..ops.sparse import (
 from ..ops.voxelize import voxelize_treelearn_features
 from .loss import point_wise_loss
 
-ENGINES = ("gather", "band")
-_NOT_PORTED_ENGINES = ("pencil", "brick", "zpack")
+ENGINES = ("gather", "band", "zpack", "pencil", "brick")
+BRICK_IMPLS = ("conv", "xslab")
 
 
 def _conv_dtype(name: str) -> torch.dtype:
@@ -146,16 +171,120 @@ class ResidualBlock(nn.Module):
         return x + identity
 
 
+class PencilSubMConv(SubMConv):
+    """A submanifold conv on the pencil engine, flat rows in and out (the
+    input conv); the parameter is :class:`SubMConv`'s ``kernel``."""
+
+    def forward(self, feats, ps, valid):
+        core = to_pencil(feats * valid[:, None], ps)
+        out = pencil_conv_apply(core, self.kernel, ps,
+                                compute_dtype=_conv_dtype(self.conv_dtype))
+        return from_pencil(out, ps) * valid[:, None]
+
+
+class PencilResidualBlock(ResidualBlock):
+    """:class:`ResidualBlock` on the pencil layout (the same parameters):
+    its BatchNorms run over the level's cells, masked to the active ones."""
+
+    def forward(self, core, ps, flat_mask):
+        cap1 = core.shape[0]
+        cells = ps.cell_active.shape[1]
+        cin = core.shape[1] // cells
+        identity = core if self.shortcut is None else (
+            core.reshape(-1, cin) @ self.shortcut).reshape(cap1, -1)
+        dtype = _conv_dtype(self.SubMConv_0.conv_dtype)
+
+        def bn_relu(x, bn):
+            flat = x.reshape(-1, x.shape[1] // cells)
+            return torch.relu(bn(flat, flat_mask)).reshape(cap1, -1)
+
+        x = bn_relu(core, self.MaskedBatchNorm_0)
+        x = pencil_conv_apply(x, self.SubMConv_0.kernel, ps, dtype)
+        x = bn_relu(x, self.MaskedBatchNorm_1)
+        x = pencil_conv_apply(x, self.SubMConv_1.kernel, ps, dtype)
+        return x + identity
+
+
+class BrickSubMConv(SubMConv):
+    """A submanifold conv on the brick engine, flat rows in and out (the
+    input conv)."""
+
+    def __init__(self, in_channels, out_channels, conv_dtype="float32",
+                 impl="conv"):
+        super().__init__(in_channels, out_channels, 3, conv_dtype)
+        self.impl = impl
+
+    def forward(self, feats, bs, active, valid):
+        dense = to_dense(feats * valid[:, None], bs)
+        out = brick_subm_conv(dense, self.kernel, bs, active, self.impl,
+                              _conv_dtype(self.conv_dtype))
+        return from_dense(out, bs) * valid[:, None]
+
+
+class BrickResidualBlock(nn.Module):
+    """:class:`ResidualBlock` on the dense-brick layout (the JAX package's
+    names: ``shortcut``, ``bn0``, ``conv0``, ``bn1``, ``conv1``)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 conv_dtype: str = "float32", impl: str = "conv"):
+        super().__init__()
+        self.conv_dtype = conv_dtype
+        self.impl = impl
+        self.shortcut = (nn.Parameter(torch.empty(in_channels, out_channels))
+                         if in_channels != out_channels else None)
+        self.bn0 = MaskedBatchNorm(in_channels)
+        self.conv0 = nn.Parameter(torch.empty(27, in_channels, out_channels))
+        self.bn1 = MaskedBatchNorm(out_channels)
+        self.conv1 = nn.Parameter(torch.empty(27, out_channels, out_channels))
+
+    def forward(self, dense, bs, active, flat_mask):
+        shape = dense.shape
+        identity = dense if self.shortcut is None else (
+            dense.reshape(-1, shape[-1]) @ self.shortcut).reshape(
+                *shape[:-1], -1)
+        dtype = _conv_dtype(self.conv_dtype)
+
+        def bn_relu(x, bn):
+            flat = bn(x.reshape(-1, x.shape[-1]), flat_mask)
+            return torch.relu(flat).reshape(x.shape) * active
+
+        x = bn_relu(dense, self.bn0)
+        x = brick_subm_conv(x, self.conv0, bs, active, self.impl, dtype)
+        x = bn_relu(x, self.bn1)
+        x = brick_subm_conv(x, self.conv1, bs, active, self.impl, dtype)
+        return x + identity
+
+
+def brick_context(coords, valid, divisor: int):
+    """The brick engine's structure of one level: ``(bs, active,
+    flat_mask)`` with bricks capped at ``max(M // divisor, 64)``, and the
+    voxels the cap dropped."""
+    cap = max(coords.shape[0] // divisor, 64)
+    bs = brickize(coords, valid, cap)
+    active = to_dense(valid.float()[:, None], bs)
+    dropped = (valid & (bs.brick_id >= cap)).sum()
+    return (bs, active, (active > 0).reshape(-1)), dropped
+
+
+def pencil_capacity(m: int, divisor: int) -> int:
+    """Pencil rows of a level of ``m`` voxels: ``max(3m // divisor, 64)``
+    (reals and ghosts)."""
+    return max(3 * m // divisor, 64)
+
+
 class UBlock(nn.Module):
     """Recursive U-Net over voxel levels (reference blocks.py:83-151).
 
     ``level_shrink`` divides the capacity of each coarser level (real
-    clouds coarsen >= 2x per stride-2 level); voxels beyond it are dropped
-    and counted in the returned ``dropped``."""
+    clouds coarsen >= 2x per stride-2 level); voxels beyond it, and beyond
+    the pencil or brick caps, are dropped and counted in the returned
+    ``dropped``."""
 
     def __init__(self, n_planes, block_reps: int = 2, kernel_size: int = 3,
                  level_shrink: int = 2, min_capacity: int = 256,
-                 engine: str = "gather", conv_dtype: str = "float32"):
+                 engine: str = "gather", conv_dtype: str = "float32",
+                 brick_divisor: int = 4, pencil_divisor: int = 1,
+                 pencil_cells: int = 4, brick_impl: str = "conv"):
         super().__init__()
         self.n_planes = list(n_planes)
         self.block_reps = block_reps
@@ -164,53 +293,86 @@ class UBlock(nn.Module):
         self.min_capacity = min_capacity
         self.engine = engine
         self.conv_dtype = conv_dtype
+        self.brick_divisor = brick_divisor
+        self.pencil_divisor = pencil_divisor
+        self.pencil_cells = pencil_cells
+        layout = engine if kernel_size == 3 else "gather"
+
+        def block(cin, cout):
+            if layout == "brick":
+                return BrickResidualBlock(cin, cout, conv_dtype, brick_impl)
+            cls = PencilResidualBlock if layout == "pencil" else ResidualBlock
+            return cls(cin, cout, kernel_size, conv_dtype)
+
         c0 = self.n_planes[0]
         for i in range(block_reps):
-            self.add_module(
-                f"block{i}",
-                ResidualBlock(c0, c0, kernel_size, conv_dtype),
-            )
+            self.add_module(f"block{i}", block(c0, c0))
         if len(self.n_planes) > 1:
             c1 = self.n_planes[1]
             self.MaskedBatchNorm_0 = MaskedBatchNorm(c0)
             self.down_kernel = nn.Parameter(torch.empty(8, c0, c1))
             self.u = UBlock(
                 self.n_planes[1:], block_reps, kernel_size, level_shrink,
-                min_capacity, engine, conv_dtype,
+                min_capacity, engine, conv_dtype, brick_divisor,
+                pencil_divisor, pencil_cells, brick_impl,
             )
             self.MaskedBatchNorm_1 = MaskedBatchNorm(c1)
             self.up_kernel = nn.Parameter(torch.empty(8, c1, c0))
             for i in range(block_reps):
-                self.add_module(
-                    f"tail{i}",
-                    ResidualBlock(
-                        2 * c0 if i == 0 else c0, c0, kernel_size,
-                        conv_dtype,
-                    ),
-                )
+                self.add_module(f"tail{i}",
+                                block(2 * c0 if i == 0 else c0, c0))
 
     def _make_ctx(self, coords, valid):
-        """Per-level conv context shared by head and tail blocks: the
-        rulebook, or the band plan sized for the level's widest conv (the
-        tail's first, 2C -> C after the skip concat)."""
+        """Per-level conv context shared by head and tail blocks (the
+        reference's ``indice_key``) and the voxels the engine's cap
+        dropped: ``("pencil", structure, flat_mask)``, ``("brick", bricks,
+        active, flat_mask)``, or ``("gather", rulebook)`` where the
+        rulebook may be a ``ZPlan`` or a band plan (sized for the level's
+        widest conv, the tail's first, 2C -> C after the skip concat)."""
+        zero = torch.zeros((), dtype=torch.int64, device=coords.device)
+        k3 = self.kernel_size == 3
+        if self.engine == "pencil" and k3:
+            ps = build_pencils(
+                coords, valid, pencil_capacity(coords.shape[0],
+                                               self.pencil_divisor),
+                cells=self.pencil_cells)
+            return ("pencil", ps, ps.cell_active.reshape(-1) > 0), ps.overflow
+        if self.engine == "brick" and k3:
+            ctx, dropped = brick_context(coords, valid, self.brick_divisor)
+            return ("brick", *ctx), dropped
+        if self.engine == "zpack" and k3:
+            return ("gather", build_zplan(coords, valid, 3)), zero
         rb = build_rulebook(coords, valid, self.kernel_size)
         if self.engine == "band":
             c0 = self.n_planes[0]
-            return choose_band_plan(
-                rb, valid, 2 * c0, c0, _conv_dtype(self.conv_dtype)
-            )
-        return rb
+            rb = choose_band_plan(rb, valid, 2 * c0, c0,
+                                  _conv_dtype(self.conv_dtype))
+        return ("gather", rb), zero
 
     def _run_blocks(self, x, ctx, valid, prefix: str):
-        for i in range(self.block_reps):
-            x = getattr(self, f"{prefix}{i}")(x, ctx, valid)
+        blocks = [getattr(self, f"{prefix}{i}")
+                  for i in range(self.block_reps)]
+        if ctx[0] == "pencil":
+            _, ps, flat_mask = ctx
+            core = to_pencil(x * valid[:, None], ps)
+            for blk in blocks:
+                core = blk(core, ps, flat_mask)
+            return from_pencil(core, ps) * valid[:, None]
+        if ctx[0] == "brick":
+            _, bs, active, flat_mask = ctx
+            dense = to_dense(x * valid[:, None], bs)
+            for blk in blocks:
+                dense = blk(dense, bs, active, flat_mask)
+            return from_dense(dense, bs) * valid[:, None]
+        for blk in blocks:
+            x = blk(x, ctx[1], valid)
         return x
 
     def forward(self, feats, coords, valid):
         """Returns (features, dropped) — ``dropped`` totals the voxels
-        lost to level caps across this and all coarser levels."""
-        ctx = self._make_ctx(coords, valid)
-        dropped = torch.zeros((), dtype=torch.int64, device=feats.device)
+        lost to level and engine caps across this and all coarser
+        levels."""
+        ctx, dropped = self._make_ctx(coords, valid)
         x = self._run_blocks(feats, ctx, valid, "block")
         if len(self.n_planes) > 1:
             identity = x
@@ -278,7 +440,9 @@ class TreeLearnBackbone(nn.Module):
     def __init__(self, channels=32, num_blocks=7, kernel_size=3,
                  use_feats=True, use_coords=False, voxel_size=0.1,
                  batch_size=1, voxel_capacity_divisor=1, engine="gather",
-                 conv_dtype="float32", voxel_capacity=None, dim_feat=1):
+                 conv_dtype="float32", voxel_capacity=None, dim_feat=1,
+                 brick_divisor=4, pencil_divisor=1, pencil_cells=4,
+                 brick_impl="conv"):
         super().__init__()
         self.channels = channels
         self.kernel_size = kernel_size
@@ -290,12 +454,49 @@ class TreeLearnBackbone(nn.Module):
         self.engine = engine
         self.conv_dtype = conv_dtype
         self.voxel_capacity = voxel_capacity
-        self.input_conv = SubMConv(dim_feat + 3, channels, kernel_size,
-                                   conv_dtype)
+        self.brick_divisor = brick_divisor
+        self.pencil_divisor = pencil_divisor
+        self.pencil_cells = pencil_cells
+        layout = engine if kernel_size == 3 else "gather"
+        if layout == "pencil":
+            self.input_conv = PencilSubMConv(dim_feat + 3, channels, 3,
+                                             conv_dtype)
+        elif layout == "brick":
+            self.input_conv = BrickSubMConv(dim_feat + 3, channels,
+                                            conv_dtype, brick_impl)
+        else:
+            self.input_conv = SubMConv(dim_feat + 3, channels, kernel_size,
+                                       conv_dtype)
         n_planes = [channels * (i + 1) for i in range(num_blocks)]
         self.unet = UBlock(n_planes, 2, kernel_size, engine=engine,
-                           conv_dtype=conv_dtype)
+                           conv_dtype=conv_dtype,
+                           brick_divisor=brick_divisor,
+                           pencil_divisor=pencil_divisor,
+                           pencil_cells=pencil_cells, brick_impl=brick_impl)
         self.output_norm = MaskedBatchNorm(channels)
+
+    def _input_conv(self, feats, v_coords, v_valid):
+        """The input conv on the level-0 voxels, on the model's engine."""
+        if isinstance(self.input_conv, PencilSubMConv):
+            ps = build_pencils(
+                v_coords, v_valid,
+                pencil_capacity(v_coords.shape[0], self.pencil_divisor),
+                cells=self.pencil_cells)
+            return self.input_conv(feats, ps, v_valid)
+        if isinstance(self.input_conv, BrickSubMConv):
+            (bs, active, _), _ = brick_context(v_coords, v_valid,
+                                               self.brick_divisor)
+            return self.input_conv(feats, bs, active, v_valid)
+        if self.engine == "zpack" and self.kernel_size == 3:
+            rulebook = build_zplan(v_coords, v_valid, 3)
+        else:
+            rulebook = build_rulebook(v_coords, v_valid, self.kernel_size)
+        if self.engine == "band":
+            rulebook = choose_band_plan(
+                rulebook, v_valid, feats.shape[-1], self.channels,
+                _conv_dtype(self.conv_dtype),
+            )
+        return self.input_conv(feats, rulebook, v_valid)
 
     def forward(self, coords, feats, batch_ids, valid):
         p = coords.shape[0]
@@ -308,13 +509,7 @@ class TreeLearnBackbone(nn.Module):
             use_feats=self.use_feats, capacity=min(capacity, p),
         )
         v_coords, v_valid = vox.voxel_coords, vox.voxel_valid
-        rulebook = build_rulebook(v_coords, v_valid, self.kernel_size)
-        if self.engine == "band":
-            rulebook = choose_band_plan(
-                rulebook, v_valid, vox.voxel_feats.shape[-1], self.channels,
-                _conv_dtype(self.conv_dtype),
-            )
-        x = self.input_conv(vox.voxel_feats, rulebook, v_valid)
+        x = self._input_conv(vox.voxel_feats, v_coords, v_valid)
         x, dropped_voxels = self.unet(x, v_coords, v_valid)
         x = torch.relu(self.output_norm(x, v_valid))
 
@@ -335,20 +530,21 @@ class TreeLearn(nn.Module):
     batch ids and validity. Returns per-point predictions (padding rows
     zeroed). With a separate noise cloud, the semantic head reads a second
     backbone pass over it with shared weights (reference
-    TreeLearn.py:98-105, 137-141)."""
+    TreeLearn.py:98-105, 137-141). ``engine`` and its caps and schedule
+    (``brick_divisor``, ``pencil_divisor``, ``pencil_cells``,
+    ``brick_impl``) are those of the module docstring."""
 
     def __init__(self, channels=32, num_blocks=7, kernel_size=3, dim_feat=1,
                  use_feats=True, use_coords=False, voxel_size=0.1,
                  batch_size=1, voxel_capacity_divisor=1, engine="gather",
-                 conv_dtype="float32", voxel_capacity=None):
+                 conv_dtype="float32", voxel_capacity=None, brick_divisor=4,
+                 pencil_divisor=1, pencil_cells=4, brick_impl="conv"):
         super().__init__()
-        if engine in _NOT_PORTED_ENGINES:
-            raise NotImplementedError(
-                f"TreeLearn engine {engine!r} is not ported; use "
-                f"one of {ENGINES}"
-            )
         if engine not in ENGINES:
-            raise ValueError(f"unknown TreeLearn engine {engine!r}")
+            raise ValueError(f"unknown TreeLearn engine {engine!r}; use one "
+                             f"of {ENGINES}")
+        if brick_impl not in BRICK_IMPLS:
+            raise ValueError(f"unknown brick_impl {brick_impl!r}")
         self.config = dict(
             channels=channels, num_blocks=num_blocks,
             kernel_size=kernel_size, dim_feat=dim_feat, use_feats=use_feats,
@@ -356,11 +552,14 @@ class TreeLearn(nn.Module):
             batch_size=batch_size,
             voxel_capacity_divisor=voxel_capacity_divisor, engine=engine,
             conv_dtype=conv_dtype, voxel_capacity=voxel_capacity,
+            brick_divisor=brick_divisor, pencil_divisor=pencil_divisor,
+            pencil_cells=pencil_cells, brick_impl=brick_impl,
         )
         self.backbone = TreeLearnBackbone(
             channels, num_blocks, kernel_size, use_feats, use_coords,
             voxel_size, batch_size, voxel_capacity_divisor, engine,
-            conv_dtype, voxel_capacity, dim_feat,
+            conv_dtype, voxel_capacity, dim_feat, brick_divisor,
+            pencil_divisor, pencil_cells, brick_impl,
         )
         self.semantic_head = MLPHead(channels, 2)
         self.offset_head = MLPHead(channels, 3)
@@ -376,9 +575,12 @@ class TreeLearn(nn.Module):
                     mod.reset_parameters()
                 elif isinstance(mod, SubMConv):
                     _fan_in_normal_(mod.kernel, generator)
-                elif isinstance(mod, ResidualBlock):
+                elif isinstance(mod, (ResidualBlock, BrickResidualBlock)):
                     if mod.shortcut is not None:
                         _fan_in_normal_(mod.shortcut, generator)
+                    if isinstance(mod, BrickResidualBlock):
+                        _fan_in_normal_(mod.conv0, generator)
+                        _fan_in_normal_(mod.conv1, generator)
                 elif isinstance(mod, UBlock) and len(mod.n_planes) > 1:
                     _fan_in_normal_(mod.down_kernel, generator)
                     _fan_in_normal_(mod.up_kernel, generator)
@@ -416,7 +618,9 @@ class TreeLearn(nn.Module):
             "offset_predictions": off,
             "point_to_voxel": vox.point_to_voxel,
             "num_voxels": vox.num_voxels,
-            # static-cap overflow diagnostics (both 0 in healthy configs)
+            # static-cap overflow diagnostics (both 0 in healthy configs):
+            # points past the voxel capacity, and voxels dropped by level,
+            # pencil and brick caps
             "dropped_points": dropped_points,
             "dropped_voxels": dropped_voxels,
         }

@@ -1,7 +1,8 @@
 """Device ops of the port: voxelization, the submanifold-conv rulebook and
-its gather engine, the band and z-band convs and the brick conv
-(hand-written CUDA kernels) with the brick layout, window attention,
-z-order and Hilbert codes, PointNet++'s sampling and grouping, the cylinder
+its gather and z-pack engines, the band and z-band convs and the brick conv
+(hand-written CUDA kernels) with the brick layout, the pencil and tile
+engines, window attention, z-order and Hilbert codes, PointNet++'s
+sampling and grouping, the cylinder
 projection of labeling and the QSM stage, and the grid-bucketed neighbor
 search and geometric features of labeling. The package exports the
 labeling ops and the curve codes as the JAX package's ``ops`` does, but no

@@ -17,12 +17,16 @@ its dual-hash table, whose rare false hits (~1e-7 per lookup) are a
 documented deviation of the reference. Bricks sort in the JAX package's
 order, so brick ids, and every tensor indexed by them, match.
 
-Nothing in the port's TreeLearn runs this engine yet: its ``brick`` engine
-raises ``NotImplementedError``.
+TreeLearn's ``engine="brick"`` runs this engine with ``impl="conv"`` or
+``"xslab"``, as the JAX package's does: not the hand kernel, which its
+brick engine does not call either. ``impl="conv"`` on the card runs cuDNN
+in full f32 (:func:`conv3d_no_tf32`): PyTorch lets cuDNN use TF32 by
+default, and the f32 engine would then round its operands to 10 bits.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -171,10 +175,12 @@ def _xslab_conv(padded, weights, compute_dtype):
     dtype = compute_dtype or padded.dtype
     p = padded.reshape(b, 6, 36 * cin).to(dtype).float()
     w = _xslab_weights(weights).to(dtype).float()
-    out = torch.zeros((b, 4, 16 * cout), dtype=torch.float32,
+    out = torch.zeros((b * 4, 16 * cout), dtype=torch.float32,
                       device=padded.device)
     for dx in range(3):
-        out = out + p[:, dx:dx + 4, :] @ w[dx]
+        # one (B*4, 36*Cin) GEMM: a sliced 3-D operand would go to a
+        # batched GEMM of B tiny products
+        out = out + p[:, dx:dx + 4, :].reshape(b * 4, 36 * cin) @ w[dx]
     return out.reshape(b, BRICK, BRICK, BRICK, cout)
 
 
@@ -183,6 +189,45 @@ def conv3d_kernel(weights: torch.Tensor) -> torch.Tensor:
     (Cout, Cin, 3, 3, 3): offset (dx, dy, dz) is tap (dx+1, dy+1, dz+1)
     of the correlation."""
     return weights.reshape(3, 3, 3, *weights.shape[1:]).permute(4, 3, 0, 1, 2)
+
+
+@contextlib.contextmanager
+def _cudnn_without_tf32():
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+class _Conv3dNoTF32(torch.autograd.Function):
+    """``F.conv3d`` (no padding, stride 1) whose forward and backward both
+    run with cuDNN's TF32 off, whatever the global setting; the setting is
+    restored after each call."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        with _cudnn_without_tf32():
+            return F.conv3d(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        with _cudnn_without_tf32():
+            if ctx.needs_input_grad[0]:
+                dx = torch.nn.grad.conv3d_input(x.shape, w, g)
+            if ctx.needs_input_grad[1]:
+                dw = torch.nn.grad.conv3d_weight(x, w.shape, g)
+        return dx, dw
+
+
+def conv3d_no_tf32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``F.conv3d(x, w)`` in full f32 on the card, forward and backward:
+    cuDNN's TF32 is switched off for the call only."""
+    return _Conv3dNoTF32.apply(x, w)
 
 
 def brick_subm_conv(
@@ -198,15 +243,18 @@ def brick_subm_conv(
     out[v] = sum_k W[k] @ feat[v + off_k] with the offsets of
     :func:`.sparse.kernel_offsets`: a correlation over the halo'd tensor,
     which is what ``F.conv3d`` computes with :func:`conv3d_kernel`.
-    ``impl``: 'conv' = one ``F.conv3d`` on the
-    halo'd tensor's channels-first view; 'xslab' = :func:`_xslab_conv`,
-    the only impl that honors ``compute_dtype``."""
+    ``impl``: 'conv' = one ``F.conv3d`` on the halo'd tensor's
+    channels-first view, in full f32 (:func:`conv3d_no_tf32`: TF32 off for
+    the call, forward and backward); 'xslab' = :func:`_xslab_conv`, the
+    only impl that honors ``compute_dtype`` (its f32 products are
+    ``torch.matmul``'s, which PyTorch keeps out of TF32 by default)."""
     cout = weights.shape[-1]
     padded = _halo_pad(dense, bs)  # (Bcap, 6,6,6, Cin)
     if impl == "xslab":
         out = _xslab_conv(padded, weights, compute_dtype)
     elif impl == "conv":
-        out = F.conv3d(padded.permute(0, 4, 1, 2, 3), conv3d_kernel(weights))
+        out = conv3d_no_tf32(padded.permute(0, 4, 1, 2, 3),
+                             conv3d_kernel(weights))
         out = out.permute(0, 2, 3, 4, 1).float()  # (Bcap, 4,4,4, Cout)
     else:
         raise ValueError(f"brick_subm_conv: unknown impl {impl!r}")

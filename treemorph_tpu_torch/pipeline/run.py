@@ -58,7 +58,10 @@ def load_pipeline_models(cfg: dict, model_type: str, device=None):
     holding the training CLI's ``P{n}`` checkpoints), on ``device``. Plot 3
     is taken first, like the reference's "O_P3" / "N_P3"
     (``Pipeline.py:31-35``), then any loaded plot; ``(None, None)`` where
-    stage 1 needs no model."""
+    stage 1 needs no model. An optional ``stage1.engine`` (a checkpoint
+    does not record it) builds the models on that conv engine: TreeLearn's
+    ``engine``, PTv3's ``stem_engine`` (``pencil`` meaning gather, as the
+    training CLI has it)."""
     predict_offset = cfg["stage1"]["predict_offset"]
     denoise = cfg["stage1"]["denoise"]
     if not (predict_offset or denoise) or model_type == "no_model":
@@ -67,8 +70,15 @@ def load_pipeline_models(cfg: dict, model_type: str, device=None):
     if dirs is None:
         return None, None
     offset_dir, noise_dir = dirs
+    overrides = {}
+    engine = cfg["stage1"].get("engine")
+    if engine is not None and model_type == "treelearn":
+        overrides["engine"] = engine
+    elif engine is not None and model_type == "pointtransformerv3":
+        overrides["stem_engine"] = "gather" if engine == "pencil" else engine
     models = load_model(model_type, offset_model_dir=offset_dir,
-                        noise_model_dir=noise_dir, device=device)
+                        noise_model_dir=noise_dir, device=device,
+                        **overrides)
 
     def pick(prefix):
         for key in (f"{prefix}_P3", *sorted(models)):

@@ -3,7 +3,7 @@ three families:
 
     python -m treemorph_tpu_torch.train.cli treelearn --data_root DIR \\
         [--test_plots 3 4 6 8] [--engine band --conv_dtype bfloat16] \\
-        [--device cpu]
+        [--engine zpack|pencil|brick] [--device cpu]
     python -m treemorph_tpu_torch.train.cli pointtransformerv3 \\
         --data_root DIR [--batch_size 4] \\
         [--engine band --dedup_divisor 4 --conv_dtype bfloat16]
@@ -28,13 +28,13 @@ worked out from the fold's clouds (:func:`level0_capacity`). PTv3 is the
 pipeline's model at full width (``scripts/train.py:130-143``: features on,
 ``--dim_feat``, ``--voxel_size``, ``--conv_dtype`` as its compute dtype,
 ``--engine`` as its stem engine, ``pencil`` meaning gather, and
-``--dedup_divisor``), each step drawing its order shuffles and drop-path
-masks from a generator derived from ``--seed``; PointNet2 draws its FPS
-starts from it. It runs on the CUDA device unless ``--device`` names
+``--dedup_divisor``; any engine but ``band`` and ``zpack`` trains PTv3 on
+the gather path, as the JAX package's PTv3 takes it), each step drawing
+its order shuffles and drop-path masks from a generator derived from
+``--seed``; PointNet2 draws its FPS starts from it. It runs on the CUDA device unless ``--device`` names
 another, and raises without one. No YAML parser is needed.
 
-It trains on one device. PTv3's ``zpack`` and ``brick`` stems raise
-``NotImplementedError`` (ROADMAP.md queue 1 item 17).
+It trains on one device.
 """
 
 from __future__ import annotations
@@ -45,10 +45,6 @@ import os
 
 import numpy as np
 import torch
-
-_STEM_TODO = ("PTv3's {} stem is not ported yet "
-              "(ROADMAP.md queue 1 item 17)")
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Train a tree-morphology model")
@@ -108,9 +104,11 @@ def parse_args(argv=None):
     p.add_argument("--engine", default="gather",
                    choices=["gather", "band", "zpack", "pencil", "brick"],
                    help="TreeLearn conv engine (band = the band conv "
-                   "kernels; engines share one parameter layout, so "
-                   "checkpoints are interchangeable); PTv3 stem engine "
-                   "(gather or band, pencil meaning gather)")
+                   "kernels; gather, band, zpack and pencil share one "
+                   "parameter layout, so their checkpoints are "
+                   "interchangeable; brick names its blocks' own); PTv3 "
+                   "stem engine (band or zpack; pencil and brick mean "
+                   "gather)")
     p.add_argument("--conv_dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="conv compute dtype (f32 accumulation); PTv3's "
@@ -310,9 +308,6 @@ def main(argv=None) -> dict:
             and args.hierarchical_json is None):
         raise SystemExit("one of --data_root / --raster_dir / "
                          "--hierarchical_json is required")
-    if args.model == "pointtransformerv3" and args.engine in ("zpack",
-                                                             "brick"):
-        raise NotImplementedError(_STEM_TODO.format(args.engine))
     device = resolve_device(args.device)
 
     name = args.name or args.model
