@@ -200,7 +200,7 @@ Training the other families (13a-13d, on the training plots above):
      TreeLearn, YAML for PointNet2 and PTv3),
      ``model_dirs`` naming the checkpoints of 6b, 13b and 13c, on one
      held-out tree with stage 2's target lowered: points kept, cylinders,
-     the CSV written.
+     the CSV written (PointNet2's stage-2 cloud kept for 17c).
 
 The JAX package's checkpoints and labeling (14a-14c, run after phase 4,
 whose cylinder CSV 14b takes):
@@ -303,6 +303,28 @@ PTv3's reference-partitioning options and the non-default conv engines
 16f. The plot's level 0 in 8^3 tiles: ``tile_subm_conv`` (``F.conv3d``
      and 27 slices) against the gather conv; the octant-run rulebook equal
      to ``build_rulebook`` (k = 3, 5).
+
+Data parallelism and the QSM options (17a-17c, after phase 15; 17c's
+process and 17a's rank processes start together, and this process
+computes 17a's references and runs 17b while they run):
+
+17a. The data-parallel TreeLearn train step (``make_train_step(mesh=...)``,
+     band engine, seeded weights broadcast from rank 0) on the first
+     30-tree training batch, in rank processes on the one card: two gloo
+     ranks (CUDA tensors) at bf16 and f32, four at f32 (the batch padded to
+     32), one NCCL rank at f32. Each rank's loss, gradients (summed over
+     the ranks, before the clip) and state after the step against the
+     plain emulation of the step in this process (each shard's forward,
+     its numerators over the global denominators, autograd's sum, BN
+     statistics averaged, the optimizer), the NCCL rank against the
+     one-device step; the band kernels' launches counted in every rank.
+17b. ``predict_rasterized_sharded`` on the PointNet2 plot (the pipeline's
+     seeded PointNet2, 1 m rasters) over two slots on the card against
+     ``predict_rasterized``: offsets within 1e-5 of their scale, at least
+     99.9 % of the kept points the same, one reduction per accumulator.
+17c. ``fit_qsm`` on 13d's PointNet2 stage-2 cloud with euclidean shells:
+     agglomerative clustering with weighted merging, and DBSCAN with
+     enclosed merging (scipy, no scikit-learn): cylinders, seconds.
 
 The last two lines are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``. Float32 matmuls and convolutions run
@@ -4389,6 +4411,8 @@ def phase_pipeline_cli(root, checkpoints, device):
                               family)
         cfg["general"]["save_model_predictions"] = False
         cfg["stage2"]["min_points"] = PIPELINE_CLI_MIN_POINTS
+        # PointNet2's stage-2 cloud feeds 17c
+        cfg["general"]["save_upsampling"] = family == "pointnet2"
         cfg["model_dirs"] = {family: [ckpt, ckpt]}
         if family == "treelearn":
             path = os.path.join(root, f"pipeline_{family}.json")
@@ -6034,6 +6058,491 @@ def phase_tiles_and_runs(levels, device):
     log("phase 16f ok")
 
 
+#: phase 17: data parallelism and the QSM options. The data-parallel steps'
+#: gates against their plain emulation in one process, by family and
+#: compute dtype: (gradients and updated parameters within this share of
+#: the largest, BN running statistics of their own scale; the loss). The
+#: per-shard work is the same in both, only the gradients' sum order
+#: differs: TreeLearn f32 1e-5; bf16 1e-2 and its loss 1e-4 (a forward's
+#: bf16 roundings flip where the f32 atomic sums before them land in
+#: another order); PTv3 and PointNet2 at their card-vs-CPU step gates
+#: (phases 8b and 13a: atomic pooled sums, max-pool winners)
+DP_GATES = {
+    "treelearn": {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-4)},
+    "pointtransformerv3": {"float32": (PTV3_STEP_GRAD_RTOL,
+                                       PTV3_STEP_LOSS_RTOL)},
+    "pointnet2": {"float32": (PN2_STEP_GRAD_RTOL, PN2_STEP_LOSS_RTOL)},
+}
+DP_LR = 1e-2
+#: 17a's worlds on the one card, gloo ranks on cuda:0 (NCCL refuses two
+#: ranks on one device): two ranks at both dtypes; four at f32, which pad
+#: the 30-tree batch to 32 (30 divides by 2 and by 3, so three ranks would
+#: not pad)
+DP_WORLDS = ((2, ("bfloat16", "float32")), (4, ("float32",)))
+#: 17a's world of one: NCCL, the backend of ranks on cards of their own
+DP_ONE_RANK_BACKEND = "nccl"
+#: 17b: sharded PointNet2 inference against the single-device path on the
+#: PointNet2 plot (f32 sums on the devices against float64 on the host)
+SHARDED_OFFSET_RTOL = 1e-5
+SHARDED_ARGMAX_AGREEMENT = 0.999
+#: 17c: the QSM options without scikit-learn, on 13d's PointNet2 stage-2
+#: cloud (written by 13d): euclidean shells with agglomerative clustering
+#: and weighted merging, and euclidean DBSCAN shells with enclosed merging
+QSM_OPTION_CASES = {
+    "agglomerative_weighted": dict(clustering_type="euclidian",
+                                   clustering_algorithm="agglomerative",
+                                   merging_procedure="weighted"),
+    "dbscan_enclosed": dict(clustering_type="euclidian",
+                            clustering_algorithm="dbscan",
+                            merging_procedure="enclosed"),
+}
+
+
+def dp_batch(root, family):
+    """The family's training batch, numpy: TreeLearn's first 30-tree batch
+    of the fold that holds out plot 1, PTv3's first 4 trees, PointNet2's 60
+    rasters x 4,096 points (13a's)."""
+    from treemorph_tpu_torch.data import (
+        batch_iterator,
+        get_plot_split,
+        make_padded_batch,
+    )
+
+    if family == "pointnet2":
+        return make_padded_batch(pn2_training_samples(PN2_TRAIN_RASTERS),
+                                 PN2_TRAIN_POINTS)
+    trees = TRAIN_TREES if family == "treelearn" else PTV3_TRAIN_TREES
+    trainset, _ = get_plot_split(root, 1)
+    return next(batch_iterator(trainset, trees, TRAIN_POINTS,
+                               shuffle=False))
+
+
+def dp_capacity(root, world) -> int:
+    """The training CLI's level-0 voxel capacity for one rank's share of a
+    30-tree batch over ``world`` ranks."""
+    from treemorph_tpu_torch.data import get_plot_split
+    from treemorph_tpu_torch.train.cli import level0_capacity
+
+    return level0_capacity(get_plot_split(root, 1), -(-TRAIN_TREES // world),
+                           0.02)
+
+
+def dp_model(family, batch_size, capacity, dtype, device, group=None):
+    """The family's training model (seeded weights, on ``device``) and its
+    (forward_fn, loss_fn), the loss reducing over ``group``: the CLI's
+    TreeLearn on the band engine at ``dtype``, the CLI's PTv3 (f32,
+    ``drop_path`` 0.3), PointNet2 at depth 5."""
+    from treemorph_tpu_torch.train import families
+
+    if family == "treelearn":
+        return (training_model(capacity, batch_size, "band", dtype).to(device),
+                families.treelearn_family(group=group))
+    if family == "pointtransformerv3":
+        return ptv3_training_model(device), families.ptv3_family(group=group)
+    return pn2_train_state(device).model, families.pointnet2_family(
+        group=group)
+
+
+def recorded_step(step, state, batch, generator):
+    """``step(state, batch, DP_LR, generator)`` with the gradients the
+    optimizer receives (summed over the ranks, before the clip) copied to
+    the host; returns (metrics, gradients)."""
+    from treemorph_tpu_torch.train import harness
+
+    grads = {}
+    clip_and_step = harness.optimizer_step
+
+    def recording(optimizer, lr):
+        grads.update({n: p.grad.detach().cpu().clone()
+                      for n, p in state.model.named_parameters()})
+        clip_and_step(optimizer, lr)
+
+    harness.optimizer_step = recording
+    try:
+        _, metrics = step(state, batch, DP_LR, generator)
+    finally:
+        harness.optimizer_step = clip_and_step
+    return {k: float(v) for k, v in metrics.items()}, grads
+
+
+def timed_steps(step, state, batch, device, reps) -> list:
+    """Host seconds of ``reps`` more synchronized steps."""
+    import torch
+
+    seconds = []
+    for i in range(reps):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        step(state, batch, DP_LR, torch.Generator().manual_seed(2 + i))
+        torch.cuda.synchronize(device)
+        seconds.append(time.perf_counter() - t0)
+    return seconds
+
+
+def dp_rank_main(mesh, family, root, capacity, dtypes, out_dir, reps=0):
+    """One rank of 17a (and of ``chip_multichip.py``): per compute dtype,
+    the family's model (seeded weights, broadcast from rank 0) takes one
+    data-parallel ``make_train_step`` (step generator seed 1) on this
+    rank's rows of :func:`dp_batch`, padded to the world size; then
+    ``reps`` more steps, timed. Saves the loss, the gradients the
+    optimizer received, the state after the first step, the hand kernels'
+    launches in it and the seconds to ``out_dir/rank{r}.pt``."""
+    import torch
+
+    from treemorph_tpu_torch.ops.cuda import LAUNCHES
+    from treemorph_tpu_torch.parallel import (
+        pad_batch_to_multiple,
+        replicate,
+        shard_batch,
+    )
+    from treemorph_tpu_torch.train import harness
+
+    local = shard_batch(pad_batch_to_multiple(dp_batch(root, family),
+                                              mesh.size), mesh)
+    out = {}
+    for dtype in dtypes:
+        model, (forward_fn, loss_fn) = dp_model(
+            family, local.batch_size, capacity, dtype, mesh.device, mesh)
+        state = harness.TrainState(model, harness.make_optimizer(model))
+        replicate(state, mesh)
+        step = harness.make_train_step(forward_fn, loss_fn, mesh=mesh)
+        torch.cuda.synchronize(mesh.device)
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        metrics, grads = recorded_step(step, state, local,
+                                       torch.Generator().manual_seed(1))
+        torch.cuda.synchronize(mesh.device)
+        first = time.perf_counter() - t0
+        launches = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+                    if v != before.get(k, 0)}
+        after = {k: v.detach().cpu().clone()
+                 for k, v in model.state_dict().items()}
+        out[dtype] = {"metrics": metrics, "grads": grads, "state": after,
+                      "launches": launches, "first_step_seconds": first,
+                      "step_seconds": timed_steps(step, state, local,
+                                                  mesh.device, reps),
+                      "rows": int(local.coords.shape[0]),
+                      "peak_memory_gb":
+                          torch.cuda.max_memory_allocated(mesh.device) / 1e9}
+        del model, state
+    torch.save(out, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+
+
+def dp_emulated_step(family, batch, world, capacity, dtype, device):
+    """The data-parallel step in one process, without collectives: the
+    batch padded to ``world`` shards; each shard's forward in train mode
+    with its rank's generator (BN running statistics from the same start,
+    then averaged over the shards), each loss term's numerator over the
+    global denominator, summed and differentiated by autograd, then the
+    optimizer. Returns the loss, the gradients before the clip and the
+    state after the step."""
+    import torch
+
+    from treemorph_tpu_torch.parallel import Mesh, pad_batch_to_multiple
+    from treemorph_tpu_torch.parallel.mesh import rank_generator
+    from treemorph_tpu_torch.train import harness
+
+    padded = pad_batch_to_multiple(batch, world)
+    n = padded.batch_size // world
+    model, (forward_fn, loss_fn) = dp_model(family, n, capacity, dtype,
+                                            device)
+    model.train()
+    start = {k: b.clone() for k, b in model.named_buffers()}
+    shards = [padded.map(lambda a, r=r: torch.as_tensor(
+        a[r * n:(r + 1) * n]).to(device)) for r in range(world)]
+    sem = [float(s.mask_valid.sum()) for s in shards]
+    off = [float((s.mask_valid & s.mask_off).sum()) for s in shards]
+    total, stats = 0.0, []
+    for r, (shard, d_sem, d_off) in enumerate(zip(shards, sem, off)):
+        with torch.no_grad():
+            for k, b in model.named_buffers():
+                b.copy_(start[k])
+        generator = rank_generator(torch.Generator().manual_seed(1),
+                                   Mesh(r, world, device))
+        _, terms = loss_fn(forward_fn(model, shard, True, generator), shard)
+        total = (total + terms["semantic_loss"] * (d_sem / max(sum(sem), 1))
+                 + terms["offset_loss"] * (d_off / max(sum(off), 1)))
+        stats.append({k: b.clone() for k, b in model.named_buffers()})
+    with torch.no_grad():
+        for k, b in model.named_buffers():
+            if b.is_floating_point():
+                b.copy_(torch.stack([s[k] for s in stats]).mean(0))
+    (total * harness.LOSS_BACKWARD_SCALE).backward()
+    grads = {k: p.grad.detach().cpu().clone()
+             for k, p in model.named_parameters()}
+    harness.optimizer_step(harness.make_optimizer(model), DP_LR)
+    return (float(total.detach()), grads,
+            {k: v.detach().cpu().clone() for k, v in model.state_dict().items()})
+
+
+def dp_plain_step(family, batch, capacity, dtype, device, reps=0):
+    """The one-device ``make_train_step`` on the whole batch (step
+    generator seed 1): loss, gradients before the clip, state after the
+    step; then ``reps`` more steps, timed (returned fourth)."""
+    import torch
+
+    from treemorph_tpu_torch.train import harness
+
+    model, (forward_fn, loss_fn) = dp_model(family, batch.batch_size,
+                                            capacity, dtype, device)
+    state = harness.TrainState(model, harness.make_optimizer(model))
+    step = harness.make_train_step(forward_fn, loss_fn)
+    on_device = batch.map(lambda a: torch.as_tensor(a).to(device))
+    metrics, grads = recorded_step(step, state, on_device,
+                                   torch.Generator().manual_seed(1))
+    after = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    return (metrics["loss"], grads, after,
+            timed_steps(step, state, on_device, device, reps))
+
+
+def dp_compare(label, family, rank, ref, dtype) -> dict:
+    """Raise unless a rank's step agrees with ``ref`` (loss, gradients,
+    state after the step; :func:`dp_emulated_step`'s or
+    :func:`dp_plain_step`'s) within DP_GATES. The gradients are held to
+    the gate; the parameters after the step are held to it beyond what
+    the gradients' own difference moves them by: Adam's first update of an
+    entry is ``lr * g / (|g| + eps)`` of its clipped gradient ``g``, so an
+    entry whose gradient is near 0 (rounding noise, as where a BatchNorm
+    removes a bias's shift) may move by up to twice the learning rate.
+    Returns the errors read."""
+    import torch
+
+    from treemorph_tpu_torch.train import harness
+
+    loss, grads, state = ref[:3]
+    rtol, loss_rtol = DP_GATES[family][dtype]
+    compare_steps(label, (rank["metrics"]["loss"], rank["grads"]),
+                  (loss, grads), loss_rtol, rtol)
+
+    def adam_first_updates(gradients):
+        norm = float(torch.sqrt(sum((g.double() ** 2).sum()
+                                    for g in gradients.values())))
+        clip = min(1.0, harness.GRAD_CLIP_NORM / norm)
+        return {k: DP_LR * (g.double() * clip) / (
+            (g.double() * clip).abs() + harness.ADAM_EPS)
+            for k, g in gradients.items()}
+
+    explained = {k: (a - b).abs() for (k, a), b in zip(
+        adam_first_updates(rank["grads"]).items(),
+        adam_first_updates(grads).values())}
+    top = max(float(state[k].abs().max()) for k in grads)
+    worst = {"parameters": 0.0, "buffers": 0.0, "explained_entries": 0}
+    for key, want in state.items():
+        got = rank["state"][key]
+        if not want.is_floating_point():
+            assert torch.equal(got, want), key
+            continue
+        err = (got - want).abs().double()
+        if key in grads:
+            worst["explained_entries"] += int(
+                ((err > rtol * top) & (err <= explained[key] * 1.01)).sum())
+            err = torch.clamp(err - explained[key] * 1.01, min=0.0)
+            worst["parameters"] = max(worst["parameters"],
+                                      float(err.max()) / top)
+        else:
+            worst["buffers"] = max(worst["buffers"], float(err.max()) / max(
+                float(want.abs().max()), 1e-30))
+    log(f"{label}: state after the step: parameters within "
+        f"{worst['parameters']:.2e} of the largest beyond what the "
+        f"gradients' difference moves through Adam "
+        f"({worst['explained_entries']} entries moved by it), BN "
+        f"statistics within {worst['buffers']:.2e} of their scale "
+        f"(limit {rtol})")
+    if max(worst["parameters"], worst["buffers"]) > rtol:
+        raise AssertionError(f"{label}: states disagree")
+    return worst
+
+
+def qsm_options_main(path):
+    """17c's process: ``fit_qsm`` on the cloud at ``path`` with each of
+    QSM_OPTION_CASES; prints one ``QSM_OPTIONS {json}`` line (cylinders and
+    seconds per case)."""
+    import numpy as np
+
+    from treemorph_tpu_torch.pipeline.qsm import QSMParams, fit_qsm
+
+    cloud = np.load(path)
+    out = {"points": len(cloud)}
+    for name, options in QSM_OPTION_CASES.items():
+        t0 = time.perf_counter()
+        table, _, _, _ = fit_qsm(cloud, params=QSMParams(seed=0, **options),
+                                 save_csv=False)
+        out[name] = {"cylinders": 0 if table is None else len(table),
+                     "seconds": time.perf_counter() - t0}
+    print("QSM_OPTIONS " + json.dumps(out), flush=True)
+
+
+def start_qsm_options(path):
+    """Start 17c's process (host work) beside the card phases."""
+    code = (f"import chip_smoke; chip_smoke.qsm_options_main({path!r})")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def kept_mask(points, kept):
+    """Which rows of ``points`` the order-preserving subset ``kept`` holds
+    (a denoised cloud): by row value where no row repeats, else by walking
+    both in order."""
+    import numpy as np
+
+    pts = np.ascontiguousarray(points[:, :3], np.float32)
+    kept = np.ascontiguousarray(kept, np.float32)
+    rows = pts.view(np.dtype((np.void, 12))).ravel()
+    if len(np.unique(rows)) == len(rows):
+        return np.isin(rows, kept.view(np.dtype((np.void, 12))).ravel())
+    mask = np.zeros(len(pts), bool)
+    j = 0
+    for i in range(len(pts)):
+        if j < len(kept) and (pts[i] == kept[j]).all():
+            mask[i] = True
+            j += 1
+    return mask
+
+
+def phase_sharded_predict(points, device, mesh=None) -> dict:
+    """17b: ``predict_rasterized_sharded`` on the PointNet2 plot (1 m
+    rasters, the pipeline's seeded PointNet2, the offset and the noise
+    model) over ``mesh`` (default: two slots on ``device``) against
+    ``predict_rasterized`` on ``device``: offsets within
+    SHARDED_OFFSET_RTOL of their scale, the kept points' agreement at least
+    SHARDED_ARGMAX_AGREEMENT, each accumulator reduced once."""
+    import numpy as np
+    import torch
+
+    from treemorph_tpu_torch.parallel import make_local_mesh
+    from treemorph_tpu_torch.pipeline import predict
+
+    mesh = mesh or make_local_mesh(devices=[device, device])
+    offset, noise = pointnet2_models(device)
+    cloud = np.asarray(points, np.float32)
+    record = {"devices": [str(d) for d in mesh.devices]}
+    for what, kw in (("offsets", dict(offset_model=offset, denoise=False)),
+                     ("denoise", dict(noise_model=noise,
+                                      predict_offset=False))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single = predict.predict_rasterized(cloud, device=device, **kw)
+        t1 = time.perf_counter()
+        before = predict.REDUCTIONS["reduce_scatter"]
+        sharded = predict.predict_rasterized_sharded(cloud, mesh=mesh,
+                                                     device=device, **kw)
+        t2 = time.perf_counter()
+        reductions = predict.REDUCTIONS["reduce_scatter"] - before
+        record[what] = {"single_seconds": t1 - t0,
+                        "sharded_seconds": t2 - t1,
+                        "reductions": reductions}
+        if what == "offsets":
+            moved = single - cloud[:, :3]
+            err = float(np.abs(sharded - single).max()
+                        / np.abs(moved).max())
+            record[what]["max_err_of_scale"] = err
+            ok = err <= SHARDED_OFFSET_RTOL
+        else:
+            agree = float((kept_mask(cloud, single)
+                           == kept_mask(cloud, sharded)).mean())
+            record[what].update(agreement=agree, kept_single=len(single),
+                                kept_sharded=len(sharded))
+            ok = agree >= SHARDED_ARGMAX_AGREEMENT
+        # one reduction per accumulator: the sums and the counts
+        ok = ok and reductions == 2
+        log(f"17b {what}: {json.dumps(record[what])}")
+        if not ok:
+            raise AssertionError(f"17b sharded inference ({what}) failed")
+    log("phase 17b ok")
+    return record
+
+
+def phase_data_parallel(root, points, device, qsm_cloud) -> dict:
+    """17: 17c's process starts (host work), then 17a's rank processes
+    (gloo on the one card, DP_WORLDS; and a world of one over
+    DP_ONE_RANK_BACKEND), all together; while they run, this process
+    computes their references and runs 17b. 17a: each rank's step against
+    :func:`dp_emulated_step` (the world of one against
+    :func:`dp_plain_step`), the band kernels' launches counted in every
+    rank."""
+    import gc
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from treemorph_tpu_torch.parallel import spawn_ranks
+
+    # the rank processes share the card with this one: hand back what the
+    # earlier phases left in this process's cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    qsm = start_qsm_options(qsm_cloud)
+    batch = dp_batch(root, "treelearn")
+    runs = [(world, dtypes, "gloo") for world, dtypes in DP_WORLDS]
+    runs.append((1, ("float32",), DP_ONE_RANK_BACKEND))
+    caps = {world: dp_capacity(root, world) for world, _, _ in runs}
+    tmp = tempfile.mkdtemp(dir=root)
+    dirs = {}
+    with ThreadPoolExecutor(len(runs)) as pool:
+        futures = []
+        for world, dtypes, backend in runs:
+            out = dirs[world] = os.path.join(tmp, f"world{world}")
+            os.makedirs(out)
+            futures.append(pool.submit(
+                spawn_ranks, dp_rank_main, world, "treelearn", root,
+                caps[world], dtypes, out, backend=backend,
+                devices=[device] * world, store_dir=out))
+        refs = {}
+        for world, dtypes in DP_WORLDS:
+            for dtype in dtypes:
+                refs[(world, dtype)] = dp_emulated_step(
+                    "treelearn", batch, world, caps[world], dtype, device)
+                torch.cuda.empty_cache()
+        refs[(1, "float32")] = dp_plain_step("treelearn", batch, caps[1],
+                                             "float32", device)
+        torch.cuda.empty_cache()
+        sharded = phase_sharded_predict(points, device)
+        for f in futures:
+            f.result()
+    log(f"17a rank processes and references: {time.perf_counter() - t0:.1f}"
+        " s")
+    record = {"sharded_predict": sharded, "steps": {}}
+    for world, dtypes, backend in runs:
+        ranks = [torch.load(os.path.join(dirs[world], f"rank{r}.pt"))
+                 for r in range(world)]
+        for dtype in dtypes:
+            label = f"17a {world} {backend} rank(s), {dtype}"
+            errors = []
+            for r, res in enumerate(ranks):
+                errors.append(dp_compare(f"{label}, rank {r}", "treelearn",
+                                         res[dtype], refs[(world, dtype)],
+                                         dtype))
+                launches = res[dtype]["launches"]
+                log(f"{label}, rank {r}: {res[dtype]['rows']} rows, "
+                    f"launches {json.dumps(launches)}, first step "
+                    f"{res[dtype]['first_step_seconds']:.2f} s")
+                if not (launches.get("band_conv", 0)
+                        and launches.get("band_conv_bwd", 0)):
+                    raise AssertionError(f"{label}, rank {r}: the band "
+                                         "kernels did not launch")
+            record["steps"][f"{world}_{backend}_{dtype}"] = {
+                "launches_per_rank": [res[dtype]["launches"]
+                                      for res in ranks],
+                "errors": errors}
+    log("phase 17a ok")
+    stdout, stderr = qsm.communicate(timeout=600)
+    if qsm.returncode != 0:
+        log(stderr[-3000:])
+        raise AssertionError(f"17c exited {qsm.returncode}")
+    line = [x for x in stdout.splitlines() if x.startswith("QSM_OPTIONS ")]
+    options = json.loads(line[-1].split(" ", 1)[1])
+    log(f"17c {json.dumps(options)}")
+    record["qsm_options"] = options
+    if not all(options[name]["cylinders"] > 0 for name in QSM_OPTION_CASES):
+        raise AssertionError("17c fitted no cylinder with an option")
+    log("phase 17c ok")
+    shutil.rmtree(tmp)
+    return record
+
+
 def pipeline_config(input_dir: str, output_dir: str,
                     model_type: str = "treelearn") -> dict:
     """``configs/pipeline_config.yaml`` as a dict (no YAML parser needed),
@@ -6175,6 +6684,11 @@ def main() -> int:
         phase_sanity_check(device)
         phase15_s += time.perf_counter() - t1
         log(f"phase 15: {phase15_s:.1f} s")
+        t1 = time.perf_counter()
+        dp_record = phase_data_parallel(
+            root, points, device, os.path.join(
+                root, "pipeline_out", "pointnet2", "tree_supsamp.npy"))
+        log(f"phase 17: {time.perf_counter() - t1:.1f} s")
     levels = e2e_levels(points, device)
     profile = profile_rulebooks(device)
     zband_record, _ = phase_zband_vs_plain(profile, levels, device)
@@ -6218,6 +6732,14 @@ def main() -> int:
                                       "launches_counted_on": path16}
     attn_bwd_record["pad_per_element"] = {**pad_bwd,
                                           "launches_counted_on": path16}
+    dp_path = ("data-parallel TreeLearn train step (17a), per rank, "
+               "gloo ranks on one card")
+    for record, key in ((fwd_record, "band_conv"),
+                        (bwd_record, "band_conv_bwd")):
+        record["data_parallel_step"] = {
+            world: [r.get(key, 0) for r in step["launches_per_rank"]]
+            for world, step in dp_record["steps"].items()}
+        record["data_parallel_step"]["launches_counted_on"] = dp_path
     for record, keys in ((fwd_record, ("band_conv_k125", "band_conv_k27")),
                          (bwd_record, ("band_conv_bwd",)),
                          (attn_record, ("window_attention",)),

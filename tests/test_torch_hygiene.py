@@ -32,9 +32,10 @@ PACKAGE = os.path.dirname(treemorph_tpu_torch.__file__)
 REPO = os.path.dirname(PACKAGE)
 #: the JAX side, and the libraries the card's machine lacks (its config
 #: files are read without a YAML library, its tables without pandas, the
-#: JAX package's orbax checkpoints without tensorstore or zstandard)
+#: JAX package's orbax checkpoints without tensorstore or zstandard, the
+#: QSM's clustering options without scikit-learn)
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "treemorph_tpu",
-             "yaml", "pandas", "tensorstore", "zstandard")
+             "yaml", "pandas", "tensorstore", "zstandard", "sklearn")
 
 
 def imported_modules(path):
@@ -55,6 +56,8 @@ def port_sources():
     yield os.path.join(REPO, "time_kernels.py")
     yield os.path.join(REPO, "compare_sass.py")
     yield os.path.join(REPO, "serving_syncs.py")
+    yield os.path.join(REPO, "pn2_cylinder_repeats.py")
+    yield os.path.join(REPO, "chip_multichip.py")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

@@ -114,6 +114,21 @@ def test_index_points_matches_jax(batch):
     np.testing.assert_array_equal(got, want)
 
 
+def test_index_points_gradient_matches_jax(batch):
+    """The deterministic backward of ``index_points`` (repeated indices
+    summed in index order) against ``jax.grad`` of JAX's gather."""
+    _, feats, _ = batch
+    idx = np.random.default_rng(2).integers(0, 40, (3, 60, 8))
+    cot = np.random.default_rng(3).normal(
+        size=(*idx.shape, feats.shape[-1])).astype(np.float32)
+    x = t(feats).requires_grad_()
+    (tsamp.index_points(x, t(idx)) * t(cot)).sum().backward()
+    want = jax.grad(lambda f: jnp.sum(
+        jsamp.index_points(f, jnp.asarray(idx)) * cot))(jnp.asarray(feats))
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6 * np.abs(want).max())
+
+
 @pytest.mark.parametrize("npoint", [100, 1700])
 def test_farthest_point_sample_matches_jax(batch, npoint):
     """Exact FPS, first valid point first; 1700 exceeds the valid points

@@ -501,13 +501,15 @@ def test_training_entry_points_default_to_cuda_and_raise_without_it(
 
 
 def test_training_paths_not_ported_raise(tmp_path):
-    """What still raises, naming its ROADMAP item: data-parallel training
-    (``mesh``); PTv3's z-pack and brick stems in the CLI no longer do (the
-    CLI builds PTv3 on the z-pack stem, and on the gather path for brick,
-    as the JAX package's PTv3 takes any other engine name); and a broken
-    JAX orbax checkpoint directory (an empty ``manifest.ocdbt``, no
-    ``model.pt``) in the pipeline's ``model_dirs`` raises the orbax
-    reader's ``ValueError`` naming the manifest."""
+    """What used to raise and no longer does: data-parallel training (the
+    three step builders take a mesh; ``test_torch_parallel.py`` runs them
+    over two ranks) and PTv3's z-pack and brick stems in the CLI (the CLI
+    builds PTv3 on the z-pack stem, and on the gather path for brick, as
+    the JAX package's PTv3 takes any other engine name); and what still
+    raises: a broken JAX orbax checkpoint directory (an empty
+    ``manifest.ocdbt``, no ``model.pt``) in the pipeline's ``model_dirs``
+    raises the orbax reader's ``ValueError`` naming the manifest."""
+    from treemorph_tpu_torch.parallel import Mesh
     from treemorph_tpu_torch.pipeline.run import load_pipeline_models
 
     for engine in ("zpack", "brick"):
@@ -516,11 +518,12 @@ def test_training_paths_not_ported_raise(tmp_path):
                                "--device", "cpu"])
         model, _, _ = cli.build(args, 2, 0.02, None)
         assert model.config["stem_engine"] == engine
-    fwd, loss = families.treelearn_family()
-    for make in (harness.make_train_step, harness.make_accum_steps,
-                 harness.make_eval_step):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make(fwd, loss, mesh=object())
+    mesh = Mesh(0, 1, torch.device("cpu"))
+    fwd, loss = families.treelearn_family(group=mesh)
+    assert callable(harness.make_train_step(fwd, loss, mesh=mesh))
+    assert callable(harness.make_eval_step(fwd, loss, mesh=mesh))
+    accum_step, apply_step = harness.make_accum_steps(fwd, loss, mesh=mesh)
+    assert callable(accum_step) and callable(apply_step)
     orbax = tmp_path / "offset" / "P3"
     (orbax / "ocdbt.process_0" / "d").mkdir(parents=True)
     (orbax / "manifest.ocdbt").write_bytes(b"")

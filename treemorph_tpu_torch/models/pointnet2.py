@@ -355,6 +355,7 @@ def pointnet2_loss(
     loss_multiplier_offset: float = 1.0,
     n_points: int | None = None,
     generator: torch.Generator | None = None,
+    group=None,
 ):
     """Masked loss over a padded batch (reference PointNet2.py:180-207):
     ``(total, {"semantic_loss", "offset_loss"})``."""
@@ -367,6 +368,7 @@ def pointnet2_loss(
         offset_mask=batch.mask_valid & batch.mask_off,
         n_points=n_points,
         generator=generator,
+        group=group,
     )
     loss_dict = {
         "semantic_loss": sem_loss * loss_multiplier_semantic,

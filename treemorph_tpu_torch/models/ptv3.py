@@ -1066,6 +1066,7 @@ def ptv3_loss(
     flat_batch: dict,
     loss_multiplier_semantic: float = 1.0,
     loss_multiplier_offset: float = 1.0,
+    group=None,
 ):
     """Masked loss (reference PointTransformerV3.py:102-110):
     ``(loss, {"semantic_loss", "offset_loss"})``."""
@@ -1076,6 +1077,7 @@ def ptv3_loss(
         flat_batch["offset_labels"],
         semantic_mask=flat_batch["mask_valid"],
         offset_mask=flat_batch["mask_valid"] & flat_batch["mask_off"],
+        group=group,
     )
     loss_dict = {
         "semantic_loss": sem_loss * loss_multiplier_semantic,

@@ -633,6 +633,7 @@ def treelearn_loss(
     loss_multiplier_offset: float = 1.0,
     n_points: int | None = None,
     generator: torch.Generator | None = None,
+    group=None,
 ):
     """Masked loss over the flat layout (reference TreeLearn.py:147-155):
     ``(loss, {"semantic_loss", "offset_loss"})``."""
@@ -645,6 +646,7 @@ def treelearn_loss(
         offset_mask=flat_batch["mask_valid"] & flat_batch["mask_off"],
         n_points=n_points,
         generator=generator,
+        group=group,
     )
     loss_dict = {
         "semantic_loss": sem_loss * loss_multiplier_semantic,

@@ -76,10 +76,40 @@ def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class _Gather(torch.autograd.Function):
+    """``points.gather(1, flat)`` whose backward sums the gradients of
+    repeated indices in a fixed order. On the card ``gather``'s own
+    backward (``scatter_add_``) adds them with atomics, in whatever order
+    the threads land, so a seeded PointNet2 training did not repeat bit
+    for bit; here the sum runs under ``torch.use_deterministic_algorithms``
+    (a sort by index, then each index's gradients in their order)."""
+
+    @staticmethod
+    def forward(ctx, points, flat):
+        ctx.save_for_backward(flat)
+        ctx.rows = points.shape[1]
+        return points.gather(1, flat)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (flat,) = ctx.saved_tensors
+        out = grad.new_zeros((grad.shape[0], ctx.rows, grad.shape[2]))
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            out.scatter_add_(1, flat, grad)
+        finally:
+            torch.use_deterministic_algorithms(was)
+        return out, None
+
+
 def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Gather (B, N, C) by (B, ...) indices -> (B, ..., C)."""
+    """Gather (B, N, C) by (B, ...) indices -> (B, ..., C); the gradient
+    of repeated indices is summed deterministically (:class:`_Gather`)."""
     b, c = points.shape[0], points.shape[-1]
     flat = idx.reshape(b, -1, 1).long().expand(-1, -1, c)
+    if points.requires_grad:
+        return _Gather.apply(points, flat).reshape(*idx.shape, c)
     return points.gather(1, flat).reshape(*idx.shape, c)
 
 

@@ -11,14 +11,23 @@ Port of ``treemorph_tpu/pipeline/predict.py`` (reference
   minibatches of rasters through the padded-batch model on the device,
   and averages each point's predictions over every raster that holds it in
   float64 on the host (the reference's streaming scatter-mean,
-  ``PointNet2.py:210-327``). It is the single-device form of the JAX
-  package's ``predict_rasterized_sharded``; the sharded form over several
-  cards is not ported.
+  ``PointNet2.py:210-327``).
+- :func:`predict_rasterized_sharded` (JAX ``predict.py:264-418``) splits the
+  rasters over the devices of a
+  :class:`~treemorph_tpu_torch.parallel.LocalMesh`: one process drives every
+  device, as JAX's single controller does, so the pipeline needs no
+  launcher. Each device runs its own minibatches through its own replica of
+  the model and scatter-adds into its own f32 accumulator and count over
+  the whole cloud; each accumulator is then reduced once, a reduce-scatter
+  (slice k of the points summed onto device k), before anything leaves the
+  devices.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
+from functools import partial
 
 import numpy as np
 import torch
@@ -27,6 +36,10 @@ from ..evaluation.model_loaders import Predictor
 from ..utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
+
+#: cross-device reductions of :func:`predict_rasterized_sharded`, one per
+#: accumulator (the chip script and the tests read it)
+REDUCTIONS = {"reduce_scatter": 0}
 
 
 def pad_to_bucket(n: int, bucket: int = 1024) -> int:
@@ -260,6 +273,136 @@ def predict_rasterized(
     return out
 
 
+def _replica(model: Predictor, device) -> Predictor:
+    """``model`` on ``device``: itself there, else a copy moved there."""
+    if torch.device(device) == model.device:
+        return model
+    return Predictor(model.family, copy.deepcopy(model.model), device)
+
+
+def _reduce_scatter(parts: list, devices) -> list:
+    """Sum the per-device tensors ``parts`` (the same shape, leading dim a
+    multiple of the device count) in one reduce-scatter: slice k of the
+    leading dim is summed onto device k. Returns the slices in order."""
+    REDUCTIONS["reduce_scatter"] += 1
+    n = len(devices)
+    step = parts[0].shape[0] // n
+    out = []
+    for k, dev in enumerate(devices):
+        rows = slice(k * step, (k + 1) * step)
+        total = parts[k][rows].clone()
+        for d, part in enumerate(parts):
+            if d != k:
+                total += part[rows].to(dev)
+        out.append(total)
+    return out
+
+
+def predict_rasterized_sharded(
+    cloud: np.ndarray,
+    offset_model: Predictor | None = None,
+    noise_model: Predictor | None = None,
+    predict_offset: bool = True,
+    denoise: bool = True,
+    raster_size: float = 1.0,
+    stride: float = 1.0,
+    minibatch_size: int = 60,
+    bucket: int = 512,
+    mesh=None,
+    device=None,
+) -> np.ndarray:
+    """Plot-scale PointNet2 inference sharded over the devices of ``mesh``
+    (a :class:`~treemorph_tpu_torch.parallel.LocalMesh`); without a mesh it
+    is :func:`predict_rasterized` on ``device``.
+
+    The rasters are split over the devices as JAX splits them: each device
+    gets ``r_per_dev`` of them, the raster count over the devices rounded
+    up to whole ``(minibatch_size, max_pts)`` minibatches, the tail padded
+    with empty rasters (minibatches that hold no raster are not run). Each
+    device scatter-adds its forwards' outputs into an f32 ``(n_pad, dim)``
+    accumulator and count on that device (``n_pad``: the point count
+    rounded up to the device count), and each accumulator is reduced once
+    (a reduce-scatter). Per point the result is :func:`predict_rasterized`'s
+    (the same rasters, forwards and scatter-mean), summed in f32 on the
+    devices instead of float64 on the host."""
+    if mesh is None:
+        return predict_rasterized(
+            cloud, offset_model, noise_model, predict_offset, denoise,
+            raster_size=raster_size, stride=stride,
+            minibatch_size=minibatch_size, bucket=bucket, device=device,
+        )
+    pts = np.asarray(cloud, np.float32)[:, :3]
+    if not predict_offset and not denoise:
+        return pts
+    feats = (
+        np.asarray(cloud, np.float32)[:, 7:11]
+        if cloud.shape[1] >= 11
+        else np.zeros((len(pts), 4), np.float32)
+    )
+    rasters = raster_assignments(pts, raster_size, stride)
+    if not rasters:
+        return pts
+    devices = mesh.devices
+    n_dev = len(devices)
+    max_pts = pad_to_bucket(max(len(i) for _, i in rasters), bucket)
+
+    # the raster -> point gather table, padded so that every device gets
+    # the same number of whole minibatches
+    r_per_dev = -(-len(rasters) // n_dev)
+    r_per_dev = -(-r_per_dev // minibatch_size) * minibatch_size
+    idx = np.zeros((r_per_dev * n_dev, max_pts), np.int64)
+    vmask = np.zeros((r_per_dev * n_dev, max_pts), bool)
+    for i, (_, pidx) in enumerate(rasters):
+        idx[i, :len(pidx)] = pidx
+        vmask[i, :len(pidx)] = True
+    n = len(pts)
+    n_pad = -(-n // n_dev) * n_dev
+    inputs = {}
+    for dev in dict.fromkeys(devices):
+        inputs[dev] = tuple(torch.from_numpy(a).to(dev) for a in (
+            pts, feats, idx, vmask))
+
+    def run_model(model: Predictor, want: str) -> np.ndarray:
+        dim = 3 if want == "offset_predictions" else 2
+        replicas = {dev: _replica(model, dev) for dev in inputs}
+        accs = [torch.zeros((n_pad, dim), dtype=torch.float32, device=dev)
+                for dev in devices]
+        cnts = [torch.zeros(n_pad, dtype=torch.float32, device=dev)
+                for dev in devices]
+        # minibatch by minibatch, each device in turn, so that the devices'
+        # queues fill together
+        for start in range(0, r_per_dev, minibatch_size):
+            for d, dev in enumerate(devices):
+                rows = slice(d * r_per_dev + start,
+                             d * r_per_dev + start + minibatch_size)
+                if not vmask[rows].any():
+                    continue
+                p, f, ix, vm = inputs[dev]
+                ci, cv = ix[rows], vm[rows]
+                keep = cv[..., None]
+                out = replicas[dev].predict_padded(
+                    torch.where(keep, p[ci], 0.0),
+                    torch.where(keep, f[ci], 0.0), cv)
+                vals = torch.where(cv[..., None], out[want].float(), 0.0)
+                flat = ci.reshape(-1)
+                accs[d].index_add_(0, flat, vals.reshape(-1, dim))
+                cnts[d].index_add_(0, flat, cv.reshape(-1).float())
+        acc = torch.cat([a.cpu() for a in _reduce_scatter(accs, devices)])
+        cnt = torch.cat([c.cpu() for c in _reduce_scatter(cnts, devices)])
+        acc, cnt = acc[:n].numpy(), cnt[:n].numpy()
+        nz = cnt > 0
+        acc[nz] /= cnt[nz, None]
+        return acc
+
+    out = pts.copy()
+    if predict_offset and offset_model is not None:
+        out = out + run_model(offset_model, "offset_predictions")
+    if denoise and noise_model is not None:
+        logits = run_model(noise_model, "semantic_prediction_logits")
+        out = out[logits.argmax(axis=1) == 0]
+    return out
+
+
 def make_predictions(
     cloud: np.ndarray,
     model_type: str,
@@ -271,16 +414,21 @@ def make_predictions(
     stride: float = 1.0,
     minibatch_size: int = 60,
     device=None,
+    mesh=None,
 ) -> np.ndarray:
     """Dispatch by family (reference Pipeline.py:110-131); the raster
-    arguments are PointNet2's."""
+    arguments are PointNet2's. With ``mesh`` (a
+    :class:`~treemorph_tpu_torch.parallel.LocalMesh`) the raster path
+    shards its tiles over the mesh's devices."""
     if model_type in ("treelearn", "pointtransformerv3"):
         return predict_single(
             cloud, offset_model, noise_model, predict_offset, denoise,
             device=device,
         )
     if model_type == "pointnet2":
-        return predict_rasterized(
+        raster = predict_rasterized if mesh is None else partial(
+            predict_rasterized_sharded, mesh=mesh)
+        return raster(
             cloud, offset_model, noise_model, predict_offset, denoise,
             raster_size=raster_size, stride=stride,
             minibatch_size=minibatch_size, device=device,

@@ -41,6 +41,7 @@ from scipy.spatial import cKDTree
 
 from .geometry import (
     compute_spread_of_points,
+    dbscan_labels,
     find_seed_sphere,
     get_candidate_centers_and_spreads,
     initialize_first_sphere,
@@ -233,11 +234,9 @@ def cluster_points_priority(
         centers = np.array([c for c, _ in candidates])
         spreads = np.array([s for _, s in candidates])
         if len(candidates) > 1 and params.merging_procedure != "none":
-            raise NotImplementedError(
-                "candidate merging (merging_procedure="
-                f"{params.merging_procedure!r}) needs DBSCAN over the "
-                "candidate centers, which is not ported"
-            )
+            # DBSCAN(min_samples=1) over the centers: connected components
+            labels = dbscan_labels(
+                centers, sphere.radius * params.merging_eps_factor, 1)
         else:
             labels = np.arange(len(candidates))
 

@@ -12,7 +12,10 @@ models are the caller's, or else the port's checkpoints under the config's
 becomes that mapping; :func:`load_pipeline_models`).
 ``python -m treemorph_tpu_torch.scripts.exec_pipeline`` runs it from a
 config file. Every stage runs on one device, the CUDA device unless the
-caller names another.
+caller names another; where several CUDA cards are visible, PointNet2's
+raster inference shards its tiles over all of them
+(:func:`~treemorph_tpu_torch.pipeline.predict.predict_rasterized_sharded`),
+and stages 2 and 3 run once, on that device and the host.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from ..evaluation.model_loaders import load_model
 from ..utils.device import resolve_device
@@ -124,6 +128,14 @@ def run_pipeline(cfg: dict, offset_model=None, noise_model=None,
         offset_model, noise_model = load_pipeline_models(cfg, model_type,
                                                          device)
 
+    # plot-scale raster inference shards over every card where there are
+    # several (JAX run.py:103-110)
+    mesh = None
+    if device.type == "cuda" and torch.cuda.device_count() > 1:
+        from ..parallel import make_local_mesh
+
+        mesh = make_local_mesh()
+
     results = []
     for cloud_path in cloud_paths:
         base = os.path.splitext(os.path.basename(cloud_path))[0]
@@ -144,6 +156,7 @@ def run_pipeline(cfg: dict, offset_model=None, noise_model=None,
                     predict_offset=cfg["stage1"]["predict_offset"],
                     denoise=cfg["stage1"]["denoise"],
                     device=device,
+                    mesh=mesh,
                 )
                 if general.get("save_model_predictions"):
                     suffix = "_pred" if cfg["stage1"]["predict_offset"] else ""

@@ -34,14 +34,24 @@ its order shuffles and drop-path masks from a generator derived from
 ``--seed``; PointNet2 draws its FPS starts from it. It runs on the CUDA device unless ``--device`` names
 another, and raises without one. No YAML parser is needed.
 
-It trains on one device.
+Data parallelism (``scripts/train.py:48, :190``): where more than one CUDA
+card is visible the CLI trains on ``--n_devices`` of them (all by default),
+one rank a card: a single command starts the ranks itself
+(``torch.multiprocessing`` over a file store), and under ``torchrun``
+(``RANK`` and ``WORLD_SIZE`` set) it takes the ranks it is given. Each
+global batch is split over the ranks (:mod:`treemorph_tpu_torch.parallel`),
+TreeLearn's level-0 voxel capacity is worked out for a rank's share of a
+batch, and only rank 0 logs and writes checkpoints. ``--device cpu
+--n_devices N`` runs N ranks on the CPU over gloo.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
+import tempfile
 
 import numpy as np
 import torch
@@ -71,6 +81,9 @@ def parse_args(argv=None):
     p.add_argument("--loss_multiplier_semantic", type=float, default=1.0)
     p.add_argument("--loss_multiplier_offset", type=float, default=1.0)
     p.add_argument("--test_plots", type=int, nargs="+", default=[3, 4, 6, 8])
+    p.add_argument("--n_devices", type=int, default=None,
+                   help="data-parallel devices (default: every visible "
+                        "CUDA card; with --device cpu, 1)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--raster_dir", type=str, default=None,
                    help="train on rasterized crops (flattened mode, each "
@@ -149,16 +162,18 @@ def level0_capacity(datasets, batch_size: int, voxel_size: float,
     return -(-int(worst * margin) // 8192) * 8192
 
 
-def build(args, batch_size: int, voxel_size: float, capacity):
+def build(args, batch_size: int, voxel_size: float, capacity, group=None):
     """The family's model (initialized from ``--seed``, on the CPU), its
-    (forward_fn, loss_fn) and the checkpoint metadata ``load_model``
-    rebuilds the model from (``scripts/train.py::build``)."""
+    (forward_fn, loss_fn), whose loss reduces over ``group`` (a data-parallel
+    mesh, or ``None``), and the checkpoint metadata ``load_model`` rebuilds
+    the model from (``scripts/train.py::build``)."""
     from ..models.pointnet2 import PointNet2
     from ..models.ptv3 import PointTransformerWithHeads
     from ..models.treelearn import TreeLearn
     from . import families
 
-    losses = (args.loss_multiplier_semantic, args.loss_multiplier_offset)
+    losses = (args.loss_multiplier_semantic, args.loss_multiplier_offset,
+              group)
     metadata = {"model": args.model, "voxel_size": voxel_size,
                 "dim_feat": args.dim_feat}
     if args.model == "pointnet2":
@@ -285,11 +300,63 @@ def fold_batches(args, plot, trainset, valset):
     )
 
 
+def world_size(args) -> int:
+    """The number of data-parallel ranks: ``--n_devices`` (default: all)
+    of the visible CUDA cards where more than one is visible, else one;
+    ``--n_devices`` ranks on the CPU."""
+    from ..utils.device import resolve_device
+
+    if resolve_device(args.device).type != "cuda":
+        return args.n_devices or 1
+    count = torch.cuda.device_count()
+    if count <= 1:
+        return 1
+    n = args.n_devices or count
+    if n > count:
+        raise SystemExit(f"--n_devices {n}: only {count} CUDA cards visible")
+    return n
+
+
+def _rank_main(mesh, args, out_path):
+    """One rank of a training that :func:`main` started: train as that
+    rank; rank 0 writes the histories to ``out_path`` for the caller."""
+    histories = train_folds(args, mesh)
+    if mesh.is_main:
+        with open(out_path, "w") as f:
+            json.dump({str(k): v for k, v in histories.items()}, f)
+    return histories
+
+
 def main(argv=None) -> dict:
     """Train every CV fold; returns ``{plot: history}``."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    if (args.data_root is None and args.raster_dir is None
+            and args.hierarchical_json is None):
+        raise SystemExit("one of --data_root / --raster_dir / "
+                         "--hierarchical_json is required")
+    from ..parallel import make_mesh, spawn_ranks
+    from ..utils.device import resolve_device
 
+    # the ranks' devices: their cards (LOCAL_RANK or the rank), or the CPU
+    on_cpu = resolve_device(args.device).type != "cuda"
+    if int(os.environ.get("WORLD_SIZE", 1)) > 1:  # under torchrun
+        return train_folds(args, make_mesh(
+            args.n_devices, device="cpu" if on_cpu else None))
+    n = world_size(args)
+    if n == 1:
+        return train_folds(args, None)
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "histories.json")
+        spawn_ranks(_rank_main, n, args, out_path, store_dir=tmp,
+                    devices=["cpu"] * n if on_cpu else None)
+        with open(out_path) as f:
+            return {int(k): v for k, v in json.load(f).items()}
+
+
+def train_folds(args, mesh=None) -> dict:
+    """Train every CV fold on this process's device, or as this rank of
+    ``mesh``; returns ``{plot: history}``."""
     from ..data import RasterDataset, TreeDataset
     from ..utils.device import resolve_device
     from ..utils.early_stopping import EarlyStopper
@@ -304,11 +371,11 @@ def main(argv=None) -> dict:
     )
     from .schedule import cosine_annealing_warm_restarts
 
-    if (args.data_root is None and args.raster_dir is None
-            and args.hierarchical_json is None):
-        raise SystemExit("one of --data_root / --raster_dir / "
-                         "--hierarchical_json is required")
-    device = resolve_device(args.device)
+    main_rank = mesh is None or mesh.is_main
+    if not main_rank:
+        logging.getLogger().setLevel(logging.WARNING)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    ranks = 1 if mesh is None else mesh.size
 
     name = args.name or args.model
     histories = {}
@@ -321,10 +388,10 @@ def main(argv=None) -> dict:
             if args.model == "treelearn" and isinstance(
                     trainset, (TreeDataset, RasterDataset)):
                 # random_scale grows a cloud by up to 5 %, its voxels by up
-                # to 1.05^3
+                # to 1.05^3; a rank voxelizes its own share of a batch
                 capacity = level0_capacity(
-                    (trainset, valset), args.batch_size, voxel_size,
-                    1.02 * (1.05**3 if args.augment else 1.0),
+                    (trainset, valset), -(-args.batch_size // ranks),
+                    voxel_size, 1.02 * (1.05**3 if args.augment else 1.0),
                 )
                 logging.info("level-0 voxel capacity %d", capacity)
             if args.augment:
@@ -335,23 +402,25 @@ def main(argv=None) -> dict:
                 args, plot, trainset, valset)
 
             model, (forward_fn, loss_fn), metadata = build(
-                args, example.batch_size, voxel_size, capacity)
+                args, -(-example.batch_size // ranks), voxel_size, capacity,
+                group=mesh)
             model = model.to(device)
             fixed = tuple(args.fixed_modules or ())
             state = TrainState(
                 model, make_optimizer(model, args.weight_decay, fixed)
             )
-            train_step = make_train_step(forward_fn, loss_fn, fixed)
-            eval_step = make_eval_step(forward_fn, loss_fn)
-            accum_steps = (make_accum_steps(forward_fn, loss_fn, fixed)
+            train_step = make_train_step(forward_fn, loss_fn, fixed, mesh)
+            eval_step = make_eval_step(forward_fn, loss_fn, mesh)
+            accum_steps = (make_accum_steps(forward_fn, loss_fn, fixed, mesh)
                            if grouped else None)
 
             ckpt_path = os.path.join(args.save_dir, f"{name}_CV", f"P{plot}")
             metadata.update(plot=plot, noise_distance=args.noise_distance)
             stopper = EarlyStopper(
                 patience=args.patience,
-                verbose=args.verbose,
-                save_fn=lambda s: save_checkpoint(ckpt_path, s, metadata),
+                verbose=args.verbose and main_rank,
+                save_fn=((lambda s: save_checkpoint(ckpt_path, s, metadata))
+                         if main_rank else None),
             )
             state, history = run_training(
                 state,
@@ -364,6 +433,7 @@ def main(argv=None) -> dict:
                     args.lr, t_0=args.t0, eta_min=args.eta_min
                 ),
                 early_stopper=stopper,
+                mesh=mesh,
                 verbose=args.verbose,
                 accum_steps=accum_steps,
                 seed=args.seed,

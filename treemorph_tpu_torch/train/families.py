@@ -8,6 +8,10 @@ layout, so their adapters reshape (views, no copies); PointNet2 takes the
 padded batch as it is. TreeLearn draws nothing at random; PTv3 draws its
 order shuffles and stochastic-depth masks from the step's generator,
 PointNet2 the first centroid of each level's farthest-point sampling.
+
+Each family takes ``group``, the data-parallel
+:class:`~treemorph_tpu_torch.parallel.Mesh` its loss reduces over (the JAX
+families' ``axis_name``); ``None`` on one device.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from ..models.treelearn import TreeLearn, treelearn_loss
 def pointnet2_family(
     loss_multiplier_semantic: float = 1.0,
     loss_multiplier_offset: float = 1.0,
+    group=None,
 ) -> tuple[Callable, Callable]:
     """(forward_fn, loss_fn) for the harness, PointNet2 flavor. In train
     mode BatchNorm normalizes with batch statistics and updates its running
@@ -43,6 +48,7 @@ def pointnet2_family(
             batch,
             loss_multiplier_semantic=loss_multiplier_semantic,
             loss_multiplier_offset=loss_multiplier_offset,
+            group=group,
         )
 
     return forward_fn, loss_fn
@@ -95,6 +101,7 @@ def _flatten_noise(batch) -> dict:
 def treelearn_family(
     loss_multiplier_semantic: float = 1.0,
     loss_multiplier_offset: float = 1.0,
+    group=None,
 ) -> tuple[Callable, Callable]:
     """(forward_fn, loss_fn) for the harness, TreeLearn flavor."""
 
@@ -111,6 +118,7 @@ def treelearn_family(
             _flatten_padded(batch),
             loss_multiplier_semantic=loss_multiplier_semantic,
             loss_multiplier_offset=loss_multiplier_offset,
+            group=group,
         )
 
     return forward_fn, loss_fn
@@ -119,6 +127,7 @@ def treelearn_family(
 def treelearn_noise_family(
     loss_multiplier_semantic: float = 1.0,
     loss_multiplier_offset: float = 1.0,
+    group=None,
 ) -> tuple[Callable, Callable]:
     """TreeLearn with the separate noise-cloud semantic pass (reference
     ``TreeLearn.py:98-105``, ``137-141``): the backbone runs a second,
@@ -148,6 +157,7 @@ def treelearn_noise_family(
             flat["offset_labels"],
             semantic_mask=nflat["mask_valid"],
             offset_mask=flat["mask_valid"] & flat["mask_off"],
+            group=group,
         )
         loss_dict = {
             "semantic_loss": sem_loss * loss_multiplier_semantic,
@@ -177,6 +187,7 @@ def split_step_generator(generator: torch.Generator, device):
 def ptv3_family(
     loss_multiplier_semantic: float = 1.0,
     loss_multiplier_offset: float = 1.0,
+    group=None,
 ) -> tuple[Callable, Callable]:
     """(forward_fn, loss_fn) for the harness, PTv3 flavor. In train mode
     the step's generator feeds order shuffling and stochastic depth (the
@@ -203,6 +214,7 @@ def ptv3_family(
             _flatten_padded(batch),
             loss_multiplier_semantic=loss_multiplier_semantic,
             loss_multiplier_offset=loss_multiplier_offset,
+            group=group,
         )
 
     return forward_fn, loss_fn

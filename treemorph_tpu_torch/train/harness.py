@@ -11,8 +11,22 @@ with best-checkpoint saves, and the same per-epoch history records.
 The train state is the model itself (parameters and BatchNorm running
 statistics, updated in place) with its optimizer and a step count.
 Hierarchical raster training accumulates the gradients of a group of
-minibatches into one optimizer step (:func:`make_accum_steps`). Data
-parallelism (the JAX package's ``mesh`` path) is not ported yet and raises.
+minibatches into one optimizer step (:func:`make_accum_steps`).
+
+Data parallelism (the JAX package's ``mesh`` path, harness.py:128-139):
+with a :class:`~treemorph_tpu_torch.parallel.Mesh` each rank is a process
+that holds its own rows of the batch and differentiates only them, with
+per-rank BatchNorm statistics (torch DDP's default, not SyncBN). The family
+is built with ``group=mesh``, so its loss is the global masked mean and its
+gradient this rank's share of the global loss's; the gradients are summed
+over the ranks once a step (once a minibatch under accumulation, as in
+JAX), the BN running statistics averaged after the update, and every rank
+takes the same optimizer step. Each rank's generator is derived from the
+step's and the rank (the JAX step's ``fold_in(rng, axis_index)``). The
+JAX mesh step differentiates through its ``psum`` and so gets the world
+size times the global loss's gradient; the port's is the gradient its
+docstrings promise, and the global-norm clip makes the two steps equal
+where it bites.
 """
 
 from __future__ import annotations
@@ -25,14 +39,21 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from ..parallel.mesh import (
+    all_reduce_grads,
+    average_buffers,
+    broadcast_flag,
+    pad_batch_to_multiple,
+    rank_generator,
+    replicate,
+    shard_batch,
+)
+
 logger = logging.getLogger("treemorph_tpu_torch.train")
 
 LOSS_BACKWARD_SCALE = 50.0  # reference train_utils.py:58
 GRAD_CLIP_NORM = 1.0  # reference train_utils.py:60
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.scale_by_adam
-
-_MESH_TODO = ("data-parallel training is not ported yet "
-              "(ROADMAP.md queue 1 item 16)")
 
 
 @torch.no_grad()
@@ -108,19 +129,36 @@ def make_train_step(
     :func:`make_optimizer`) keeps the named top-level submodules' BN running
     statistics as they were (the reference forces fixed modules' BN to eval
     mode, TreeLearn.py:79-87); the forward still normalizes with batch
-    statistics, as in the JAX package."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
+    statistics, as in the JAX package.
+
+    With ``mesh`` (build the family with ``group=mesh``) ``batch`` is this
+    rank's shard (:func:`~treemorph_tpu_torch.parallel.shard_batch`):
+    the step differentiates it with this rank's generator, sums the
+    gradients over the ranks, averages the BN running statistics (but the
+    fixed modules') and steps; the metrics are the global masked means."""
     accumulate = _make_backward(forward_fn, loss_fn, fixed_modules)
 
     def train_step(state: TrainState, batch, lr: float, generator=None):
         state.model.zero_grad(set_to_none=True)
-        metrics = accumulate(state.model, batch, generator)
+        if mesh is None:
+            metrics = accumulate(state.model, batch, generator)
+        else:
+            metrics = accumulate(state.model, batch,
+                                 rank_generator(generator, mesh))
+            _reduce_step(state.model, mesh, fixed_modules)
         optimizer_step(state.optimizer, lr)
         state.step += 1
         return state, metrics
 
     return train_step
+
+
+def _reduce_step(model: nn.Module, mesh, fixed_modules: tuple) -> None:
+    """The data-parallel step's reductions: gradients summed over the
+    ranks, floating buffers averaged but the fixed modules'."""
+    all_reduce_grads(model, mesh)
+    average_buffers(model, mesh,
+                    keep=lambda name: _is_fixed(name, tuple(fixed_modules)))
 
 
 def _make_backward(forward_fn: Callable, loss_fn: Callable,
@@ -169,13 +207,30 @@ def make_accum_steps(
       accumulated gradient (the global-norm clip sees the sum), then the
       gradients are cleared.
 
-    :func:`run_training` drives the pair over groups of minibatches."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
+    :func:`run_training` drives the pair over groups of minibatches.
+
+    With ``mesh`` ``accum_step`` works on this rank's shard as
+    :func:`make_train_step` does: each minibatch's gradient is summed over
+    the ranks before it is added to the accumulator (the JAX step's psum
+    per minibatch), and the BN running statistics are averaged per
+    minibatch; ``apply_step`` is the same on every rank."""
     accumulate = _make_backward(forward_fn, loss_fn, fixed_modules)
 
     def accum_step(state: TrainState, batch, generator=None):
-        return state, accumulate(state.model, batch, generator)
+        if mesh is None:
+            return state, accumulate(state.model, batch, generator)
+        params = list(state.model.parameters())
+        held = [p.grad for p in params]
+        for p in params:
+            p.grad = None
+        metrics = accumulate(state.model, batch,
+                             rank_generator(generator, mesh))
+        _reduce_step(state.model, mesh, fixed_modules)
+        with torch.no_grad():
+            for p, g in zip(params, held):
+                if g is not None:
+                    p.grad.add_(g)
+        return state, metrics
 
     def apply_step(state: TrainState, lr: float):
         optimizer_step(state.optimizer, lr)
@@ -188,9 +243,9 @@ def make_accum_steps(
 
 def make_eval_step(forward_fn: Callable, loss_fn: Callable, mesh=None):
     """The eval step ``(state, batch) -> metrics``: BN uses the running
-    statistics, no gradients."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
+    statistics, no gradients. With ``mesh`` (the family built with
+    ``group=mesh``) ``batch`` is this rank's shard and the metrics are the
+    global masked means, the same on every rank."""
 
     def eval_step(state: TrainState, batch):
         model = state.model.eval()
@@ -232,10 +287,25 @@ def run_training(
     ``train_batches(epoch)`` yields groups, iterables of minibatches: each
     minibatch gets its own generator and adds its gradient, and each group
     that held a minibatch takes one optimizer step; ``train_step`` is then
-    unused."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
+    unused.
+
+    With ``mesh`` (a :class:`~treemorph_tpu_torch.parallel.Mesh`, the steps
+    built with it) every rank iterates the same global batches: each is
+    padded to a multiple of the world size with all-invalid elements and
+    this rank's rows go to its device; the state is broadcast from rank 0
+    once. Every rank draws the same step generators. The early-stopping
+    decision is rank 0's on every rank; only rank 0 logs (the caller's
+    ``early_stopper`` should save only there)."""
     device = next(state.model.parameters()).device
+    main = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        replicate(state, mesh)
+
+    def prepare(batch):
+        if mesh is None:
+            return to_device(batch, device)
+        return shard_batch(pad_batch_to_multiple(batch, mesh.size), mesh)
+
     run_generator = torch.Generator().manual_seed(seed)
 
     def step_generator():
@@ -253,21 +323,19 @@ def run_training(
                 state.model.zero_grad(set_to_none=True)
                 n_minibatches = 0
                 for batch in group:
-                    state, metrics = accum_step(
-                        state, to_device(batch, device), step_generator())
+                    state, metrics = accum_step(state, prepare(batch),
+                                                step_generator())
                     train_metrics.append(metrics)
                     n_minibatches += 1
                 if n_minibatches:
                     state = apply_step(state, lr)
         else:
             for batch in train_batches(epoch):
-                state, metrics = train_step(
-                    state, to_device(batch, device), lr, step_generator())
+                state, metrics = train_step(state, prepare(batch), lr,
+                                            step_generator())
                 train_metrics.append(metrics)
-        val_metrics = [
-            eval_step(state, to_device(batch, device))
-            for batch in val_batches(epoch)
-        ]
+        val_metrics = [eval_step(state, prepare(batch))
+                       for batch in val_batches(epoch)]
 
         def mean_of(ms, key):
             if not ms:
@@ -286,15 +354,16 @@ def run_training(
             "val_semantic_loss": mean_of(val_metrics, "semantic_loss"),
         }
         history.append(record)
-        logger.info(
-            "Epoch %d/%d | Train: %.4f Val: %.4f | Off: %.4f/%.4f | "
-            "Sem: %.4f/%.4f | %.1fs",
-            epoch + 1, epochs, record["train_loss"], record["val_loss"],
-            record["train_offset_loss"], record["val_offset_loss"],
-            record["train_semantic_loss"], record["val_semantic_loss"],
-            record["time"],
-        )
-        if verbose:
+        if main:
+            logger.info(
+                "Epoch %d/%d | Train: %.4f Val: %.4f | Off: %.4f/%.4f | "
+                "Sem: %.4f/%.4f | %.1fs",
+                epoch + 1, epochs, record["train_loss"], record["val_loss"],
+                record["train_offset_loss"], record["val_offset_loss"],
+                record["train_semantic_loss"], record["val_semantic_loss"],
+                record["time"],
+            )
+        if verbose and main:
             print(
                 f"Epoch {epoch + 1}/{epochs}  "
                 f"train {record['train_loss']:.4f}  "
@@ -303,8 +372,12 @@ def run_training(
 
         if early_stopper is not None:
             early_stopper(state, record["train_loss"], record["val_loss"])
-            if early_stopper.early_stop:
-                logger.info("Early stopping at epoch %d", epoch + 1)
+            stop = early_stopper.early_stop
+            if mesh is not None:
+                stop = early_stopper.early_stop = broadcast_flag(stop, mesh)
+            if stop:
+                if main:
+                    logger.info("Early stopping at epoch %d", epoch + 1)
                 break
 
     return state, history

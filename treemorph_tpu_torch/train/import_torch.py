@@ -31,10 +31,11 @@ Layout conventions translated:
 
 PTv3 checkpoints convert via :func:`convert_ptv3` (qkv/proj linears, xCPE
 spconv kernels, pooling/unpooling projections+norms, the k=5 stem, MLP
-heads). Activation-level parity against the reference model needs the
-reference's per-element window padding (``pad_per_element``, ROADMAP item
-11d), which the port does not have yet; the conversion itself matches the
-JAX package's converter.
+heads), matching the JAX package's converter. Activation-level parity
+against the reference model needs the reference's per-element window
+padding, which the port's PTv3 has (``pad_per_element=True``); it is not
+checked here, since neither the reference module nor one of its
+checkpoints is at hand.
 """
 
 from __future__ import annotations
